@@ -1,0 +1,386 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
+``build/``), holds each against its plain PyTorch version at the serve
+path's shapes and the ``FLASH_CASES`` of tests/test_kernels.py, then serves
+qwen3-14b at full width (40 layers, d=5120, bf16 weights drawn on the card
+from seed 0): 4 prompts of 512 tokens, 32 greedy tokens each, with a
+max_seq of 1024.  It checks that the serve run launched the kernels, that
+the tokens and logits are sane, and that decode agrees with prefill, then
+times prefill and decode and profiles one of each (kernel busy time).
+Every phase raises on failure; the script then exits non-zero.
+
+The last two lines are a JSON ``kernels`` record (times, bounds, launches)
+and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
+the rest of the repository beside it, it exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+# Published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+
+# tests/test_kernels.py:16-17, used as both rtol and atol
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+FLASH_CASES = [
+    # (B, H, Kh, Sq, Skv, D, causal, window): tests/test_kernels.py:24-32
+    (1, 2, 2, 128, 128, 64, True, 0),
+    (2, 4, 2, 128, 128, 64, True, 0),
+    (1, 4, 1, 256, 256, 32, True, 0),
+    (1, 2, 2, 128, 128, 64, False, 0),
+    (1, 2, 2, 256, 256, 64, True, 64),
+    (1, 2, 1, 64, 512, 64, True, 0),
+]
+
+ARCH, BATCH, PROMPT, NEW_TOKENS, MAX_SEQ, SEED = "qwen3-14b", 4, 512, 32, 1024, 0
+
+# Decode versus prefill of the longer prompt, in bf16 (see check_cache).
+CACHE_REL_L2_TOL = 5e-2
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    r = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return r.stdout.strip().splitlines()[0]
+
+
+def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median CUDA-event time of ``fn`` over ``reps`` runs, each after a write
+    of 64 MB that evicts the 50 MB L2, with a synchronize around each run."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound(nbytes: float, ops: float, dtype: str):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def compare(torch, what: str, got, want, dtype: str) -> float:
+    tol = TOL[dtype]
+    err = (got.float() - want.float()).abs().max().item()
+    ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+    log(f"[kernels] {what}: max_abs_err={err:.3e} tol={tol:g} {'ok' if ok else 'FAIL'}")
+    if not ok or got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{what}: kernel disagrees with its plain version (max_abs_err {err})")
+    return err
+
+
+def check_rmsnorm(torch, rn, ref, gen):
+    """Kernel against plain version; returns the record at the path's shape."""
+    rows = BATCH * PROMPT
+    shapes = [(rows, 5120), (rows * 40, 128), (BATCH, 5120), (5, 16383)]
+    path_err = None
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        for shape in shapes:
+            x = torch.randn(shape, generator=gen, device="cuda").to(dt)
+            w = (torch.randn(shape[-1], generator=gen, device="cuda") * 0.1).to(dt)
+            err = compare(torch, f"rmsnorm {shape} {dtype}", rn.rmsnorm(x, w), ref.rmsnorm_ref(x, w), dtype)
+            if shape == shapes[0] and dtype == "bfloat16":
+                path_err = err
+    torch.cuda.synchronize()
+    x = torch.randn(shapes[0], generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(5120, generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+    w1 = 1.0 + w  # the library call takes the whole scale
+    ms = time_ms(torch, lambda: rn.rmsnorm(x, w))
+    plain = time_ms(torch, lambda: ref.rmsnorm_ref(x, w))
+    lib = time_ms(torch, lambda: torch.nn.functional.rms_norm(x, (5120,), w1, 1e-6))
+    b_ms, b_by = bound(2 * x.numel() * 2 + w.numel() * 2, 4 * x.numel(), "bfloat16")
+    log(f"[kernels] rmsnorm {tuple(x.shape)} bf16: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+        f"F.rms_norm {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return {
+        "name": "rmsnorm", "route": "cuda", "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+        "replaces": "src/repro/kernels/rmsnorm.py:25", "shape": f"x {tuple(x.shape)} bf16",
+        "max_abs_err": path_err, "ms": ms, "kernel_ms": ms, "plain_ms": plain,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+    }
+
+
+def flash_pairs(torch, Sq, Skv, causal, window, q_offset) -> int:
+    """(query, key) pairs the masks leave visible: the work these inputs need."""
+    qpos = q_offset + torch.arange(Sq)
+    kpos = torch.arange(Skv)
+    mask = torch.ones(Sq, Skv, dtype=torch.bool)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window:
+        mask &= (qpos[:, None] - kpos[None, :]) < window
+    return int(mask.sum())
+
+
+def check_flash(torch, fa, ref, gen):
+    cfg_case = (BATCH, 40, 8, PROMPT, PROMPT, 128, True, 0)
+    ragged = (BATCH, 40, 8, PROMPT + 1, PROMPT + 1, 128, True, 0)  # prefill of prompt + token
+    path_err = None
+
+    def inputs(B, H, Kh, Sq, Skv, D, dt):
+        q = torch.randn(B, H, Sq, D, generator=gen, device="cuda") / D ** 0.5
+        k = torch.randn(B, Kh, Skv, D, generator=gen, device="cuda") / D ** 0.5
+        v = torch.randn(B, Kh, Skv, D, generator=gen, device="cuda")
+        return q.to(dt), k.to(dt), v.to(dt)
+
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        for case in [cfg_case, ragged] + FLASH_CASES:
+            B, H, Kh, Sq, Skv, D, causal, window = case
+            q, k, v = inputs(B, H, Kh, Sq, Skv, D, dt)
+            off = Skv - Sq
+            got = fa.flash_attention_fwd(q, k, v, causal=causal, window=window, q_offset=off)
+            want = ref.flash_attention_ref(q, k, v, causal, window, off)
+            err = compare(torch, f"flash {case} q_offset={off} {dtype}", got, want, dtype)
+            if case == cfg_case and dtype == "bfloat16":
+                path_err = err
+    torch.cuda.synchronize()
+    B, H, Kh, S, _, D, _, _ = cfg_case
+    q, k, v = inputs(B, H, Kh, S, S, D, torch.bfloat16)
+    ms = time_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, causal=True))
+    plain = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, True, 0, 0))
+    lib = time_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True))
+    ops = 4 * B * H * D * flash_pairs(torch, S, S, True, 0, 0)  # QK^T and PV, 2 ops per MAC
+    b_ms, b_by = bound((2 * q.numel() + k.numel() + v.numel()) * 2, ops, "bfloat16")  # q, o, k, v
+    log(f"[kernels] flash {tuple(q.shape)}x{tuple(k.shape)} causal bf16: kernel {ms:.4f} ms, "
+        f"plain {plain:.4f} ms, SDPA {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+        f"{ops / ms / 1e9:.2f} TFLOP/s")
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:93",
+        "shape": f"q {tuple(q.shape)} kv {tuple(k.shape)} causal bf16",
+        "max_abs_err": path_err, "ms": ms, "kernel_ms": ms, "plain_ms": plain,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+    }
+
+
+def expected_launches(cfg, decode_steps: int):
+    """RMSNorm: ln1 + ln2 + final, the qk-norm of q and k, and in prefill
+    the k-norm again (attention_prefill_kv recomputes k, as the JAX package
+    does).  Flash attention: once per layer in prefill; decode has none."""
+    L = cfg.num_layers
+    per_decode = 2 * L + 1 + 2 * L
+    prefill = per_decode + L
+    return {"rmsnorm": prefill + decode_steps * per_decode, "flash_attention": L}
+
+
+def check_cache(torch, T, eng, toks):
+    """Decode step 1 against the last position of prefill(prompt + token).
+
+    Both sides run bf16 weights and activations: the two paths round in
+    different places (the flash kernel against decode's plain attention,
+    matmuls of 2052 rows against 4), and 40 layers carry those roundings on.
+    Held as a relative L2 error of the logit vector against CACHE_REL_L2_TOL,
+    and the greedy token must agree on most rows."""
+    cfg, params = eng.cfg, eng.params
+    with torch.inference_mode():
+        logits, caches = T.prefill(cfg, params, {"tokens": toks}, MAX_SEQ)
+        if not torch.isfinite(logits).all():
+            raise AssertionError("prefill logits are not finite")
+        first = logits[:, : cfg.vocab_size].argmax(-1)[:, None]  # greedy, as the engine
+        step1, _ = T.decode_step(cfg, params, first, PROMPT, caches)
+        longer, _ = T.prefill(cfg, params, {"tokens": torch.cat([toks, first], dim=1)}, MAX_SEQ)
+    if not torch.isfinite(step1).all():
+        raise AssertionError("decode logits are not finite")
+    V = cfg.vocab_size
+    a, b = step1[:, :V].float(), longer[:, :V].float()
+    rel = ((a - b).norm() / b.norm()).item()
+    max_abs = (a - b).abs().max().item()
+    agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+    log(f"[serve] cache check: decode step 1 vs prefill(prompt + token): rel_l2={rel:.3e} "
+        f"max_abs={max_abs:.3e} (|logit| max {b.abs().max().item():.3f}) argmax agree {agree:.2f}")
+    if rel > CACHE_REL_L2_TOL:
+        raise AssertionError(f"decode disagrees with prefill: rel_l2 {rel} > {CACHE_REL_L2_TOL}")
+    return rel, max_abs
+
+
+def serve(torch, card: str):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import build_engine, random_prompts
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import ServeOptions
+
+    cfg = get_config(ARCH)
+    t0 = time.perf_counter()
+    eng = build_engine(cfg, "cuda", SEED, ServeOptions(max_seq=MAX_SEQ, batch_size=BATCH))
+    torch.cuda.synchronize()
+    weight_gb = sum(t.numel() * t.element_size() for t in _leaves(eng.params)) / 1e9
+    log(f"[serve] {cfg.name}: {cfg.param_count() / 1e9:.2f} B parameters, {weight_gb:.2f} GB of "
+        f"{cfg.param_dtype} weights drawn on the card in {time.perf_counter() - t0:.1f} s")
+    tokens = random_prompts(cfg, BATCH, PROMPT, SEED)
+    toks = torch.as_tensor(tokens, device="cuda")
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = eng.generate({"tokens": tokens}, NEW_TOKENS)  # the main path
+    gen_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = expected_launches(cfg, NEW_TOKENS - 1)
+    log(f"[serve] generate: {out.shape} tokens in {gen_s:.3f} s; launches {counts} (expected {want})")
+    if counts != want:
+        raise AssertionError(f"kernel launches {counts} != expected {want}")
+    if out.shape != (BATCH, NEW_TOKENS) or out.min() < 0 or out.max() >= cfg.vocab_size:
+        raise AssertionError(f"tokens out of range or of the wrong shape: {out.shape}, {out.min()}..{out.max()}")
+
+    rel, max_abs = check_cache(torch, T, eng, toks)
+
+    with torch.inference_mode():
+        pre = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = T.prefill(cfg, eng.params, {"tokens": toks}, MAX_SEQ)
+            torch.cuda.synchronize()
+            pre.append((time.perf_counter() - t0) * 1e3)
+        tok = logits[:, : cfg.vocab_size].argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(NEW_TOKENS - 1):
+            logits, caches = T.decode_step(cfg, eng.params, tok, PROMPT + i, caches)
+            tok = logits[:, : cfg.vocab_size].argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        dec_ms = (time.perf_counter() - t0) * 1e3 / (NEW_TOKENS - 1)
+        prefill_ms = statistics.median(pre)
+        prefill_busy = device_profile(
+            torch, lambda: T.prefill(cfg, eng.params, {"tokens": toks}, MAX_SEQ), "prefill", prefill_ms)
+        decode_busy = device_profile(
+            torch, lambda: T.decode_step(cfg, eng.params, tok, PROMPT + NEW_TOKENS - 1, caches),
+            "decode step", dec_ms)
+    log(f"[serve] {card}: prefill {BATCH}x{PROMPT} {prefill_ms:.2f} ms (median of 3), decode "
+        f"{dec_ms:.2f} ms per step of {BATCH} tokens, generate {BATCH * NEW_TOKENS / gen_s:.1f} tok/s "
+        f"(prefill included), peak memory {peak_gb:.2f} GB")
+    return counts, {"prefill_ms": prefill_ms, "decode_ms_per_step": dec_ms,
+                    "prefill_kernel_busy_ms": prefill_busy, "decode_kernel_busy_ms": decode_busy,
+                    "generate_tok_s": BATCH * NEW_TOKENS / gen_s, "peak_gb": peak_gb,
+                    "cache_rel_l2": rel, "cache_max_abs": max_abs}
+
+
+def device_profile(torch, fn, label: str, wall_ms: float):
+    """Device busy time of one call of ``fn`` by torch.profiler: the union of
+    the intervals of its device-side events (kernels, copies), against the
+    unprofiled wall time, and the device events that took the most time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_us, end = 0.0, None
+    for s, e in sorted((e.time_range.start, e.time_range.end) for e in events):
+        if end is None or s > end:
+            busy_us += e - s
+            end = e
+        elif e > end:
+            busy_us += e - end
+            end = e
+    per_name = {}
+    for e in events:
+        t, n = per_name.get(e.name, (0.0, 0))
+        per_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
+    top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:6]
+    busy = busy_us / 1e3
+    log(f"[profile] {label}: device busy {busy:.2f} ms of {wall_ms:.2f} ms wall "
+        f"({100 * busy / wall_ms:.1f}%), {len(events)} device events; top: " + "; ".join(
+            f"{name[:60]} {t / 1e3:.2f} ms x{n}" for name, (t, n) in top))
+    return busy
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
+        return 1
+    src = Path(__file__).resolve().parent / "src"
+    if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
+        print(f"chip_smoke: the port is missing ({src / 'repro_torch'})", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(src))
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rn
+
+    # Phase 1: the card, and the kernels built from source.
+    kind = torch.cuda.get_device_name(0)
+    card = card_line()
+    log(f"[card] {kind}; torch {torch.__version__} cuda {torch.version.cuda}; nvidia-smi:")
+    log(card)
+    t0 = time.perf_counter()
+    reports = _build.build()
+    log(f"[build] {sorted(reports) or 'cached'} in {time.perf_counter() - t0:.1f} s")
+    for name, rep in sorted(reports.items()):
+        for line in rep.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
+
+    # Phase 2: each kernel against its plain version, on the card.
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in full f32
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    records = [check_rmsnorm(torch, rn, ref, gen), check_flash(torch, fa, ref, gen)]
+
+    # Phase 3: serve the full-width model through the port's entry points.
+    counts, metrics = serve(torch, card)
+    for r in records:
+        r["launches"] = counts[r["name"]]
+    log(f"[serve] metrics {json.dumps(metrics)} on {card}")
+
+    # Phase 4 and 5: the kernels record, then the result.
+    print(json.dumps({"kernels": records}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,62 @@
+"""Architecture registry of the port: the configs whose path it runs.
+
+Only qwen3-14b so far; the other architectures of ``repro.configs`` arrive
+with the slices that run them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+from repro_torch.configs.base import LayerSpec, ModelConfig, ShapeSpec  # noqa: F401
+from repro_torch.configs.qwen3_14b import CONFIG as QWEN3
+
+ARCHS: Dict[str, ModelConfig] = {c.name: c for c in [QWEN3]}
+
+
+def get_config(name: str) -> ModelConfig:
+    if name not in ARCHS:
+        raise KeyError(f"unknown arch {name!r}; available: {sorted(ARCHS)}")
+    return ARCHS[name]
+
+
+def reduced_config(cfg: ModelConfig) -> ModelConfig:
+    """Tiny same-family variant for CPU smoke tests: identical structure
+    (pattern, attention flavors, MoE/SSM wiring), minimal widths."""
+    head_dim = 16
+    heads = 4
+    ratio = max(1, cfg.num_heads // cfg.num_kv_heads)
+    kv = max(1, heads // ratio)
+    half = head_dim // 2
+    mrope = (2, 3, 3) if cfg.rope == "mrope" else ()
+    assert not mrope or sum(mrope) == half
+    nblocks = min(2, cfg.num_blocks)
+    return dataclasses.replace(
+        cfg,
+        name=cfg.name + "-smoke",
+        num_layers=len(cfg.pattern) * nblocks + len(cfg.tail_pattern),
+        d_model=64,
+        num_heads=heads,
+        num_kv_heads=kv,
+        d_ff=128,
+        vocab_size=509,  # deliberately non-multiple: exercises vocab padding
+        head_dim=head_dim,
+        mrope_sections=mrope,
+        num_experts=4 if cfg.num_experts else 0,
+        top_k=min(cfg.top_k, 2),
+        ssm_state_dim=8,
+        rwkv_head_size=16,
+        encoder_layers=2 if cfg.encoder_layers else 0,
+        encoder_seq=32 if cfg.encoder_seq else 0,
+        dtype="float32",
+        param_dtype="float32",
+        pattern=tuple(
+            dataclasses.replace(s, window=min(s.window, 8) if s.window else 0)
+            for s in cfg.pattern
+        ),
+        tail_pattern=tuple(
+            dataclasses.replace(s, window=min(s.window, 8) if s.window else 0)
+            for s in cfg.tail_pattern
+        ),
+    )

@@ -1,0 +1,51 @@
+"""Carry a parameter tree of the JAX package over to the port.
+
+``jax.random`` streams cannot be reproduced in PyTorch, so the tests draw
+weights once in the JAX package and hand the same numbers to both packages:
+the leaves of ``repro.models.common.init_params(T.model_skel(cfg), key)``
+passed through ``np.asarray``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer as T
+from repro_torch.models.common import is_param
+
+
+def params_from_jax(tree, cfg, device=None, dtype=None):
+    """The port's parameters for ``cfg`` from a tree of numpy arrays.
+
+    The tree must have the names and shapes of ``T.model_skel(cfg)`` (stacked
+    "layers" axes included); anything else raises ``ValueError``.  Each leaf
+    keeps its own type (bfloat16 stays bfloat16) unless ``dtype`` is given.
+    """
+    dev = resolve_device(device)
+    want = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+
+    def leaf(p, a, path):
+        a = np.asarray(a)
+        if tuple(a.shape) != tuple(p.shape):
+            raise ValueError(f"{path}: shape {a.shape}, the port expects {p.shape}")
+        if a.dtype.name == "bfloat16":  # ml_dtypes: exact through f32
+            t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.ascontiguousarray(a))
+        return t.to(device=dev, dtype=want or t.dtype)
+
+    def walk(skel, node, path):
+        if is_param(skel):
+            return leaf(skel, node, path)
+        if isinstance(skel, dict):
+            if not isinstance(node, dict) or set(node) != set(skel):
+                got = sorted(node) if isinstance(node, dict) else type(node).__name__
+                raise ValueError(f"{path or 'params'}: keys {got}, the port expects {sorted(skel)}")
+            return {k: walk(skel[k], node[k], f"{path}/{k}") for k in skel}
+        if not isinstance(node, (list, tuple)) or len(node) != len(skel):
+            raise ValueError(f"{path}: expected a list of {len(skel)} stages")
+        return [walk(s, n, f"{path}[{i}]") for i, (s, n) in enumerate(zip(skel, node))]
+
+    return walk(T.model_skel(cfg), tree, "")

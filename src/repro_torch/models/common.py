@@ -1,0 +1,118 @@
+"""Parameter skeleton system + shared layer math (port of ``repro.models.common``).
+
+Models are defined as *skeletons*: nested dicts (and lists) of ``Param``
+descriptors (shape, dtype name, logical axes, initializer).  The port keeps
+the JAX package's tree of names and its logical axis names, so a parameter
+tree of one package maps leaf for leaf onto the other (``convert``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Optional, Tuple
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
+
+
+@dataclasses.dataclass(frozen=True)
+class Param:
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]
+    init: str = "normal"  # normal | zeros
+    scale: float = 1.0
+    dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+
+def is_param(x) -> bool:
+    return isinstance(x, Param)
+
+
+def tree_map_params(fn: Callable[[Param], Any], skel):
+    """Apply ``fn`` to every ``Param`` of a skeleton of dicts and lists."""
+    if is_param(skel):
+        return fn(skel)
+    if isinstance(skel, dict):
+        return {k: tree_map_params(fn, v) for k, v in skel.items()}
+    if isinstance(skel, (list, tuple)):
+        return type(skel)(tree_map_params(fn, v) for v in skel)
+    raise TypeError(f"unexpected skeleton node {type(skel).__name__}")
+
+
+def init_params(skel, generator: torch.Generator, device=None, dtype_override=None):
+    """Draw every parameter on ``device`` (the card unless ``"cpu"`` is asked for).
+
+    The std rule is the JAX package's: ``scale / sqrt(shape[-2])`` (the fan-in),
+    norm weights zero.  ``generator`` must live on the same device; its
+    stream is not ``jax.random``'s, so the values differ from the JAX package's
+    for the same seed (``convert.params_from_jax`` carries those across).
+    """
+    dev = resolve_device(device)
+
+    def draw(p: Param) -> torch.Tensor:
+        dtype = getattr(torch, dtype_override or p.dtype)
+        if p.init == "zeros":
+            return torch.zeros(p.shape, dtype=dtype, device=dev)
+        fan_in = p.shape[-2] if len(p.shape) >= 2 else p.shape[-1]
+        std = p.scale / math.sqrt(max(1, fan_in))
+        # drawn in place in the target type: no f32 copy of a stacked leaf
+        return torch.empty(p.shape, dtype=dtype, device=dev).normal_(0.0, std, generator=generator)
+
+    return tree_map_params(draw, skel)
+
+
+# ---------------------------------------------------------------------------
+# layer math (activations in cfg.dtype, reductions in f32)
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """``x * rsqrt(mean(x^2) + eps) * (1 + w)``: the RMSNorm kernel on the card."""
+    return ops.rmsnorm(x, w, eps)
+
+
+def norm_skel(cfg):
+    if cfg.norm != "rmsnorm":
+        raise NotImplementedError(f"norm {cfg.norm!r}: the port runs rmsnorm only so far")
+    return {"w": Param((cfg.d_model,), ("embed",), init="zeros")}
+
+
+def apply_norm(cfg, p, x):
+    if cfg.norm != "rmsnorm":
+        raise NotImplementedError(f"norm {cfg.norm!r}: the port runs rmsnorm only so far")
+    return rmsnorm(x, p["w"])
+
+
+def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w in x's type (w is cast to it, as JAX promotes a bf16 weight against
+    f32 activations).  On the card cuBLAS accumulates bf16 products in f32 and
+    rounds the output to bf16, as the JAX package's f32-accumulated dot does."""
+    return torch.matmul(x, w.to(x.dtype))
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, D); positions: broadcastable to (..., S)."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, device=x.device)  # (D/2,)
+    angles = positions[..., None].float() * freqs  # (..., S, D/2)
+    cos = torch.cos(angles)[..., None, :]  # (..., S, 1, D/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)

@@ -1,0 +1,190 @@
+"""The port's kernels on the CPU: their plain versions against the JAX
+package's kernels (Pallas in interpret mode) and plain versions, over the
+sweeps of tests/test_kernels.py, plus the dispatch and build rules.
+
+The CUDA kernels themselves run only on the card: tests/test_torch_gpu.py.
+"""
+
+import ctypes
+import re
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import _build
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels import rmsnorm as trn
+
+DTYPES = ["float32", "bfloat16"]
+
+FLASH_CASES = [
+    # (B, H, Kh, Sq, Skv, D, causal, window), as tests/test_kernels.py
+    (1, 2, 2, 128, 128, 64, True, 0),
+    (2, 4, 2, 128, 128, 64, True, 0),     # GQA 2:1
+    (1, 4, 1, 256, 256, 32, True, 0),     # MQA
+    (1, 2, 2, 128, 128, 64, False, 0),    # bidirectional (encoder)
+    (1, 2, 2, 256, 256, 64, True, 64),    # sliding window
+    (1, 2, 1, 64, 512, 64, True, 0),      # Sq != Skv
+]
+
+# Shapes the Pallas kernel cannot take (it asserts tile divisibility), held
+# against the JAX package's plain version: ragged lengths, a prompt of 513
+# tokens (prefill of prompt + first token), and rows with no visible key.
+RAGGED_CASES = [
+    # (B, H, Kh, Sq, Skv, D, causal, window, q_offset)
+    (2, 4, 1, 100, 100, 16, True, 0, 0),
+    (1, 5, 1, 33, 33, 48, True, 0, 0),
+    (1, 2, 1, 7, 70, 32, True, 0, 63),
+    (1, 2, 2, 40, 40, 32, True, 5, 0),
+    (1, 2, 2, 16, 16, 32, True, 0, -4),   # first 4 rows see no key: zeros
+    (1, 4, 1, 513, 513, 16, True, 0, 0),
+]
+
+RMSNORM_SHAPES = [(4, 64), (3, 7, 256), (1000, 128)]
+
+
+def tol(dtype):
+    """tests/test_kernels.py:16-17."""
+    return dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" else dict(rtol=2e-5, atol=2e-5)
+
+
+def both(a: np.ndarray, dtype: str):
+    """The same numbers as a JAX array and a torch tensor of ``dtype``."""
+    j = jnp.asarray(a, getattr(jnp, dtype))
+    t = torch.from_numpy(np.array(j, np.float32)).to(getattr(torch, dtype))  # exact
+    return j, t
+
+
+def f32(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def flash_inputs(B, H, Kh, Sq, Skv, D, dtype, seed=0):
+    rng = np.random.RandomState(seed)
+    q = rng.randn(B, H, Sq, D) / np.sqrt(D)
+    k = rng.randn(B, Kh, Skv, D) / np.sqrt(D)
+    v = rng.randn(B, Kh, Skv, D)
+    return both(q, dtype), both(k, dtype), both(v, dtype)
+
+
+@pytest.fixture(autouse=True)
+def _zero_counts():
+    tops.reset_launch_counts()
+    yield
+    tops.reset_launch_counts()
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_ref_matches_jax_kernel(case, dtype):
+    B, H, Kh, Sq, Skv, D, causal, window = case
+    (jq, q), (jk, k), (jv, v) = flash_inputs(B, H, Kh, Sq, Skv, D, dtype)
+    q_offset = Skv - Sq if Sq != Skv else 0
+    want = jops.flash_attention(jq, jk, jv, causal, window, q_offset)
+    got = tref.flash_attention_ref(q, k, v, causal, window, q_offset)
+    assert got.dtype == getattr(torch, dtype) and got.shape == (B, H, Sq, D)
+    np.testing.assert_allclose(f32(got), f32(want), **tol(dtype))
+
+
+@pytest.mark.parametrize("case", [c + (c[4] - c[3],) for c in FLASH_CASES] + RAGGED_CASES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_ops_on_cpu_matches_jax_ref(case, dtype):
+    B, H, Kh, Sq, Skv, D, causal, window, q_offset = case
+    (jq, q), (jk, k), (jv, v) = flash_inputs(B, H, Kh, Sq, Skv, D, dtype, seed=1)
+    want = jref.flash_attention_ref(jq, jk, jv, causal, window, q_offset)
+    got = tops.flash_attention(q, k, v, causal, window, q_offset)
+    np.testing.assert_allclose(f32(got), f32(want), **tol(dtype))
+    assert tops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0}
+
+
+def test_flash_fully_masked_rows_are_zero():
+    (_, q), (_, k), (_, v) = flash_inputs(1, 2, 2, 16, 16, 32, "float32")
+    out = tops.flash_attention(q, k, v, True, 0, -4)
+    assert torch.all(out[:, :, :4] == 0) and torch.all(out[:, :, 4:].abs().sum(-1) > 0)
+
+
+@pytest.mark.parametrize("shape", RMSNORM_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rmsnorm_ref_matches_jax_kernel(shape, dtype):
+    rng = np.random.RandomState(4)
+    jx, x = both(rng.randn(*shape), dtype)
+    jw, w = both(rng.randn(shape[-1]) * 0.1, dtype)
+    want = jops.rmsnorm(jx, jw)
+    got = tref.rmsnorm_ref(x, w)
+    assert got.dtype == x.dtype and got.shape == x.shape
+    np.testing.assert_allclose(f32(got), f32(want), **tol(dtype))
+
+
+@pytest.mark.parametrize("shape", RMSNORM_SHAPES + [(5, 16383)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rmsnorm_ops_on_cpu_matches_jax_ref(shape, dtype):
+    rng = np.random.RandomState(5)
+    jx, x = both(rng.randn(*shape), dtype)
+    jw, w = both(rng.randn(shape[-1]) * 0.1, "float32")  # w keeps its own type
+    want = jref.rmsnorm_ref(jx, jw)
+    got = tops.rmsnorm(x, w)
+    np.testing.assert_allclose(f32(got), f32(want), **tol(dtype))
+    assert tops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0}
+
+
+# ---------------------------------------------------------------------------
+# rules: no fallback, no build at import, a missing toolkit raises
+# ---------------------------------------------------------------------------
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    x = torch.randn(4, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        trn.rmsnorm(x, torch.zeros(8))
+    q = torch.randn(1, 2, 8, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention_fwd(q, q[:, :1].contiguous(), q[:, :1].contiguous())
+    assert tops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0}
+
+
+def test_ops_send_non_cpu_tensors_to_the_kernel():
+    """A tensor off the CPU never takes the plain version: here (meta) the
+    kernel wrapper refuses it instead of computing anything."""
+    x = torch.empty(4, 8, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        tops.rmsnorm(x, torch.empty(8, device="meta"))
+    q = torch.empty(1, 2, 8, 16, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        tops.flash_attention(q, q, q)
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setattr(_build, "TOOLKIT_NVCC", str(tmp_path / "nvcc"))
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()
+    assert not (tmp_path / "build").exists()
+
+
+C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "int": ctypes.c_int,
+           "long long": ctypes.c_longlong, "float": ctypes.c_float}
+
+
+@pytest.mark.parametrize("wrapper,name", [(trn, "rmsnorm_fwd"), (tfa, "flash_attention_fwd")])
+def test_ctypes_signature_matches_the_c_interface(wrapper, name):
+    """The wrapper's argtypes follow the extern "C" prototype in csrc/, one
+    for one: ctypes would otherwise pass a pointer cut to 32 bits or refuse."""
+    src = (_build.CSRC / f"{name.rsplit('_', 1)[0]}.cu").read_text()
+    proto = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src).group(1)
+    params = [" ".join(p.split()[:-1]).replace(" *", "*") for p in proto.split(",")]
+    assert [C_TYPES[p] for p in params] == wrapper.ARGTYPES
+
+
+def test_build_key_covers_every_source():
+    assert {p.stem for p in _build.CSRC.glob("*.cu")} == set(_build.SOURCES)
