@@ -4,13 +4,21 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
-``build/``), holds each against its plain PyTorch version at the serve
-path's shapes and the ``FLASH_CASES`` of tests/test_kernels.py, then serves
-qwen3-14b at full width (40 layers, d=5120, bf16 weights drawn on the card
-from seed 0): 4 prompts of 512 tokens, 32 greedy tokens each, with a
-max_seq of 1024.  It checks that the serve run launched the kernels, that
-the tokens and logits are sane, and that decode agrees with prefill, then
-times prefill and decode and profiles one of each (kernel busy time).
+``build/``), holds each against its plain PyTorch version at the main paths'
+shapes and the sweeps of tests/test_kernels.py, then drives two paths:
+
+- serve: qwen3-14b at full width (40 layers, d=5120, bf16 weights drawn on
+  the card from seed 0), 4 prompts of 512 tokens, 32 greedy tokens each, with
+  a max_seq of 1024.  It checks that the serve run launched the kernels, that
+  the tokens and logits are sane, and that decode agrees with prefill, then
+  times prefill and decode and profiles one of each (kernel busy time).
+- sync: the train step's cross-pod gradient sync (``launch/sync.py``) on 4
+  rank processes that share the card, over the bf16 gradient tree of one
+  full-width qwen3-14b decoder block per rank, by every method.  Each rank
+  checks its hop-kernel launches against the schedules' prediction and its
+  result against the seeded mean; the chain methods' ranks must agree bit
+  for bit.  Ranks 0 and 1 also measure the host-staged link.
+
 Every phase raises on failure; the script then exits non-zero.
 
 The last two lines are a JSON ``kernels`` record (times, bounds, launches)
@@ -20,7 +28,9 @@ the rest of the repository beside it, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -45,6 +55,10 @@ FLASH_CASES = [
 ]
 
 ARCH, BATCH, PROMPT, NEW_TOKENS, MAX_SEQ, SEED = "qwen3-14b", 4, 512, 32, 1024, 0
+
+# The sync phase: rank processes on the one card (each with one decoder
+# block of gradients)
+SYNC_RANKS = 4
 
 # Decode versus prefill of the longer prompt, in bf16 (see check_cache).
 CACHE_REL_L2_TOL = 5e-2
@@ -186,6 +200,70 @@ def check_flash(torch, fa, ref, gen):
     }
 
 
+def hop_chunk_elems(cfg, C) -> int:
+    """Elements of one chunk of the largest leaf (w_gate, d x d_ff) in the
+    full-width sync: the shape each chain hop hands the kernel."""
+    n = cfg.d_model * cfg.d_ff
+    nchunks = C.HOST_STAGED_CONFIG.chunks_for(SYNC_RANKS, n * 2)  # bf16
+    return -(-n // nchunks)
+
+
+def check_chunk_reduce(torch, cr, ref, gen, chunk: int):
+    for n in (17, 4096, 100_000):
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            for alpha in (1.0, 0.5):
+                for into in ("new", "dst"):
+                    dst = torch.randn(n, generator=gen, device="cuda").to(dt)
+                    src = torch.randn(n, generator=gen, device="cuda").to(dt)
+                    want = ref.chunk_reduce_ref(dst, src, alpha)
+                    got = cr.chunk_reduce(dst, src, alpha, out=dst if into == "dst" else None)
+                    compare(torch, f"chunk_reduce n={n} {dtype} alpha={alpha} out={into}", got, want, dtype)
+    dst = torch.randn(chunk, generator=gen, device="cuda").to(torch.bfloat16)
+    src = torch.randn(chunk, generator=gen, device="cuda").to(torch.bfloat16)
+    want = ref.chunk_reduce_ref(dst, src, 1.0)
+    path_err = compare(torch, f"chunk_reduce n={chunk} (the hop's chunk) bf16 out=dst",
+                       cr.chunk_reduce(dst, src, 1.0, out=dst), want, "bfloat16")
+    torch.cuda.synchronize()
+    ms = time_ms(torch, lambda: cr.chunk_reduce(dst, src, 1.0, out=dst))
+    plain = time_ms(torch, lambda: ref.chunk_reduce_ref(dst, src, 1.0))
+    lib = time_ms(torch, lambda: torch.add(dst, src, alpha=1.0))
+    b_ms, b_by = bound(3 * chunk * 2, 2 * chunk, "float32")  # f32 math on the CUDA cores
+    log(f"[kernels] chunk_reduce n={chunk} bf16 in place: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+        f"torch.add {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return {
+        "name": "chunk_reduce", "route": "cuda", "source": "src/repro_torch/kernels/csrc/chunk_reduce.cu",
+        "replaces": "src/repro/kernels/chunk_reduce.py:29", "shape": f"dst, src ({chunk},) bf16, out = dst",
+        "max_abs_err": path_err, "ms": ms, "kernel_ms": ms, "plain_ms": plain,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+    }
+
+
+def check_dequant_add(torch, cr, ref, compression, gen, leaf: int):
+    path_err = None
+    for n, dtypes in ((300, ("float32", "bfloat16")), (70_000, ("float32", "bfloat16")), (leaf, ("float32",))):
+        for dtype in dtypes:
+            dst = torch.randn(n, generator=gen, device="cuda").to(getattr(torch, dtype))
+            q, scale = compression.quantize_int8(torch.randn(n, generator=gen, device="cuda"))
+            q = q.reshape(-1)
+            err = compare(torch, f"dequant_add n={n} {dtype}", cr.dequant_add(dst, q, scale),
+                          ref.dequant_add_ref(dst, q, scale, 256), dtype)
+            if n == leaf:
+                path_err = err
+    torch.cuda.synchronize()
+    ms = time_ms(torch, lambda: cr.dequant_add(dst, q, scale))
+    plain = time_ms(torch, lambda: ref.dequant_add_ref(dst, q, scale, 256))
+    b_ms, b_by = bound(leaf * (2 * 4 + 1) + 4 * leaf / 256, 2 * leaf, "float32")
+    log(f"[kernels] dequant_add n={leaf} f32: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+        f"no library call, bound {b_ms:.4f} ms ({b_by})")
+    return {
+        "name": "dequant_add", "route": "cuda", "source": "src/repro_torch/kernels/csrc/chunk_reduce.cu",
+        "replaces": "src/repro/kernels/chunk_reduce.py:69", "shape": f"dst ({leaf},) f32 (w_gate), q int8",
+        "max_abs_err": path_err, "ms": ms, "kernel_ms": ms, "plain_ms": plain,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+    }
+
+
 def expected_launches(cfg, decode_steps: int):
     """RMSNorm: ln1 + ln2 + final, the qk-norm of q and k, and in prefill
     the k-norm again (attention_prefill_kv recomputes k, as the JAX package
@@ -193,7 +271,8 @@ def expected_launches(cfg, decode_steps: int):
     L = cfg.num_layers
     per_decode = 2 * L + 1 + 2 * L
     prefill = per_decode + L
-    return {"rmsnorm": prefill + decode_steps * per_decode, "flash_attention": L}
+    return {"rmsnorm": prefill + decode_steps * per_decode, "flash_attention": L,
+            "chunk_reduce": 0, "dequant_add": 0}
 
 
 def check_cache(torch, T, eng, toks):
@@ -232,12 +311,13 @@ def serve(torch, card: str):
     from repro_torch.launch.serve import build_engine, random_prompts
     from repro_torch.models import transformer as T
     from repro_torch.serving.engine import ServeOptions
+    from repro_torch.tree import leaves
 
     cfg = get_config(ARCH)
     t0 = time.perf_counter()
     eng = build_engine(cfg, "cuda", SEED, ServeOptions(max_seq=MAX_SEQ, batch_size=BATCH))
     torch.cuda.synchronize()
-    weight_gb = sum(t.numel() * t.element_size() for t in _leaves(eng.params)) / 1e9
+    weight_gb = sum(t.numel() * t.element_size() for t in leaves(eng.params)) / 1e9
     log(f"[serve] {cfg.name}: {cfg.param_count() / 1e9:.2f} B parameters, {weight_gb:.2f} GB of "
         f"{cfg.param_dtype} weights drawn on the card in {time.perf_counter() - t0:.1f} s")
     tokens = random_prompts(cfg, BATCH, PROMPT, SEED)
@@ -291,6 +371,36 @@ def serve(torch, card: str):
                     "cache_rel_l2": rel, "cache_max_abs": max_abs}
 
 
+def sync(torch, card: str):
+    """The cross-pod gradient sync on SYNC_RANKS processes that share the card.
+    ``launch.sync.run`` raises if any rank's check fails (launches against the
+    schedules' prediction, the seeded mean, rank agreement)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sync as S
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import leaves
+
+    cfg = get_config(ARCH)
+    t0 = time.perf_counter()
+    summary = S.run(cfg, SYNC_RANKS, "cuda", SEED)
+    elems = sum(math.prod(p.shape) for p in leaves(T.layer_skel(cfg, cfg.pattern[0])))
+    lk = summary["link"]
+    log(f"[sync] {SYNC_RANKS} ranks on one card, one block of {cfg.name} per rank "
+        f"(~{elems * 2 / 1e9:.2f} GB of bf16 gradients), phase {time.perf_counter() - t0:.1f} s")
+    log(f"[sync] link (gloo through pinned host buffers, between two rank processes on {card}): "
+        f"latency {lk['latency_s'] * 1e6:.2f} us ({lk['small_bytes']} B), bandwidth "
+        f"{lk['bandwidth_Bps'] / 1e9:.4f} GB/s ({lk['large_bytes']} B; half round trip "
+        f"{lk['large_half_rtt_s'] * 1e3:.3f} ms)")
+    for name, m in summary["methods"].items():
+        log(f"[sync] {name}: {m['wall_s'] * 1e3:.1f} ms (slowest rank), chunk_reduce launches per rank "
+            f"{m['chunk_reduce']} (as predicted), max abs err vs the seeded mean {m['max_abs_err']:.3e}, "
+            f"ranks agree bit for bit: {m['ranks_agree']}")
+    for name, m in summary["methods"].items():  # each rank's count was held to its prediction
+        if (sum(m["chunk_reduce"]) > 0) != (name != "psum"):
+            raise AssertionError(f"{name}: hop kernel launches {m['chunk_reduce']}")
+    return summary
+
+
 def device_profile(torch, fn, label: str, wall_ms: float):
     """Device busy time of one call of ``fn`` by torch.profiler: the union of
     the intervals of its device-side events (kernels, copies), against the
@@ -323,17 +433,6 @@ def device_profile(torch, fn, label: str, wall_ms: float):
     return busy
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, list):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
 def main() -> int:
     import torch
 
@@ -345,10 +444,14 @@ def main() -> int:
         print(f"chip_smoke: the port is missing ({src / 'repro_torch'})", file=sys.stderr)
         return 1
     sys.path.insert(0, str(src))
+    from repro_torch.configs import get_config
+    from repro_torch.core import collectives as C
     from repro_torch.kernels import _build
+    from repro_torch.kernels import chunk_reduce as cr
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.optim import compression
 
     # Phase 1: the card, and the kernels built from source.
     kind = torch.cuda.get_device_name(0)
@@ -367,15 +470,27 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in full f32
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    records = [check_rmsnorm(torch, rn, ref, gen), check_flash(torch, fa, ref, gen)]
+    cfg = get_config(ARCH)
+    records = [check_rmsnorm(torch, rn, ref, gen), check_flash(torch, fa, ref, gen),
+               check_chunk_reduce(torch, cr, ref, gen, hop_chunk_elems(cfg, C)),
+               check_dequant_add(torch, cr, ref, compression, gen, cfg.d_model * cfg.d_ff)]
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # Phase 3: serve the full-width model through the port's entry points.
     counts, metrics = serve(torch, card)
-    for r in records:
-        r["launches"] = counts[r["name"]]
     log(f"[serve] metrics {json.dumps(metrics)} on {card}")
+    gc.collect()
+    torch.cuda.empty_cache()  # the engine's 30 GB go back before the ranks start
 
-    # Phase 4 and 5: the kernels record, then the result.
+    # Phase 4: the cross-pod gradient sync on rank processes sharing the card.
+    summary = sync(torch, card)
+    log(f"[sync] metrics {json.dumps(summary)} on {card}")
+    launches = dict(counts, chunk_reduce=sum(summary["methods"]["hoplite_chain"]["chunk_reduce"]))
+    for r in records:
+        r["launches"] = launches[r["name"]]
+
+    # Phase 5 and 6: the kernels record, then the result.
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

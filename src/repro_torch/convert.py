@@ -3,7 +3,8 @@
 ``jax.random`` streams cannot be reproduced in PyTorch, so the tests draw
 weights once in the JAX package and hand the same numbers to both packages:
 the leaves of ``repro.models.common.init_params(T.model_skel(cfg), key)``
-passed through ``np.asarray``.
+passed through ``np.asarray``.  Trees with no model skeleton (gradients,
+error-feedback residuals) cross with ``tree_from_numpy``.
 """
 
 from __future__ import annotations
@@ -14,6 +15,25 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.models.common import is_param
+from repro_torch.tree import tree_map
+
+
+def _tensor(a, dev, want) -> torch.Tensor:
+    """A numpy array (bfloat16 from ml_dtypes included) as a tensor, exactly."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes: exact through f32
+        t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.to(device=dev, dtype=want or t.dtype)
+
+
+def tree_from_numpy(tree, device=None, dtype=None):
+    """A tree (dicts, lists) of numpy arrays as tensors on ``device`` (the card
+    unless ``"cpu"`` is asked for); each leaf keeps its type unless ``dtype``."""
+    dev = resolve_device(device)
+    want = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    return tree_map(lambda a: _tensor(a, dev, want), tree)
 
 
 def params_from_jax(tree, cfg, device=None, dtype=None):
@@ -30,11 +50,7 @@ def params_from_jax(tree, cfg, device=None, dtype=None):
         a = np.asarray(a)
         if tuple(a.shape) != tuple(p.shape):
             raise ValueError(f"{path}: shape {a.shape}, the port expects {p.shape}")
-        if a.dtype.name == "bfloat16":  # ml_dtypes: exact through f32
-            t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
-        else:
-            t = torch.from_numpy(np.ascontiguousarray(a))
-        return t.to(device=dev, dtype=want or t.dtype)
+        return _tensor(a, dev, want)
 
     def walk(skel, node, path):
         if is_param(skel):

@@ -20,7 +20,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("rmsnorm", "flash_attention")
+SOURCES = ("rmsnorm", "flash_attention", "chunk_reduce")
 TOOLKIT_NVCC = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

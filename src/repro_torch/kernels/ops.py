@@ -8,10 +8,11 @@ backward of ``flash_attention`` belongs to the training slice.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
+from repro_torch.kernels import chunk_reduce as _cr
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import rmsnorm as _rn
@@ -31,11 +32,31 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor
     return _rn.rmsnorm(x, w, eps)
 
 
+def chunk_reduce(dst: torch.Tensor, src: torch.Tensor, alpha: float = 1.0,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``dst + alpha * src`` (f32 math, dst's type), into ``out`` when given;
+    ``out`` may be ``dst``: the chain hop accumulates in place."""
+    if dst.device.type == "cpu":
+        res = _ref.chunk_reduce_ref(dst, src, alpha)
+        return res if out is None else out.copy_(res)
+    return _cr.chunk_reduce(dst, src, alpha, out=out)
+
+
+def dequant_add(dst: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, qblock: int = 256) -> torch.Tensor:
+    """``dst + q * scale[block]``: an int8 block-quantized payload added to dst."""
+    if dst.device.type == "cpu":
+        return _ref.dequant_add_ref(dst, q, scale, qblock)
+    return _cr.dequant_add(dst, q, scale, qblock)
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches in this process since the last reset."""
-    return {"rmsnorm": _rn.launches, "flash_attention": _fa.launches}
+    return {"rmsnorm": _rn.launches, "flash_attention": _fa.launches,
+            "chunk_reduce": _cr.chunk_reduce_launches, "dequant_add": _cr.dequant_add_launches}
 
 
 def reset_launch_counts() -> None:
     _rn.launches = 0
     _fa.launches = 0
+    _cr.chunk_reduce_launches = 0
+    _cr.dequant_add_launches = 0

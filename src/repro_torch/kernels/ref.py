@@ -47,6 +47,22 @@ def flash_attention_ref(
     return out.to(q.dtype)
 
 
+def chunk_reduce_ref(dst: torch.Tensor, src: torch.Tensor, alpha: float = 1.0) -> torch.Tensor:
+    """Hoplite chain-hop accumulate: ``dst + alpha * src`` in f32, out in dst's type."""
+    return (dst.float() + alpha * src.float()).to(dst.dtype)
+
+
+def dequant_add_ref(dst: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, block: int) -> torch.Tensor:
+    """Accumulate an int8 block-quantized payload: ``dst + dequant(q, scale)``.
+
+    q: int8, flat, padded to a multiple of ``block``; scale: one f32 scale per
+    block.  The layout of ``optim.compression.quantize_int8``.
+    """
+    deq = q.float().reshape(-1, block) * scale[:, None]
+    deq = deq.reshape(-1)[: dst.numel()].reshape(dst.shape)
+    return (dst.float() + deq).to(dst.dtype)
+
+
 def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """``x * rsqrt(mean(x^2) + eps) * (1 + w)`` per row, f32 math, out in x.dtype."""
     x32 = x.float()

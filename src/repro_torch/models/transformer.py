@@ -168,12 +168,19 @@ def _embed(cfg, params, tokens):
 
 
 def _unembed(cfg, params, x):
-    """Logits in f32.  On the card a bf16 product is rounded to bf16 before
-    the cast (JAX asks its dot for an f32 result directly)."""
+    """Logits as an f32 product, as the JAX package asks its dot for an f32
+    result: of bf16 x and w, cuBLAS's f32 output on the card (``mm`` with
+    ``out_dtype``), the product of the upcast values on the CPU; where the
+    types differ, JAX promotes both to f32 and so does this."""
     w = params.get("lm_head")
     if w is None:
         w = params["embed"].T
-    return torch.matmul(x, w.to(x.dtype)).float()
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.device.type == "cuda" and x.dtype == w.dtype == torch.bfloat16:
+        y = torch.mm(x2, w, out_dtype=torch.float32)
+    else:
+        y = torch.mm(x2.float(), w.float())
+    return y.reshape(*x.shape[:-1], w.shape[-1])
 
 
 def prefill(cfg: ModelConfig, params, batch, cache_seq: int):

@@ -14,18 +14,24 @@ import numpy as np
 import pytest
 import torch
 
+import torch_rank_cases as cases
 from repro_torch.configs import get_config, reduced_config
+from repro_torch.core import collectives as C
+from repro_torch.core import group as G
+from repro_torch.kernels import chunk_reduce as tcr
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rmsnorm as trn
 from repro_torch.launch import serve
 from repro_torch.models import transformer as T
 from repro_torch.models.common import init_params
+from repro_torch.optim import compression
 from repro_torch.serving.engine import Engine, ServeOptions
 
 pytestmark = pytest.mark.gpu
 
 DTYPES = [torch.float32, torch.bfloat16]
+NO_LAUNCHES = {"rmsnorm": 0, "flash_attention": 0, "chunk_reduce": 0, "dequant_add": 0}
 FLASH_CASES = [
     # (B, H, Kh, Sq, Skv, D, causal, window, q_offset)
     (1, 2, 2, 128, 128, 64, True, 0, 0),
@@ -76,7 +82,7 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
     want = ref.flash_attention_ref(q, k, v, causal, window, off)
     assert got.dtype == dtype and got.shape == q.shape
     torch.testing.assert_close(got.float(), want.float(), **tol(dtype))
-    assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 1}
+    assert ops.launch_counts() == dict(NO_LAUNCHES, flash_attention=1)
 
 
 @pytest.mark.parametrize("shape", [(4, 64), (3, 7, 256), (1000, 128), (2048, 5120), (5, 16383), (2, 1025)])
@@ -89,7 +95,7 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype, wdtype):
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == x.shape
     torch.testing.assert_close(got.float(), ref.rmsnorm_ref(x, w).float(), **tol(dtype))
-    assert ops.launch_counts() == {"rmsnorm": 1, "flash_attention": 0}
+    assert ops.launch_counts() == dict(NO_LAUNCHES, rmsnorm=1)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -104,7 +110,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     q = torch.randn(1, 3, 8, 32, device="cuda")
     with pytest.raises(ValueError):
         tfa.flash_attention_fwd(q, q[:, :2].contiguous(), q[:, :2].contiguous())
-    assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0}
+    assert ops.launch_counts() == NO_LAUNCHES
 
 
 def test_reduced_model_on_the_card_matches_the_cpu(cuda):
@@ -139,3 +145,77 @@ def test_serve_main_defaults_to_the_card(cuda, capsys):
     assert out.shape == (2, 4)
     assert torch.cuda.get_device_name() in capsys.readouterr().out
     assert ops.launch_counts()["flash_attention"] == 2
+
+
+@pytest.mark.parametrize("n", [17, 4096, 100_000])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("alpha", [1.0, 0.5])
+@pytest.mark.parametrize("into", ["new", "dst"])
+def test_chunk_reduce_kernel_matches_plain(cuda, n, dtype, alpha, into):
+    """Bit for bit: the kernel rounds the product and the sum apart, as the plain version."""
+    dst = torch.randn(n, generator=cuda, device="cuda").to(dtype)
+    src = torch.randn(n, generator=cuda, device="cuda").to(dtype)
+    want = ref.chunk_reduce_ref(dst, src, alpha)
+    got = ops.chunk_reduce(dst, src, alpha, out=dst if into == "dst" else None)
+    torch.cuda.synchronize()
+    assert (got is dst) == (into == "dst") and got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), **tol(dtype))
+    assert torch.equal(got, want)
+    assert ops.launch_counts() == dict(NO_LAUNCHES, chunk_reduce=1)
+
+
+@pytest.mark.parametrize("n", [300, 70_000])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_dequant_add_kernel_matches_plain(cuda, n, dtype):
+    dst = torch.randn(n, generator=cuda, device="cuda").to(dtype)
+    q, scale = compression.quantize_int8(torch.randn(n, generator=cuda, device="cuda"))
+    q = q.reshape(-1)
+    got = ops.dequant_add(dst, q, scale)
+    torch.cuda.synchronize()
+    want = ref.dequant_add_ref(dst, q, scale, 256)
+    assert got.dtype == dtype and got.shape == dst.shape
+    torch.testing.assert_close(got.float(), want.float(), **tol(dtype))
+    assert torch.equal(got, want)
+    assert ops.launch_counts() == dict(NO_LAUNCHES, dequant_add=1)
+
+
+def test_hop_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    x = torch.randn(8, 64, device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        tcr.chunk_reduce(x.t(), x.t())
+    with pytest.raises(ValueError, match="must match"):
+        tcr.chunk_reduce(x, x.bfloat16())
+    with pytest.raises(TypeError):
+        tcr.chunk_reduce(x.half(), x.half())
+    q = torch.zeros(512, dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError, match="do not fit"):
+        tcr.dequant_add(torch.zeros(600, device="cuda"), q, torch.ones(2, device="cuda"))
+    with pytest.raises(TypeError):
+        tcr.dequant_add(torch.zeros(300, device="cuda"), q.float(), torch.ones(2, device="cuda"))
+    assert ops.launch_counts() == NO_LAUNCHES
+
+
+def test_ranks_on_the_card_launch_the_hop_and_match_the_cpu(cuda):
+    """Four rank processes share the card: every hop is the CUDA kernel, as
+    many times as hop_launches predicts, and the results are the CPU ranks'
+    bit for bit."""
+    x = np.random.RandomState(0).rand(4, 1536).astype(np.float32)
+    gpu = G.run_ranks(cases.card_cases, 4, "cuda", x, timeout=300)
+    cpu = G.run_ranks(cases.card_cases, 4, "cpu", x, timeout=300)
+    pinned = C.CollectiveConfig(num_chunks=4)
+    methods = {"chain_allreduce/4": "chain", "two_level_allreduce/4": "chain2d", "rs_ag_allreduce": "rs_ag"}
+    for r, (g, c) in enumerate(zip(gpu, cpu)):
+        for name, calls in g["calls"].items():
+            assert calls["devices"] == ["cuda"]
+            assert calls["launches"] == calls["chunk_reduce"]
+            if name in methods:
+                assert calls["launches"] == C.hop_launches(methods[name], 4, r, 1536 * 4, pinned)
+            out, want = g["out"][name], c["out"][name]
+            for a, b in (zip(out.values(), want.values()) if isinstance(out, dict) else [(out, want)]):
+                assert torch.equal(a, b)
+    assert sum(g["calls"]["chain_allreduce/4"]["launches"] for g in gpu) == 3 * 4
+
+
+def test_run_ranks_on_the_card_by_default(cuda):
+    out = G.run_ranks(cases.card_cases, 2, None, np.ones((2, 1536), np.float32), timeout=300)
+    assert all(p["calls"]["rs_ag_allreduce"]["devices"] == ["cuda"] for p in out)

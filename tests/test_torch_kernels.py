@@ -16,7 +16,9 @@ import jax.numpy as jnp
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.optim.compression import quantize_int8
 from repro_torch.kernels import _build
+from repro_torch.kernels import chunk_reduce as tcr
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
@@ -48,6 +50,8 @@ RAGGED_CASES = [
 ]
 
 RMSNORM_SHAPES = [(4, 64), (3, 7, 256), (1000, 128)]
+
+NO_LAUNCHES = {"rmsnorm": 0, "flash_attention": 0, "chunk_reduce": 0, "dequant_add": 0}
 
 
 def tol(dtype):
@@ -103,7 +107,7 @@ def test_flash_ops_on_cpu_matches_jax_ref(case, dtype):
     want = jref.flash_attention_ref(jq, jk, jv, causal, window, q_offset)
     got = tops.flash_attention(q, k, v, causal, window, q_offset)
     np.testing.assert_allclose(f32(got), f32(want), **tol(dtype))
-    assert tops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0}
+    assert tops.launch_counts() == NO_LAUNCHES
 
 
 def test_flash_fully_masked_rows_are_zero():
@@ -133,7 +137,65 @@ def test_rmsnorm_ops_on_cpu_matches_jax_ref(shape, dtype):
     want = jref.rmsnorm_ref(jx, jw)
     got = tops.rmsnorm(x, w)
     np.testing.assert_allclose(f32(got), f32(want), **tol(dtype))
-    assert tops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0}
+    assert tops.launch_counts() == NO_LAUNCHES
+
+
+# ---------------------------------------------------------------------------
+# chunk_reduce and dequant_add (tests/test_kernels.py:71-100)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [17, 4096, 100_000])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("alpha", [1.0, 0.5])
+def test_chunk_reduce_ref_matches_jax_kernel(n, dtype, alpha):
+    rng = np.random.RandomState(2)
+    jd, d = both(rng.randn(n), dtype)
+    js, s = both(rng.randn(n), dtype)
+    want = jops.chunk_reduce(jd, js, alpha=alpha)
+    got = tref.chunk_reduce_ref(d, s, alpha)
+    assert got.dtype == d.dtype and got.shape == d.shape
+    np.testing.assert_allclose(f32(got), f32(want), **tol(dtype))
+    np.testing.assert_array_equal(f32(got), f32(jref.chunk_reduce_ref(jd, js, alpha)))  # same roundings
+
+
+@pytest.mark.parametrize("n", [17, 4096, 100_000])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("alpha", [1.0, 0.5])
+@pytest.mark.parametrize("into", ["new", "dst"])
+def test_chunk_reduce_ops_on_cpu(n, dtype, alpha, into):
+    rng = np.random.RandomState(3)
+    jd, d = both(rng.randn(n), dtype)
+    js, s = both(rng.randn(n), dtype)
+    want = f32(jref.chunk_reduce_ref(jd, js, alpha))
+    got = tops.chunk_reduce(d, s, alpha, out=d if into == "dst" else None)
+    assert (got is d) == (into == "dst")
+    np.testing.assert_array_equal(f32(got), want)
+    assert tops.launch_counts() == NO_LAUNCHES
+
+
+@pytest.mark.parametrize("n", [300, 70_000])
+def test_dequant_add_ref_matches_jax_kernel(n):
+    rng = np.random.RandomState(3)
+    dst = rng.randn(n).astype(np.float32)
+    q, scale = quantize_int8(jnp.asarray(rng.randn(n), jnp.float32))
+    q = q.reshape(-1)
+    want = jops.dequant_add(jnp.asarray(dst), q, scale)
+    got = tops.dequant_add(torch.from_numpy(dst), torch.from_numpy(np.array(q)), torch.from_numpy(np.array(scale)))
+    np.testing.assert_allclose(f32(got), np.asarray(want), rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(f32(got), np.asarray(jref.dequant_add_ref(jnp.asarray(dst), q, scale, 256)))
+    assert tops.launch_counts() == NO_LAUNCHES
+
+
+def test_dequant_add_ref_keeps_bf16():
+    rng = np.random.RandomState(5)
+    jd, d = both(rng.randn(2, 150), "bfloat16")
+    q, scale = quantize_int8(jnp.asarray(rng.randn(300), jnp.float32))
+    q = q.reshape(-1)
+    want = jref.dequant_add_ref(jd, q, scale, 256)
+    got = tref.dequant_add_ref(d, torch.from_numpy(np.array(q)), torch.from_numpy(np.array(scale)), 256)
+    assert got.dtype == torch.bfloat16 and got.shape == (2, 150)
+    np.testing.assert_array_equal(f32(got), f32(want))
 
 
 # ---------------------------------------------------------------------------
@@ -148,7 +210,11 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     q = torch.randn(1, 2, 8, 16)
     with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_attention_fwd(q, q[:, :1].contiguous(), q[:, :1].contiguous())
-    assert tops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0}
+    with pytest.raises(ValueError, match="CUDA"):
+        tcr.chunk_reduce(x, x)
+    with pytest.raises(ValueError, match="CUDA"):
+        tcr.dequant_add(torch.zeros(256), torch.zeros(256, dtype=torch.int8), torch.ones(1))
+    assert tops.launch_counts() == NO_LAUNCHES
 
 
 def test_ops_send_non_cpu_tensors_to_the_kernel():
@@ -160,6 +226,11 @@ def test_ops_send_non_cpu_tensors_to_the_kernel():
     q = torch.empty(1, 2, 8, 16, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         tops.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        tops.chunk_reduce(x, x)
+    with pytest.raises(ValueError, match="CUDA"):
+        tops.dequant_add(torch.empty(256, device="meta"), torch.empty(256, dtype=torch.int8, device="meta"),
+                         torch.empty(1, device="meta"))
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -176,14 +247,17 @@ C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "int": ctyp
            "long long": ctypes.c_longlong, "float": ctypes.c_float}
 
 
-@pytest.mark.parametrize("wrapper,name", [(trn, "rmsnorm_fwd"), (tfa, "flash_attention_fwd")])
+@pytest.mark.parametrize("wrapper,name", [(trn, "rmsnorm_fwd"), (tfa, "flash_attention_fwd"),
+                                          (tcr, "chunk_reduce_fwd"), (tcr, "dequant_add_fwd")])
 def test_ctypes_signature_matches_the_c_interface(wrapper, name):
     """The wrapper's argtypes follow the extern "C" prototype in csrc/, one
-    for one: ctypes would otherwise pass a pointer cut to 32 bits or refuse."""
-    src = (_build.CSRC / f"{name.rsplit('_', 1)[0]}.cu").read_text()
+    for one: ctypes would otherwise pass a pointer cut to 32 bits or refuse.
+    A wrapper of several entry points keeps a dict of them by name."""
+    src = "\n".join(p.read_text() for p in sorted(_build.CSRC.glob("*.cu")))
     proto = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src).group(1)
     params = [" ".join(p.split()[:-1]).replace(" *", "*") for p in proto.split(",")]
-    assert [C_TYPES[p] for p in params] == wrapper.ARGTYPES
+    argtypes = wrapper.ARGTYPES[name] if isinstance(wrapper.ARGTYPES, dict) else wrapper.ARGTYPES
+    assert [C_TYPES[p] for p in params] == argtypes
 
 
 def test_build_key_covers_every_source():

@@ -248,3 +248,20 @@ def test_ffn_fwd(small):
     want = jmoe.ffn_fwd(jcfg, layer0(jp, "ffn"), jnp.asarray(x))
     got = tmoe.ffn_fwd(cfg, layer0(tp, "ffn"), torch.from_numpy(x))
     np.testing.assert_allclose(np32(got), np32(want), **TOL)
+
+
+@pytest.mark.parametrize("tied", [False, True], ids=["lm_head", "tied"])
+def test_unembed_is_an_f32_product_of_bf16_operands(tied):
+    """Logits of bf16 activations and weights: the JAX package asks its dot
+    for an f32 result, so the port may not round the product to bf16 first
+    (that differs by about 2^-9 relative)."""
+    cfg = tconfigs.reduced_config(tconfigs.get_config("qwen3-14b"))
+    rng = np.random.RandomState(12)
+    x = jnp.asarray(rng.randn(2, 3, cfg.d_model), jnp.bfloat16)
+    w = jnp.asarray(rng.randn(cfg.d_model, cfg.padded_vocab) / 8, jnp.bfloat16)
+    jparams = {"embed": w.T} if tied else {"lm_head": w}
+    tparams = convert.tree_from_numpy(jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
+    want = JT._unembed(cfg, jparams, x)
+    got = TT._unembed(cfg, tparams, convert.tree_from_numpy(np.asarray(x), device="cpu"))
+    assert got.dtype == torch.float32 and want.dtype == jnp.float32 and got.shape == want.shape
+    np.testing.assert_allclose(np32(got), np32(want), **TOL)

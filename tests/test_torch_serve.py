@@ -76,7 +76,7 @@ def np32(x):
 def _zero_counts():
     tops.reset_launch_counts()
     yield
-    assert tops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0}  # CPU: plain versions only
+    assert tops.launch_counts() == dict.fromkeys(("rmsnorm", "flash_attention", "chunk_reduce", "dequant_add"), 0)  # CPU: plain versions only
 
 
 # ---------------------------------------------------------------------------
