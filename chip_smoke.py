@@ -17,7 +17,8 @@ shapes and the sweeps of tests/test_kernels.py, then drives two paths:
   full-width qwen3-14b decoder block per rank, by every method.  Each rank
   checks its hop-kernel launches against the schedules' prediction and its
   result against the seeded mean; the chain methods' ranks must agree bit
-  for bit.  Ranks 0 and 1 also measure the host-staged link.
+  for bit.  Ranks 0 and 1 also measure the host-staged link, and all ranks
+  measure it once more under load, exchanging around the ring at once.
 
 Every phase raises on failure; the script then exits non-zero.
 
@@ -391,6 +392,9 @@ def sync(torch, card: str):
         f"latency {lk['latency_s'] * 1e6:.2f} us ({lk['small_bytes']} B), bandwidth "
         f"{lk['bandwidth_Bps'] / 1e9:.4f} GB/s ({lk['large_bytes']} B; half round trip "
         f"{lk['large_half_rtt_s'] * 1e3:.3f} ms)")
+    log(f"[sync] link under load (all {SYNC_RANKS} ranks exchange around the ring at once): latency "
+        f"{lk['ring']['latency_s'] * 1e6:.2f} us, bandwidth {lk['ring']['bandwidth_Bps'] / 1e9:.4f} GB/s "
+        f"(step of {lk['large_bytes']} B: {lk['ring']['large_step_s'] * 1e3:.3f} ms)")
     for name, m in summary["methods"].items():
         log(f"[sync] {name}: {m['wall_s'] * 1e3:.1f} ms (slowest rank), chunk_reduce launches per rank "
             f"{m['chunk_reduce']} (as predicted), max abs err vs the seeded mean {m['max_abs_err']:.3e}, "

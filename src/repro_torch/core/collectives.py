@@ -180,7 +180,7 @@ def pairwise_exchange_allreduce(x: torch.Tensor, group: Group = None) -> torch.T
     """n == 2 degenerate chain: one bidirectional exchange, then ``x + peer``."""
     x = x.contiguous()
     peer_rank = 1 - dist.get_rank(group)
-    peer = G.exchange(x, peer_rank, x, peer_rank, group)
+    peer = G.exchange(x, peer_rank, x, peer_rank, group, G.Staging())
     return ops.chunk_reduce(x, peer)
 
 

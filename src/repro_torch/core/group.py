@@ -65,19 +65,17 @@ def _bytes(t: torch.Tensor) -> torch.Tensor:
 
 
 def exchange(send: Optional[torch.Tensor], dst: int, recv_like: Optional[torch.Tensor], src: int,
-             group: Optional[dist.ProcessGroup] = None, staging: Optional[Staging] = None
-             ) -> Optional[torch.Tensor]:
+             group: Optional[dist.ProcessGroup], staging: Staging) -> Optional[torch.Tensor]:
     """One rank's part of a ``ppermute`` step: send ``send`` to group rank
     ``dst`` and receive a tensor like ``recv_like`` from group rank ``src``.
 
     Either side may be ``None`` (this rank only sends, only receives, or sits
-    the step out).  Returns the received tensor on ``recv_like``'s device, or
+    the step out).  ``staging`` holds the call site's host buffers.  Returns the received tensor on ``recv_like``'s device, or
     ``None``.  Tensors cross as their bytes, so every dtype goes through
     gloo.  Waits are bounded by the process group's timeout.
     """
     if send is None and recv_like is None:
         return None
-    staging = staging if staging is not None else Staging()
     works = []
     if recv_like is not None:
         nbytes = recv_like.numel() * recv_like.element_size()

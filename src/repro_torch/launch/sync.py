@@ -9,7 +9,8 @@ shapes of ``models.transformer.layer_skel``, in the config's
 ``param_dtype``; four ranks' copies of a whole model's gradients would not
 fit one card) from its own seeded generator on its device.  Ranks 0 and 1
 first time the exchange itself (what the port's link constant,
-``core.planner.HOST_STAGED_LINK``, was measured with); then every rank syncs
+``core.planner.HOST_STAGED_LINK``, was measured with), and then all ranks
+time it at once around the ring, as the chains load it; then every rank syncs
 its tree with each method in turn: ``_pod_sync_fn`` for ``hoplite_chain``,
 ``hoplite_2d`` and ``hoplite_chain+int8`` (compressed first), and
 ``grad_sync`` for ``rs_ag`` and ``psum``.  Every rank checks, for each
@@ -18,6 +19,13 @@ often as ``collectives.hop_launches`` predicts, and that the result is the
 mean of the n seeded trees, recomputed in f32 on the device, within the
 tolerance of the tree's type; ranks must agree bit for bit except after
 psum.  Any failure raises.
+
+``--sweep 0.25,0.5,1,2,4`` then times the fused chain (``hoplite_chain``)
+again with each leaf's chunk count set to that factor times the autotuned
+one, ``--repeats`` rounds of every factor in turn (so a drift of the host
+spreads over all factors), and holds every result to the autotuned chain's
+bit for bit (per element the sum runs in the same order whatever the chunk
+count).
 """
 
 from __future__ import annotations
@@ -27,7 +35,7 @@ import hashlib
 import math
 import statistics
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -115,12 +123,75 @@ def measure_link(dev) -> Optional[Dict[str, float]]:
                 times.append(time.perf_counter() - t0)
             half[nbytes] = statistics.median(times[1:]) / 2
     dist.barrier()
+    ring = measure_ring(dev)
     if r != 0:
         return None
     lat = half[LINK_SMALL[0]]
     return {"latency_s": lat, "bandwidth_Bps": LINK_LARGE[0] / (half[LINK_LARGE[0]] - lat),
             "small_bytes": LINK_SMALL[0], "large_bytes": LINK_LARGE[0],
-            "large_half_rtt_s": half[LINK_LARGE[0]]}
+            "large_half_rtt_s": half[LINK_LARGE[0]], "ring": ring}
+
+
+def measure_ring(dev) -> Dict[str, float]:
+    """The link under the chains' load: every rank sends to the next and
+    receives from the previous at once, one ``group.exchange`` each, started
+    together after a barrier.  The step time is the slowest rank's median;
+    latency from the small message, bandwidth from the large one."""
+    r, n = dist.get_rank(), dist.get_world_size()
+    st = G.Staging()
+    step = {}
+    for nbytes, reps in (LINK_SMALL, LINK_LARGE):
+        buf = torch.ones(nbytes, dtype=torch.uint8, device=dev)
+        times = []
+        for _ in range(reps + 1):  # the first step warms up
+            dist.barrier()
+            t0 = time.perf_counter()
+            G.exchange(buf, (r + 1) % n, buf, (r - 1) % n, None, st)
+            _sync_device(dev)
+            times.append(time.perf_counter() - t0)
+        slowest = torch.tensor([statistics.median(times[1:])], dtype=torch.float64)
+        dist.all_reduce(slowest, op=dist.ReduceOp.MAX)
+        step[nbytes] = slowest.item()
+    lat = step[LINK_SMALL[0]]
+    return {"latency_s": lat, "bandwidth_Bps": LINK_LARGE[0] / (step[LINK_LARGE[0]] - lat),
+            "large_step_s": step[LINK_LARGE[0]]}
+
+
+def swept_chunks(sizes: Sequence[int], n: int, factor: float) -> List[int]:
+    """Each leaf's chunk count: ``factor`` times the autotuned one, within
+    the autotune's clamps."""
+    out = []
+    for b in sizes:
+        c = round(factor * C.HOST_STAGED_CONFIG.chunks_for(n, b))
+        out.append(max(1, min(c, C.MAX_NUM_CHUNKS, b // C.MIN_CHUNK_BYTES)))
+    return out
+
+
+def sweep_chunks(dev, grads, digest: str, factors: Sequence[float], repeats: int):
+    """Wall times of the fused chain at each factor of the autotuned chunk
+    counts, ``repeats`` rounds over the factors; each result must be the
+    autotuned chain's (``digest``)."""
+    r, n = dist.get_rank(), dist.get_world_size()
+    sizes = [t.numel() * t.element_size() for t in leaves(grads)]
+    rows = {f: {"chunks": swept_chunks(sizes, n, f), "wall_s": []} for f in factors}
+    for _ in range(repeats):
+        for f in factors:
+            counts = rows[f]["chunks"]
+            hops = sum(C.hop_launches("chain", n, r, b, C.CollectiveConfig(num_chunks=c))
+                       for b, c in zip(sizes, counts)) if dev.type == "cuda" else 0
+            dist.barrier()
+            _sync_device(dev)
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = [C.chain_allreduce(g, None, c) / n for g, c in zip(leaves(grads), counts)]
+            _sync_device(dev)
+            rows[f]["wall_s"].append(time.perf_counter() - t0)
+            if ops.launch_counts()["chunk_reduce"] != hops:
+                raise AssertionError(f"rank {r} sweep x{f}: {ops.launch_counts()['chunk_reduce']} hops, expected {hops}")
+            if _digest(out) != digest:
+                raise AssertionError(f"rank {r} sweep x{f}: the result is not the autotuned chain's")
+            del out
+    return rows
 
 
 def _mean_tree(cfg, dev, seed, n, compressed: bool):
@@ -136,9 +207,9 @@ def _mean_tree(cfg, dev, seed, n, compressed: bool):
     return tree_map(lambda a: a.div_(n), acc)
 
 
-def rank_main(dev, cfg, seed: int):
+def rank_main(dev, cfg, seed: int, sweep: Sequence[float] = (), repeats: int = 1):
     """One rank's part: time the link, sync the tree by each method and
-    check the result."""
+    check the result, then sweep the fused chain's chunk counts."""
     r, n = dist.get_rank(), dist.get_world_size()
     grads = grad_tree(cfg, dev, seed, r)
     sizes = [t.numel() * t.element_size() for t in leaves(grads)]
@@ -175,14 +246,19 @@ def rank_main(dev, cfg, seed: int):
         record["methods"][name] = {"wall_s": wall, "chunk_reduce": counts["chunk_reduce"],
                                    "max_abs_err": err, "digest": _digest(out)}
         del out
+    if sweep:
+        record["sweep"] = sweep_chunks(dev, grads, record["methods"]["hoplite_chain"]["digest"], sweep, repeats)
     return record
 
 
-def run(cfg, ranks: int, device=None, seed: int = 0, timeout: float = 600.0):
+def run(cfg, ranks: int, device=None, seed: int = 0, timeout: float = 600.0,
+        sweep: Sequence[float] = (), repeats: int = 1):
     """Sync on ``ranks`` processes; raise on any failed check.  Returns, per
     method, the slowest rank's wall time, each rank's hop-kernel launches and
-    the largest error, and rank 0's link measurement."""
-    recs = G.run_ranks(rank_main, ranks, device, cfg, seed, timeout=timeout)
+    the largest error, and rank 0's link measurement; with ``sweep``, per
+    factor the leaves' chunk counts, the slowest rank's wall time in each
+    round and their median."""
+    recs = G.run_ranks(rank_main, ranks, device, cfg, seed, sweep, repeats, timeout=timeout)
     summary = {"link": recs[0]["link"], "methods": {}}
     for name in METHODS:
         per = [rec["methods"][name] for rec in recs]
@@ -192,6 +268,10 @@ def run(cfg, ranks: int, device=None, seed: int = 0, timeout: float = 600.0):
             "wall_s": max(p["wall_s"] for p in per), "chunk_reduce": [p["chunk_reduce"] for p in per],
             "max_abs_err": max(p["max_abs_err"] for p in per),
             "ranks_agree": len({p["digest"] for p in per}) == 1}
+    for f in sweep:
+        rounds = [max(walls) for walls in zip(*(rec["sweep"][f]["wall_s"] for rec in recs))]
+        summary.setdefault("sweep", {})[f] = {"chunks": recs[0]["sweep"][f]["chunks"], "rounds_s": rounds,
+                                              "wall_s": statistics.median(rounds)}
     return summary
 
 
@@ -202,7 +282,10 @@ def main(argv=None):
     ap.add_argument("--ranks", type=int, default=4)
     ap.add_argument("--device", default=None, help="default: cuda (raises when absent)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--sweep", default="", help="factors of the autotuned chunk counts, e.g. 0.25,0.5,1,2,4")
+    ap.add_argument("--repeats", type=int, default=3, help="timed runs of each sweep factor")
     args = ap.parse_args(argv)
+    sweep = tuple(float(f) for f in args.sweep.split(",") if f)
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -212,12 +295,19 @@ def main(argv=None):
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"[sync] {cfg.name}: one block, {elems:,} {cfg.param_dtype} gradients per rank, "
           f"{args.ranks} ranks on {where}")
-    summary = run(cfg, args.ranks, dev, args.seed)
-    lk = summary["link"]
-    print(f"[sync] link: latency {lk['latency_s'] * 1e6:.1f} us, bandwidth {lk['bandwidth_Bps'] / 1e9:.3f} GB/s")
+    summary = run(cfg, args.ranks, dev, args.seed, sweep=sweep, repeats=args.repeats)
+    lk, ring = summary["link"], summary["link"]["ring"]
+    print(f"[sync] link, ping-pong of ranks 0 and 1: latency {lk['latency_s'] * 1e6:.1f} us, "
+          f"bandwidth {lk['bandwidth_Bps'] / 1e9:.3f} GB/s")
+    print(f"[sync] link, all {args.ranks} ranks around the ring at once: latency {ring['latency_s'] * 1e6:.1f} us, "
+          f"bandwidth {ring['bandwidth_Bps'] / 1e9:.3f} GB/s")
     for name, m in summary["methods"].items():
         print(f"[sync] {name}: {m['wall_s'] * 1e3:.1f} ms, chunk_reduce launches per rank {m['chunk_reduce']}, "
               f"max abs err {m['max_abs_err']:.3e}, ranks agree: {m['ranks_agree']}")
+    for f, row in summary.get("sweep", {}).items():
+        print(f"[sync] hoplite_chain at {f} x the autotuned chunks {row['chunks']}: "
+              f"{row['wall_s'] * 1e3:.1f} ms (median of {args.repeats} rounds, slowest rank; rounds "
+              f"{', '.join(f'{t * 1e3:.1f}' for t in row['rounds_s'])} ms)")
     return summary
 
 

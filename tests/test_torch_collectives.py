@@ -10,7 +10,10 @@ pairwise schedules bit for bit in f32, anything through psum at rtol 1e-5
 (its sums run in another order).  Every spawn has a timeout and no fixed port.
 """
 
+import contextlib
+import io
 import json
+import math
 import subprocess
 import sys
 import textwrap
@@ -32,6 +35,7 @@ from repro_torch.core import group as TG
 from repro_torch.core import planner as TP
 from repro_torch.optim import compression as tcomp
 from repro_torch.train import step as tstep
+from repro_torch.tree import leaves
 
 N = 8
 X = np.random.RandomState(0).rand(N, 1536).astype(np.float32)
@@ -213,13 +217,12 @@ def test_psum_tree_sync_matches_the_jax_package(ref, port, name):
         np.testing.assert_allclose(got[k], ref[0][f"{name}/{k}"], rtol=1e-5)
 
 
-def test_sums_are_right():
+def test_sums_are_right(port):
     """The reference outputs are what the tests above hold the port to; one
     look at the arithmetic keeps a shared mistake from passing."""
-    out = TG.run_ranks(cases.card_cases, 4, "cpu", X[:4], timeout=300)
-    want = X[:4].sum(0)
+    want = X.sum(0)
     for name in ("chain_allreduce/4", "two_level_allreduce/4", "rs_ag_allreduce"):
-        for p in out:
+        for p in port:
             np.testing.assert_allclose(p["out"][name].numpy()[0], want, rtol=1e-6)
             assert p["calls"][name]["devices"] == ["cpu"] and p["calls"][name]["launches"] == 0
 
@@ -432,7 +435,7 @@ def test_run_ranks_raises_when_a_rank_fails():
 def test_run_ranks_raises_at_its_timeout():
     t0 = time.monotonic()
     with pytest.raises(TimeoutError, match="within"):
-        TG.run_ranks(cases.hang, 2, "cpu", timeout=10)
+        TG.run_ranks(cases.hang, 2, "cpu", timeout=3)
     assert time.monotonic() - t0 < 60
 
 
@@ -446,19 +449,53 @@ def test_pod_sync_rejects_gspmd():
 # ---------------------------------------------------------------------------
 
 
-def test_sync_entry_point_on_cpu(capsys):
-    """launch.sync drives every method on 4 CPU ranks over a reduced block's
-    f32 tree; each rank checks itself against the seeded mean and raises."""
+@pytest.fixture(scope="module")
+def sync_run():
+    """launch.sync on 4 CPU ranks over a reduced block's f32 tree, with a
+    chunk sweep: (its summary, what it printed)."""
     from repro_torch.launch import sync
 
-    summary = sync.main(["--arch", "qwen3-14b", "--reduced", "--device", "cpu", "--ranks", "4"])
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        summary = sync.main(["--arch", "qwen3-14b", "--reduced", "--device", "cpu", "--ranks", "4",
+                             "--sweep", "0.5,1,2", "--repeats", "2"])
+    return summary, printed.getvalue()
+
+
+def test_sync_entry_point_on_cpu(sync_run):
+    """launch.sync drives every method; each rank checks itself against the
+    seeded mean and raises."""
+    from repro_torch.launch import sync
+
+    summary, printed = sync_run
     assert set(summary["methods"]) == set(sync.METHODS)
     for name, m in summary["methods"].items():
         assert m["chunk_reduce"] == [0, 0, 0, 0]  # CPU tensors take the plain version
         assert m["max_abs_err"] < 1e-5
         assert m["ranks_agree"] or name == "psum"
     assert summary["link"]["latency_s"] > 0 and summary["link"]["bandwidth_Bps"] > 0
-    assert "4 ranks on cpu" in capsys.readouterr().out
+    assert "4 ranks on cpu" in printed
+
+
+def test_sync_chunk_sweep_on_cpu(sync_run):
+    """Each factor scales every leaf's autotuned chunk count within its
+    clamps; each rank held the swept result to the autotuned chain's."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.launch import sync
+    from repro_torch.models import transformer as T
+
+    summary, printed = sync_run
+    cfg = reduced_config(get_config("qwen3-14b"))
+    sizes = [math.prod(p.shape) * 4 for p in leaves(T.layer_skel(cfg, cfg.pattern[0]))]
+    auto = [TC.HOST_STAGED_CONFIG.chunks_for(4, b) for b in sizes]
+    assert summary["sweep"][1.0]["chunks"] == auto == sync.swept_chunks(sizes, 4, 1.0)
+    for f in (0.5, 2.0):
+        want = [max(1, min(round(f * c), TC.MAX_NUM_CHUNKS, b // TC.MIN_CHUNK_BYTES)) for c, b in zip(auto, sizes)]
+        assert summary["sweep"][f]["chunks"] == want
+        assert len(summary["sweep"][f]["rounds_s"]) == 2 and summary["sweep"][f]["wall_s"] > 0
+    ring = summary["link"]["ring"]
+    assert ring["latency_s"] > 0 and ring["large_step_s"] > ring["latency_s"]
+    assert "at 2.0 x the autotuned chunks" in printed
 
 
 def test_sync_entry_point_defaults_to_the_card(monkeypatch):

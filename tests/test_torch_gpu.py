@@ -140,6 +140,23 @@ def test_reduced_model_on_the_card_matches_the_cpu(cuda):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("tied", [False, True])
+def test_unembed_on_the_card_is_an_f32_product(cuda, tied):
+    """The card's branch of ``_unembed`` (cuBLAS with an f32 output) against
+    the f32 product of the upcast bf16 values.  The tolerance lies far under
+    bf16's rounding (2^-9 relative), which the last assert shows it catches."""
+    cfg = reduced_config(get_config("qwen3-14b"))
+    x = torch.randn(2, 3, 512, generator=cuda, device="cuda").bfloat16()
+    w = torch.randn(512, 1000, generator=cuda, device="cuda").bfloat16()
+    params = {"embed": w.T.contiguous()} if tied else {"lm_head": w}
+    got = T._unembed(cfg, params, x)
+    want = torch.mm(x.reshape(-1, 512).float(), w.float()).reshape(2, 3, 1000)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+    rounded = torch.mm(x.reshape(-1, 512), w).float().reshape(2, 3, 1000)
+    assert not torch.allclose(rounded, want, rtol=1e-4, atol=1e-3)
+
+
 def test_serve_main_defaults_to_the_card(cuda, capsys):
     out = serve.main(["--arch", "qwen3-14b", "--reduced", "--batch", "2", "--new-tokens", "4"])
     assert out.shape == (2, 4)
