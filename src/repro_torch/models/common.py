@@ -90,10 +90,14 @@ def apply_norm(cfg, p, x):
 
 
 def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x @ w in x's type (w is cast to it, as JAX promotes a bf16 weight against
-    f32 activations).  On the card cuBLAS accumulates bf16 products in f32 and
-    rounds the output to bf16, as the JAX package's f32-accumulated dot does."""
-    return torch.matmul(x, w.to(x.dtype))
+    """x @ w, out in x's type.  Mixed operands are promoted to the wider type
+    before the product, as JAX's ``dot_general`` does (bf16 activations against
+    an f32 weight multiply in f32; an f32 weight is never rounded to bf16).
+    With one type on both sides nothing is copied: on the card bf16 x bf16 is
+    one cuBLAS GEMM that accumulates in f32 and rounds the output to bf16, as
+    the JAX package's f32-accumulated dot does."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return torch.matmul(x.to(dt), w.to(dt)).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -265,3 +265,99 @@ def test_unembed_is_an_f32_product_of_bf16_operands(tied):
     got = TT._unembed(cfg, tparams, convert.tree_from_numpy(np.asarray(x), device="cpu"))
     assert got.dtype == torch.float32 and want.dtype == jnp.float32 and got.shape == want.shape
     np.testing.assert_allclose(np32(got), np32(want), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# dense: mixed operand types promote as JAX's dot_general does
+# ---------------------------------------------------------------------------
+
+
+def test_dense_promotes_a_bf16_input_against_an_f32_weight():
+    """bf16 x times f32 w multiplies in f32 (JAX promotes both operands) and
+    rounds once to bf16: within one bf16 ulp of the JAX package's ``dense``.
+    Rounding w to bf16 first is off by up to 16 ulps on these inputs."""
+    rng = np.random.RandomState(4)
+    x = jnp.asarray(rng.randn(4, 8), jnp.bfloat16)
+    w = jnp.asarray(rng.randn(8, 3), jnp.float32)
+    want = np32(jcommon.dense(x, w))
+    got = tcommon.dense(torch.from_numpy(np32(x)).bfloat16(), torch.from_numpy(np.array(w)))
+    assert got.dtype == torch.bfloat16 and got.shape == (4, 3)
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(want))) - 7)  # bf16 keeps 8 significant bits
+    assert np.all(np.abs(np32(got) - want) <= ulp)
+
+
+def test_dense_of_one_type_makes_no_copy():
+    """bf16 x bf16 (the card's serve path) is one matmul: no upcast copy of
+    either operand."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.randn(4, 8).bfloat16()
+    w = torch.randn(8, 3).bfloat16()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        y = tcommon.dense(x, w)
+    names = [e.name for e in prof.events()]
+    assert y.dtype == torch.bfloat16 and "aten::matmul" in names
+    assert not [n for n in names if "copy" in n], names
+
+
+# ---------------------------------------------------------------------------
+# the modules in bf16, as the card runs them
+# ---------------------------------------------------------------------------
+
+BF16 = dict(dtype="bfloat16", param_dtype="bfloat16")
+BF16_TOL = dict(rtol=2e-2, atol=2e-2)  # tests/test_kernels.py:16-17
+
+
+def perturbed_bf16_jax_params(cfg, seed=0):
+    """JAX-initialised bf16 weights as numpy (ml_dtypes bfloat16), with random
+    non-zero norm weights rounded to bf16."""
+    tree = jcommon.init_params(JT.model_skel(cfg), jax.random.PRNGKey(seed))
+    rng = np.random.RandomState(seed)
+
+    def fix(path, a):
+        a = np.array(a)
+        if any(getattr(k, "key", None) in NORMS for k in path):
+            a = (rng.randn(*a.shape) * 0.3).astype(a.dtype)
+        return a
+
+    return jax.tree_util.tree_map_with_path(fix, tree)
+
+
+@pytest.fixture(scope="module")
+def small_bf16():
+    """reduced qwen3-14b with bf16 activations and weights in both packages."""
+    cfg = dataclasses.replace(tconfigs.reduced_config(tconfigs.get_config("qwen3-14b")), **BF16)
+    jcfg = dataclasses.replace(jconfigs.reduced_config(jconfigs.get_config("qwen3-14b")), **BF16)
+    np_params = perturbed_bf16_jax_params(jcfg)
+    jparams = jax.tree_util.tree_map(jnp.asarray, np_params)
+    tparams = convert.params_from_jax(np_params, cfg, device="cpu")
+    assert tparams["embed"].dtype == torch.bfloat16 and jparams["embed"].dtype == jnp.bfloat16
+    return cfg, jcfg, jparams, tparams
+
+
+def _hidden_bf16(cfg, B, S, seed):
+    """The same bf16 hidden states for both packages."""
+    j = jnp.asarray(_hidden(cfg, B, S, seed), jnp.bfloat16)
+    return j, torch.from_numpy(np32(j)).bfloat16()
+
+
+@pytest.mark.parametrize("S", [16, 13, 64])
+def test_attention_fwd_bf16(small_bf16, S):
+    """The port's prefill attention keeps P in f32 (``ref.flash_attention_ref``,
+    the kernel's contract); the JAX model's ``flash_ref`` rounds P to bf16
+    before PV.  Both round q, k, v and the output to bf16 at the same places."""
+    cfg, jcfg, jp, tp = small_bf16
+    jx, tx = _hidden_bf16(cfg, 2, S, 8)
+    want = jattn.attention_fwd(jcfg, layer0(jp, "attn"), jx, jcfg.pattern[0], jnp.arange(S, dtype=jnp.int32))
+    got = tattn.attention_fwd(cfg, layer0(tp, "attn"), tx, cfg.pattern[0], torch.arange(S))
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16 and got.shape == want.shape
+    np.testing.assert_allclose(np32(got), np32(want), **BF16_TOL)
+
+
+def test_ffn_fwd_bf16(small_bf16):
+    cfg, jcfg, jp, tp = small_bf16
+    jx, tx = _hidden_bf16(cfg, 2, 6, 11)
+    want = jmoe.ffn_fwd(jcfg, layer0(jp, "ffn"), jx)
+    got = tmoe.ffn_fwd(cfg, layer0(tp, "ffn"), tx)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    np.testing.assert_allclose(np32(got), np32(want), **BF16_TOL)

@@ -10,6 +10,7 @@ nothing a wrong mask, position or weight would produce.
 """
 
 import ast
+import dataclasses
 import os
 import subprocess
 import sys
@@ -154,6 +155,92 @@ def test_prompt_longer_than_the_cache_raises(model):
     cfg, _, _, tp = model
     with pytest.raises(ValueError, match="does not fit"):
         TT.prefill(cfg, tp, {"tokens": torch.zeros((1, 9), dtype=torch.long)}, cache_seq=8)
+
+
+# ---------------------------------------------------------------------------
+# the whole slice in bf16, as the card serves it
+# ---------------------------------------------------------------------------
+
+BF16 = dict(dtype="bfloat16", param_dtype="bfloat16")
+
+
+@pytest.fixture(scope="module")
+def model_bf16():
+    """reduced qwen3-14b with bf16 activations and JAX-initialised bf16
+    weights (norm weights non-zero) in both packages."""
+    cfg = dataclasses.replace(tconfigs.reduced_config(tconfigs.get_config("qwen3-14b")), **BF16)
+    jcfg = dataclasses.replace(jconfigs.reduced_config(jconfigs.get_config("qwen3-14b")), **BF16)
+    tree = jcommon.init_params(JT.model_skel(jcfg), jax.random.PRNGKey(0))
+    rng = np.random.RandomState(0)
+
+    def fix(path, a):
+        a = np.array(a)
+        if any(getattr(k, "key", None) in NORMS for k in path):
+            a = (rng.randn(*a.shape) * 0.3).astype(a.dtype)
+        return a
+
+    np_params = jax.tree_util.tree_map_with_path(fix, tree)
+    jparams = jax.tree_util.tree_map(jnp.asarray, np_params)
+    tparams = convert.params_from_jax(np_params, cfg, device="cpu")
+    assert tparams["embed"].dtype == torch.bfloat16 and jparams["embed"].dtype == jnp.bfloat16
+    return cfg, jcfg, jparams, tparams
+
+
+def bf16_logit_tol(want):
+    """The bf16 tolerance (tests/test_kernels.py:16-17), the absolute part
+    taken at the logits' scale.  The port's CPU flash keeps P in f32, the JAX
+    model's ``flash_ref`` rounds P to bf16 (``repro/models/attention.py:111``):
+    on the same q, k, v they differ by one bf16 ulp in a quarter of the
+    attention outputs, and the bf16 residual stream carries that into f32
+    logits of size 3-4, by up to 0.045, so about 0.5% of the logits near zero
+    lie outside an absolute 2e-2."""
+    return dict(rtol=2e-2, atol=2e-2 * float(np.abs(np32(want)).max()))
+
+
+@pytest.mark.parametrize("S", [12, 7])
+def test_prefill_and_two_decode_steps_match_jax_bf16(model_bf16, S):
+    cfg, jcfg, jp, tp = model_bf16
+    B, C = 2, 24
+    toks = prompts(cfg, B, S + 2, seed=S)
+    jl, jc = JT.prefill(jcfg, jp, {"tokens": jnp.asarray(toks[:, :S])}, cache_seq=C)
+    tl, tc = TT.prefill(cfg, tp, {"tokens": torch.from_numpy(toks[:, :S])}, cache_seq=C)
+    assert tl.dtype == torch.float32 and tl.shape == (B, cfg.padded_vocab)
+    assert tc[0]["pos0"]["k"].dtype == torch.bfloat16
+    np.testing.assert_allclose(np32(tl), np32(jl), **bf16_logit_tol(jl))
+    # the first layer's cache lies upstream of every attention output
+    for name in ("k", "v"):
+        np.testing.assert_allclose(np32(tc[0]["pos0"][name][0]), np32(jc[0]["pos0"][name][0]), rtol=2e-2, atol=2e-2)
+    for t in range(S, S + 2):
+        jl, jc = JT.decode_step(jcfg, jp, jnp.asarray(toks[:, t : t + 1]), jnp.int32(t), jc)
+        tl, tc = TT.decode_step(cfg, tp, torch.from_numpy(toks[:, t : t + 1]), t, tc)
+        np.testing.assert_allclose(np32(tl), np32(jl), **bf16_logit_tol(jl), err_msg=f"decode step at {t}")
+
+
+@pytest.mark.parametrize("seed", [4, 5, 6])
+def test_engine_greedy_tokens_equal_jax_where_stable_bf16(model_bf16, seed):
+    """Greedy tokens agree while the choice is stable: in each row, up to the
+    first step where the JAX logits' top-two gap is within twice the logit
+    tolerance of the test above.  Past such a step the two packages may pick
+    different tokens, legitimately, and the rows' continuations part."""
+    cfg, jcfg, jp, tp = model_bf16
+    B, S, N = 3, 9, 8
+    toks = prompts(cfg, B, S, seed=seed)
+    jeng = jengine.Engine(jcfg, None, jp, jengine.ServeOptions(max_seq=32, batch_size=B))
+    teng = tengine.Engine(cfg, tp, tengine.ServeOptions(max_seq=32, batch_size=B))
+    want = np.asarray(jeng.generate({"tokens": jnp.asarray(toks)}, N))
+    got = teng.generate({"tokens": toks}, N)
+    assert got.shape == want.shape == (B, N)
+    seq = np.concatenate([toks, want], axis=1)
+    jl, jc = JT.prefill(jcfg, jp, {"tokens": jnp.asarray(toks)}, cache_seq=32)
+    stable = np.zeros((B, N), bool)
+    for i in range(N):
+        top2 = np.sort(np32(jl)[:, : cfg.vocab_size], axis=-1)[:, -2:]
+        stable[:, i] = top2[:, 1] - top2[:, 0] > 2 * bf16_logit_tol(jl)["atol"]
+        jl, jc = JT.decode_step(jcfg, jp, jnp.asarray(seq[:, S + i : S + i + 1]), jnp.int32(S + i), jc)
+    prefix = np.cumprod(stable, axis=1).sum(axis=1)  # leading stable steps per row
+    assert prefix.sum() >= B, f"too few stable steps to compare: {prefix}"
+    for r in range(B):
+        np.testing.assert_array_equal(got[r, : prefix[r]], want[r, : prefix[r]], err_msg=f"row {r}")
 
 
 # ---------------------------------------------------------------------------
