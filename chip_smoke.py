@@ -32,6 +32,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -41,6 +42,10 @@ from pathlib import Path
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+
+# Cycles the card spins before each timed run (about 0.1 ms), longer than the
+# host takes to enqueue any one kernel here.
+SPIN_CYCLES = 200_000
 
 # tests/test_kernels.py:16-17, used as both rtol and atol
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -78,18 +83,21 @@ def card_line() -> str:
 
 
 def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median CUDA-event time of ``fn`` over ``reps`` runs, each after a write
-    of 64 MB that evicts the 50 MB L2, with a synchronize around each run."""
+    """Median device time of ``fn`` over ``reps`` runs, by CUDA events.  Each
+    run follows a write of 64 MB that evicts the 50 MB L2 and a spin of the
+    card (``torch.cuda._sleep``) that keeps it busy while the host enqueues
+    ``fn``, so the host's launch overhead (Python, ctypes, the tensor maps)
+    is not counted: the events bracket the device's work."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
     times = []
     for _ in range(reps):
-        flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
+        flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -157,9 +165,20 @@ def flash_pairs(torch, Sq, Skv, causal, window, q_offset) -> int:
     return int(mask.sum())
 
 
-def check_flash(torch, fa, ref, gen):
+def spill_bytes(report: str) -> int:
+    """The most spill bytes (stores or loads) of any kernel in an nvcc report."""
+    return max([int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", report)] or [0])
+
+
+def check_flash(torch, fa, ref, gen, spills: int):
+    """Both routes against the plain version: bf16 with D 64 or 128 on the
+    tensor cores, f32 and bf16 of the other head dims on the CUDA cores.
+    Times the tensor-core route at the serve shape, the CUDA-core route on
+    the same inputs in f32 and, for the same bf16 inputs, the CUDA-core
+    kernel (the PR 13 design, which the route no longer gives bf16 at D 128)."""
     cfg_case = (BATCH, 40, 8, PROMPT, PROMPT, 128, True, 0)
     ragged = (BATCH, 40, 8, PROMPT + 1, PROMPT + 1, 128, True, 0)  # prefill of prompt + token
+    window = (1, 2, 1, 200, 200, 64, True, 16)  # with q_offset -20: the first rows see no key
     path_err = None
 
     def inputs(B, H, Kh, Sq, Skv, D, dt):
@@ -170,13 +189,17 @@ def check_flash(torch, fa, ref, gen):
 
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
-        for case in [cfg_case, ragged] + FLASH_CASES:
-            B, H, Kh, Sq, Skv, D, causal, window = case
+        for case in [cfg_case, ragged, window] + FLASH_CASES:
+            B, H, Kh, Sq, Skv, D, causal, win = case
             q, k, v = inputs(B, H, Kh, Sq, Skv, D, dt)
-            off = Skv - Sq
-            got = fa.flash_attention_fwd(q, k, v, causal=causal, window=window, q_offset=off)
-            want = ref.flash_attention_ref(q, k, v, causal, window, off)
-            err = compare(torch, f"flash {case} q_offset={off} {dtype}", got, want, dtype)
+            off = -20 if case == window else Skv - Sq
+            before = fa.launches_tc
+            got = fa.flash_attention_fwd(q, k, v, causal=causal, window=win, q_offset=off)
+            route = fa.route(dt, D)
+            if (fa.launches_tc > before) != (route == "tc"):
+                raise AssertionError(f"flash {case} {dtype}: launched off its route {route}")
+            want = ref.flash_attention_ref(q, k, v, causal, win, off)
+            err = compare(torch, f"flash {case} q_offset={off} {dtype} ({route})", got, want, dtype)
             if case == cfg_case and dtype == "bfloat16":
                 path_err = err
     torch.cuda.synchronize()
@@ -186,30 +209,60 @@ def check_flash(torch, fa, ref, gen):
     plain = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, True, 0, 0))
     lib = time_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True))
+    cores = fa._fn("flash_attention_fwd")  # the CUDA-core kernel, called past the route
+    o = torch.empty_like(q)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, Kh, S, S, D, 1, 0, 0,
+            1.0 / D ** 0.5, 1, torch.cuda.current_stream().cuda_stream)
+    if cores(*args) != 0:
+        raise RuntimeError("the CUDA-core flash kernel failed to launch on bf16")
+    compare(torch, f"flash {cfg_case} bf16 on the CUDA-core kernel", o,
+            ref.flash_attention_ref(q, k, v, True, 0, 0), "bfloat16")
+    cores_bf16 = time_ms(torch, lambda: cores(*args))
+    qf, kf, vf = q.float(), k.float(), v.float()
+    f32_ms = time_ms(torch, lambda: fa.flash_attention_fwd(qf, kf, vf, causal=True))
     ops = 4 * B * H * D * flash_pairs(torch, S, S, True, 0, 0)  # QK^T and PV, 2 ops per MAC
     b_ms, b_by = bound((2 * q.numel() + k.numel() + v.numel()) * 2, ops, "bfloat16")  # q, o, k, v
-    log(f"[kernels] flash {tuple(q.shape)}x{tuple(k.shape)} causal bf16: kernel {ms:.4f} ms, "
-        f"plain {plain:.4f} ms, SDPA {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-        f"{ops / ms / 1e9:.2f} TFLOP/s")
+    f32_bound, f32_by = bound((2 * q.numel() + k.numel() + v.numel()) * 4, ops, "float32")
+    log(f"[kernels] flash {tuple(q.shape)}x{tuple(k.shape)} causal bf16 (tensor cores, {spills} spill "
+        f"bytes): kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA {lib:.4f} ms ({ms / lib:.3f}x), "
+        f"bound {b_ms:.4f} ms ({b_by}), {ops / ms / 1e9:.2f} TFLOP/s; the CUDA-core kernel on the "
+        f"same bf16 inputs {cores_bf16:.4f} ms")
+    log(f"[kernels] flash same shape f32 (CUDA cores): kernel {f32_ms:.4f} ms, bound {f32_bound:.4f} ms "
+        f"({f32_by}), {ops / f32_ms / 1e9:.2f} TFLOP/s")
     return {
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "name": "flash_attention", "route": "cuda", "kernel_route": "tc",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention.py:93",
         "shape": f"q {tuple(q.shape)} kv {tuple(k.shape)} causal bf16",
         "max_abs_err": path_err, "ms": ms, "kernel_ms": ms, "plain_ms": plain,
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib, "spill_bytes": spills,
+        "cores_bf16_ms": cores_bf16, "f32_route": "cores",
+        "f32_source": "src/repro_torch/kernels/csrc/flash_attention.cu", "f32_ms": f32_ms,
+        "f32_bound_ms": f32_bound,
     }
 
 
-def hop_chunk_elems(cfg, C) -> int:
-    """Elements of one chunk of the largest leaf (w_gate, d x d_ff) in the
-    full-width sync: the shape each chain hop hands the kernel."""
+def hop_chunks(cfg, C):
+    """(chunks, elements per chunk) of the largest leaf (w_gate, d x d_ff) in
+    the full-width sync: the layout each chain hop's dst is a row of."""
     n = cfg.d_model * cfg.d_ff
     nchunks = C.HOST_STAGED_CONFIG.chunks_for(SYNC_RANKS, n * 2)  # bf16
-    return -(-n // nchunks)
+    return nchunks, -(-n // nchunks)
 
 
-def check_chunk_reduce(torch, cr, ref, gen, chunk: int):
+def check_chunk_reduce(torch, cr, ref, gen, nchunks: int, chunk: int):
+    """Bit for bit against the plain version: the test sweeps, every row of
+    a (C, chunk) bf16 and f32 buffer as ``collectives._to_chunks`` lays a leaf
+    out (an odd chunk starts rows at every alignment) against a fresh src,
+    and src views at every misalignment against an aligned dst.  Then times
+    the hop on row 1 of the full-width (C, chunk) buffer in place, where dst
+    starts 10 bytes past a 16-byte boundary and src is fresh, beside
+    ``torch.add(dst, src, out=dst)`` on the same views; and on two fresh,
+    aligned tensors, beside the same call."""
+    def same(what, got, want):
+        if not torch.equal(got, want):
+            raise AssertionError(f"chunk_reduce {what}: not bit for bit the plain version")
+
     for n in (17, 4096, 100_000):
         for dtype in ("float32", "bfloat16"):
             dt = getattr(torch, dtype)
@@ -220,23 +273,51 @@ def check_chunk_reduce(torch, cr, ref, gen, chunk: int):
                     want = ref.chunk_reduce_ref(dst, src, alpha)
                     got = cr.chunk_reduce(dst, src, alpha, out=dst if into == "dst" else None)
                     compare(torch, f"chunk_reduce n={n} {dtype} alpha={alpha} out={into}", got, want, dtype)
-    dst = torch.randn(chunk, generator=gen, device="cuda").to(torch.bfloat16)
+                    same(f"n={n} {dtype}", got, want)
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        rows = torch.randn(8, 10_007, generator=gen, device="cuda").to(dt)
+        for k in range(8):
+            for into in ("new", "dst"):
+                src = torch.randn(10_007, generator=gen, device="cuda").to(dt)
+                want = ref.chunk_reduce_ref(rows[k], src, 1.0)
+                same(f"row {k} of (8, 10007) {dtype} out={into}",
+                     cr.chunk_reduce(rows[k], src, 1.0, out=rows[k] if into == "dst" else None), want)
+        big = torch.randn(10_007 + 8, generator=gen, device="cuda").to(dt)
+        dst = torch.randn(10_007, generator=gen, device="cuda").to(dt)
+        for off in range(16 // dst.element_size()):
+            src = big[off : off + 10_007]
+            same(f"src offset {off} {dtype}", cr.chunk_reduce(dst, src, 0.5), ref.chunk_reduce_ref(dst, src, 0.5))
+    log("[kernels] chunk_reduce: bit for bit at every row of (8, 10007) and every src offset, bf16 and f32")
+
+    buf = torch.randn(nchunks, chunk, generator=gen, device="cuda").to(torch.bfloat16)
+    dst = buf[1]
     src = torch.randn(chunk, generator=gen, device="cuda").to(torch.bfloat16)
     want = ref.chunk_reduce_ref(dst, src, 1.0)
-    path_err = compare(torch, f"chunk_reduce n={chunk} (the hop's chunk) bf16 out=dst",
-                       cr.chunk_reduce(dst, src, 1.0, out=dst), want, "bfloat16")
+    got = cr.chunk_reduce(dst, src, 1.0, out=dst)
+    path_err = compare(torch, f"chunk_reduce row 1 of ({nchunks}, {chunk}) (the hop) bf16 out=dst",
+                       got, want, "bfloat16")
+    same("the hop's row", got, want)
     torch.cuda.synchronize()
     ms = time_ms(torch, lambda: cr.chunk_reduce(dst, src, 1.0, out=dst))
     plain = time_ms(torch, lambda: ref.chunk_reduce_ref(dst, src, 1.0))
-    lib = time_ms(torch, lambda: torch.add(dst, src, alpha=1.0))
+    lib = time_ms(torch, lambda: torch.add(dst, src, out=dst))
+    a = torch.randn(chunk, generator=gen, device="cuda").to(torch.bfloat16)
+    aligned = time_ms(torch, lambda: cr.chunk_reduce(a, src, 1.0, out=a))
+    aligned_lib = time_ms(torch, lambda: torch.add(a, src, out=a))
     b_ms, b_by = bound(3 * chunk * 2, 2 * chunk, "float32")  # f32 math on the CUDA cores
-    log(f"[kernels] chunk_reduce n={chunk} bf16 in place: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-        f"torch.add {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    log(f"[kernels] chunk_reduce row 1 of ({nchunks}, {chunk}) bf16 in place (dst {dst.data_ptr() % 16} bytes "
+        f"past 16, src fresh): kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.add(out=dst) {lib:.4f} ms "
+        f"({ms / lib:.3f}x), bound {b_ms:.4f} ms ({b_by})")
+    log(f"[kernels] chunk_reduce ({chunk},) bf16 in place, fresh aligned tensors: kernel {aligned:.4f} ms, "
+        f"torch.add(out=dst) {aligned_lib:.4f} ms")
     return {
         "name": "chunk_reduce", "route": "cuda", "source": "src/repro_torch/kernels/csrc/chunk_reduce.cu",
-        "replaces": "src/repro/kernels/chunk_reduce.py:29", "shape": f"dst, src ({chunk},) bf16, out = dst",
+        "replaces": "src/repro/kernels/chunk_reduce.py:29",
+        "shape": f"dst row 1 of ({nchunks}, {chunk}) bf16, src fresh, out = dst",
         "max_abs_err": path_err, "ms": ms, "kernel_ms": ms, "plain_ms": plain,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+        "aligned_ms": aligned, "aligned_library_ms": aligned_lib,
     }
 
 
@@ -268,12 +349,13 @@ def check_dequant_add(torch, cr, ref, compression, gen, leaf: int):
 def expected_launches(cfg, decode_steps: int):
     """RMSNorm: ln1 + ln2 + final, the qk-norm of q and k, and in prefill
     the k-norm again (attention_prefill_kv recomputes k, as the JAX package
-    does).  Flash attention: once per layer in prefill; decode has none."""
+    does).  Flash attention: once per layer in prefill, all on the tensor
+    cores (bf16, head dim 128); decode has none."""
     L = cfg.num_layers
     per_decode = 2 * L + 1 + 2 * L
     prefill = per_decode + L
-    return {"rmsnorm": prefill + decode_steps * per_decode, "flash_attention": L,
-            "chunk_reduce": 0, "dequant_add": 0}
+    return {"rmsnorm": prefill + decode_steps * per_decode, "flash_attention_tc": L,
+            "flash_attention_cores": 0, "chunk_reduce": 0, "dequant_add": 0}
 
 
 def check_cache(torch, T, eng, toks):
@@ -463,20 +545,25 @@ def main() -> int:
     log(f"[card] {kind}; torch {torch.__version__} cuda {torch.version.cuda}; nvidia-smi:")
     log(card)
     t0 = time.perf_counter()
-    reports = _build.build()
-    log(f"[build] {sorted(reports) or 'cached'} in {time.perf_counter() - t0:.1f} s")
+    built = _build.build()
+    log(f"[build] {sorted(built) or 'cached'} in {time.perf_counter() - t0:.1f} s")
+    reports = {name: _build.report(name) for name in _build.SOURCES}
     for name, rep in sorted(reports.items()):
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
+    spills = spill_bytes(reports["flash_attention_sm90"])
+    log(f"[build] flash_attention_sm90 (the tensor-core route): {spills} spill bytes")
+    if spills:
+        raise AssertionError(f"the tensor-core flash kernel spills {spills} bytes")
 
     # Phase 2: each kernel against its plain version, on the card.
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in full f32
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     cfg = get_config(ARCH)
-    records = [check_rmsnorm(torch, rn, ref, gen), check_flash(torch, fa, ref, gen),
-               check_chunk_reduce(torch, cr, ref, gen, hop_chunk_elems(cfg, C)),
+    records = [check_rmsnorm(torch, rn, ref, gen), check_flash(torch, fa, ref, gen, spills),
+               check_chunk_reduce(torch, cr, ref, gen, *hop_chunks(cfg, C)),
                check_dequant_add(torch, cr, ref, compression, gen, cfg.d_model * cfg.d_ff)]
     gc.collect()
     torch.cuda.empty_cache()
@@ -490,7 +577,8 @@ def main() -> int:
     # Phase 4: the cross-pod gradient sync on rank processes sharing the card.
     summary = sync(torch, card)
     log(f"[sync] metrics {json.dumps(summary)} on {card}")
-    launches = dict(counts, chunk_reduce=sum(summary["methods"]["hoplite_chain"]["chunk_reduce"]))
+    launches = dict(counts, chunk_reduce=sum(summary["methods"]["hoplite_chain"]["chunk_reduce"]),
+                    flash_attention=counts["flash_attention_tc"])  # the serve path's route
     for r in records:
         r["launches"] = launches[r["name"]]
 

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, under ``build/repro_torch_kernels/<hash>/``
-at the root of the checkout, keyed by a hash of the sources and flags.  All
+at the root of the checkout, keyed by a hash of the flags, the sources and
+every header (``csrc/*.cuh``).  All
 libraries missing from the cache are compiled in parallel, one ``nvcc`` per
 source.  A missing ``nvcc`` or a failed build raises; nothing is fetched.
 """
@@ -20,7 +21,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("rmsnorm", "flash_attention", "chunk_reduce")
+SOURCES = ("rmsnorm", "flash_attention", "flash_attention_sm90", "chunk_reduce")
 TOOLKIT_NVCC = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -49,9 +50,9 @@ def find_nvcc() -> str:
 
 def _build_dir() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((CSRC / f"{name}.cu").read_bytes())
+    for path in [CSRC / f"{name}.cu" for name in SOURCES] + sorted(CSRC.glob("*.cuh")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
@@ -82,6 +83,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
             if p.returncode != 0:
                 failed.append(f"{n}.cu (exit {p.returncode}):\n{log}")
             else:
+                (out_dir / f"lib{n}.log").write_text(log)
                 os.replace(tmp, out_dir / f"lib{n}.so")  # atomic: concurrent builds agree
     finally:
         for tmp, p in procs.values():
@@ -92,6 +94,13 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
     if failed:
         raise RuntimeError("nvcc failed to build " + "\n".join(failed))
     return reports
+
+
+def report(name: str) -> str:
+    """The compiler's report for ``lib<name>.so`` (registers, shared memory,
+    spills per kernel), kept beside it when it was built; built first if need be."""
+    build([name])
+    return (_build_dir() / f"lib{name}.log").read_text()
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -11,6 +11,7 @@ kernels mask the ragged tail.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -34,6 +35,7 @@ ARGTYPES = {
 }
 
 
+@functools.lru_cache(maxsize=None)
 def _fn(name: str):
     fn = getattr(_build.load("chunk_reduce"), name)
     fn.argtypes = ARGTYPES[name]

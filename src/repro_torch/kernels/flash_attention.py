@@ -1,14 +1,27 @@
-"""Wrapper of the hand-written CUDA flash-attention forward (``csrc/flash_attention.cu``).
+"""Wrappers of the hand-written CUDA flash-attention forward kernels.
 
 Counterpart of ``repro.kernels.flash_attention.flash_attention_fwd``.  Takes
 CUDA tensors only; the plain version for CPU tensors is
 ``ref.flash_attention_ref`` (see ``ops``).  Unlike the Pallas kernel it needs
 no tile divisibility and pads no head dim.
+
+Two kernels, one route each, chosen by ``route(dtype, D)`` before the launch:
+
+- ``"tc"``: bf16 with a head dim of 64 or 128 runs on the tensor cores
+  (``csrc/flash_attention_sm90.cu``: wgmma, TMA, P rounded to bf16 for the PV
+  product as the JAX model's ``flash_ref`` does).
+- ``"cores"``: everything else, f32 and the other head dims (multiples of 16
+  up to 256), runs the exact f32 kernel on the CUDA cores
+  (``csrc/flash_attention.cu``).  f32 is held to 2e-5, which no bf16 or TF32
+  product meets.
+
+A launch that a route's kernel refuses raises; it never goes to the other.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -16,21 +29,36 @@ import torch
 from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-BQ = 32  # query rows per block, as kBQ in the source
+BQ = 32  # query rows per block of the CUDA-core kernel, as kBQ in its source
+TC_HEAD_DIMS = (64, 128)
 
-# Launches of the kernel in this process; ``ops.reset_launch_counts`` zeroes it.
-launches = 0
+# Launches of each kernel in this process; ``ops.reset_launch_counts`` zeroes them.
+launches_tc = 0
+launches_cores = 0
 
 
 # flash_attention_fwd(q, k, v, o, B, H, Kh, Sq, Skv, D, causal, window, q_offset,
-#                     scale, dtype, stream) in csrc/flash_attention.cu
-ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
-    ctypes.c_longlong, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+#                     scale, dtype, stream) in csrc/flash_attention.cu;
+# flash_attention_fwd_sm90(q, k, v, o, B, H, Kh, Sq, Skv, D, causal, window,
+#                          q_offset, scale, stream) in csrc/flash_attention_sm90.cu
+ARGTYPES = {
+    "flash_attention_fwd": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+        ctypes.c_longlong, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+    "flash_attention_fwd_sm90": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+        ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p],
+}
+_LIBS = {"flash_attention_fwd": "flash_attention", "flash_attention_fwd_sm90": "flash_attention_sm90"}
 
 
-def _fn():
-    fn = _build.load("flash_attention").flash_attention_fwd
-    fn.argtypes = ARGTYPES
+def route(dtype: torch.dtype, head_dim: int) -> str:
+    """``"tc"`` for bf16 with a head dim in ``TC_HEAD_DIMS``, else ``"cores"``."""
+    return "tc" if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS else "cores"
+
+
+@functools.lru_cache(maxsize=None)
+def _fn(name: str):
+    fn = getattr(_build.load(_LIBS[name]), name)
+    fn.argtypes = ARGTYPES[name]
     fn.restype = ctypes.c_int
     return fn
 
@@ -44,7 +72,7 @@ def flash_attention_fwd(
     q_offset: int = 0,
 ) -> torch.Tensor:
     """(B,H,Sq,D) x (B,Kh,Skv,D)^2 -> (B,H,Sq,D); q head h reads kv head h // (H/Kh)."""
-    global launches
+    global launches_tc, launches_cores
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"flash kernel takes CUDA tensors on one device, got {q.device}, {k.device}, {v.device}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -57,17 +85,27 @@ def flash_attention_fwd(
         raise ValueError(f"flash kernel: k/v {tuple(k.shape)} do not fit q {tuple(q.shape)}")
     if D % 16 or not 16 <= D <= 256:
         raise ValueError(f"flash kernel takes a head dim that is a multiple of 16 up to 256, got {D}")
-    if B * H >= 2**31 or (Sq + BQ - 1) // BQ > 65535:
-        raise ValueError(f"flash kernel: grid ({B * H}, {(Sq + BQ - 1) // BQ}) too large")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash kernel takes contiguous tensors")
+    tc = route(q.dtype, D) == "tc"
+    if B * H * Sq >= 2**31 or Skv >= 2**31 or (not tc and (Sq + BQ - 1) // BQ > 65535):
+        raise ValueError(f"flash kernel: B*H*Sq = {B * H * Sq} or Skv = {Skv} too large")
+    if tc and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("tensor-core flash kernel: TMA needs q, k and v to start 16-byte aligned")
     out = torch.empty_like(q)
-    fn = _fn()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, Kh, Sq, Skv, D,
-             int(bool(causal)), int(window), int(q_offset), 1.0 / math.sqrt(D),
-             _DTYPES[q.dtype], stream)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, Kh, Sq, Skv, D,
+            int(bool(causal)), int(window), int(q_offset), 1.0 / math.sqrt(D))
+    if tc:
+        err = _fn("flash_attention_fwd_sm90")(*args, stream)
+    else:
+        err = _fn("flash_attention_fwd")(*args, _DTYPES[q.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"flash kernel launch failed: cudaError {err}")
-    launches += 1
+        what = ("no cuTensorMapEncodeTiled in the driver" if err == -1 else
+                f"tensor map refused, CUresult {-err - 1000}" if err <= -1000 else f"cudaError {err}")
+        raise RuntimeError(f"flash kernel ({'tensor cores' if tc else 'CUDA cores'}) launch failed: {what}")
+    if tc:
+        launches_tc += 1
+    else:
+        launches_cores += 1
     return out

@@ -20,7 +20,9 @@ from repro_torch.kernels import rmsnorm as _rn
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0, q_offset: int = 0) -> torch.Tensor:
-    """(B,H,Sq,D) x (B,Kh,Skv,D)^2 -> (B,H,Sq,D); GQA via H//Kh groups."""
+    """(B,H,Sq,D) x (B,Kh,Skv,D)^2 -> (B,H,Sq,D); GQA via H//Kh groups.  On the
+    card the kernel follows ``flash_attention.route(dtype, D)``: bf16 with D
+    64 or 128 on the tensor cores, the rest on the CUDA cores."""
     if q.device.type == "cpu":
         return _ref.flash_attention_ref(q, k, v, causal, window, q_offset)
     return _fa.flash_attention_fwd(q, k, v, causal=causal, window=window, q_offset=q_offset)
@@ -51,12 +53,14 @@ def dequant_add(dst: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, qblock:
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches in this process since the last reset."""
-    return {"rmsnorm": _rn.launches, "flash_attention": _fa.launches,
+    return {"rmsnorm": _rn.launches, "flash_attention_tc": _fa.launches_tc,
+            "flash_attention_cores": _fa.launches_cores,
             "chunk_reduce": _cr.chunk_reduce_launches, "dequant_add": _cr.dequant_add_launches}
 
 
 def reset_launch_counts() -> None:
     _rn.launches = 0
-    _fa.launches = 0
+    _fa.launches_tc = 0
+    _fa.launches_cores = 0
     _cr.chunk_reduce_launches = 0
     _cr.dequant_add_launches = 0

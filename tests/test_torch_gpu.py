@@ -31,7 +31,8 @@ from repro_torch.serving.engine import Engine, ServeOptions
 pytestmark = pytest.mark.gpu
 
 DTYPES = [torch.float32, torch.bfloat16]
-NO_LAUNCHES = {"rmsnorm": 0, "flash_attention": 0, "chunk_reduce": 0, "dequant_add": 0}
+NO_LAUNCHES = {"rmsnorm": 0, "flash_attention_tc": 0, "flash_attention_cores": 0, "chunk_reduce": 0,
+               "dequant_add": 0}
 FLASH_CASES = [
     # (B, H, Kh, Sq, Skv, D, causal, window, q_offset)
     (1, 2, 2, 128, 128, 64, True, 0, 0),
@@ -82,7 +83,72 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
     want = ref.flash_attention_ref(q, k, v, causal, window, off)
     assert got.dtype == dtype and got.shape == q.shape
     torch.testing.assert_close(got.float(), want.float(), **tol(dtype))
-    assert ops.launch_counts() == dict(NO_LAUNCHES, flash_attention=1)
+    assert ops.launch_counts() == dict(NO_LAUNCHES, **{f"flash_attention_{tfa.route(dtype, D)}": 1})
+
+
+# The tensor-core route (bf16, D 64 or 128): tests/test_kernels.py's cases of
+# those head dims, the serve prefill shape and its 513-token variant, q_offset
+# = Skv - Sq with Sq != Skv, ragged lengths, and windows whose first rows see
+# no key.
+TC_CASES = [
+    # (B, H, Kh, Sq, Skv, D, causal, window, q_offset)
+    (1, 2, 2, 128, 128, 64, True, 0, 0),
+    (2, 4, 2, 128, 128, 64, True, 0, 0),
+    (1, 2, 2, 128, 128, 64, False, 0, 0),
+    (1, 2, 2, 256, 256, 64, True, 64, 0),
+    (1, 2, 1, 64, 512, 64, True, 0, 448),
+    (4, 40, 8, 512, 512, 128, True, 0, 0),    # the serve prefill
+    (4, 40, 8, 513, 513, 128, True, 0, 0),    # prefill of prompt + one token
+    (1, 4, 2, 100, 300, 128, True, 0, 200),   # ragged, Sq != Skv
+    (2, 4, 4, 70, 190, 64, False, 0, 0),      # ragged, bidirectional
+    (1, 2, 2, 300, 300, 128, True, 48, 0),    # narrow window over several tiles
+    (1, 2, 1, 200, 200, 64, True, 16, -20),   # window, the first 20 rows see no key
+    (1, 2, 2, 16, 16, 128, True, 0, -4),      # rows with no visible key
+    (1, 2, 1, 4, 64, 64, True, 0, -10),       # no row sees a key: no kv tile is read
+    (1, 2, 1, 40, 0, 128, True, 0, 0),        # no keys at all
+]
+
+
+def _qkv(gen, B, H, Kh, Sq, Skv, D, dtype):
+    q = (torch.randn(B, H, Sq, D, generator=gen, device="cuda") / D ** 0.5).to(dtype)
+    k = (torch.randn(B, Kh, Skv, D, generator=gen, device="cuda") / D ** 0.5).to(dtype)
+    v = torch.randn(B, Kh, Skv, D, generator=gen, device="cuda").to(dtype)
+    return q, k, v
+
+
+@pytest.mark.parametrize("case", TC_CASES)
+def test_flash_tensor_cores_match_plain(cuda, case):
+    B, H, Kh, Sq, Skv, D, causal, window, off = case
+    assert tfa.route(torch.bfloat16, D) == "tc"
+    q, k, v = _qkv(cuda, B, H, Kh, Sq, Skv, D, torch.bfloat16)
+    got = ops.flash_attention(q, k, v, causal, window, off)
+    torch.cuda.synchronize()
+    want = ref.flash_attention_ref(q, k, v, causal, window, off)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), **tol(torch.bfloat16))
+    assert ops.launch_counts() == dict(NO_LAUNCHES, flash_attention_tc=1)
+
+
+@pytest.mark.parametrize("case", [c for c in TC_CASES if c[0] * c[1] * c[3] <= 4096])
+def test_flash_f32_takes_the_cuda_cores(cuda, case):
+    """f32 at the head dims of the tensor-core route stays on the exact kernel."""
+    B, H, Kh, Sq, Skv, D, causal, window, off = case
+    q, k, v = _qkv(cuda, B, H, Kh, Sq, Skv, D, torch.float32)
+    got = ops.flash_attention(q, k, v, causal, window, off)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref.flash_attention_ref(q, k, v, causal, window, off), **tol(torch.float32))
+    assert ops.launch_counts() == dict(NO_LAUNCHES, flash_attention_cores=1)
+
+
+def test_flash_tensor_cores_refuse_a_misaligned_start(cuda):
+    """TMA reads from 16-byte aligned addresses; the route does not change."""
+    q, k, v = _qkv(cuda, 1, 2, 2, 33, 33, 64, torch.bfloat16)
+    flat = torch.empty(q.numel() + 1, dtype=torch.bfloat16, device="cuda")
+    q1 = flat[1:].view(q.shape)
+    q1.copy_(q)
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa.flash_attention_fwd(q1, k, v)
+    assert ops.launch_counts() == NO_LAUNCHES
 
 
 @pytest.mark.parametrize("shape", [(4, 64), (3, 7, 256), (1000, 128), (2048, 5120), (5, 16383), (2, 1025)])
@@ -133,7 +199,8 @@ def test_reduced_model_on_the_card_matches_the_cpu(cuda):
         gl, gc = T.decode_step(cfg, gparams, tok.cuda(), t, gc)
         torch.testing.assert_close(gl.cpu(), cl, rtol=1e-4, atol=1e-4)
     counts = ops.launch_counts()
-    assert counts["flash_attention"] == cfg.num_layers and counts["rmsnorm"] == 5 * 2 + 1 + 4 * (4 * 2 + 1)
+    assert counts["flash_attention_cores"] == cfg.num_layers and counts["flash_attention_tc"] == 0
+    assert counts["rmsnorm"] == 5 * 2 + 1 + 4 * (4 * 2 + 1)
     opts = ServeOptions(max_seq=32, batch_size=2)
     got = Engine(cfg, gparams, opts).generate({"tokens": toks}, 6)
     want = Engine(cfg, params, opts).generate({"tokens": toks}, 6)
@@ -161,7 +228,7 @@ def test_serve_main_defaults_to_the_card(cuda, capsys):
     out = serve.main(["--arch", "qwen3-14b", "--reduced", "--batch", "2", "--new-tokens", "4"])
     assert out.shape == (2, 4)
     assert torch.cuda.get_device_name() in capsys.readouterr().out
-    assert ops.launch_counts()["flash_attention"] == 2
+    assert ops.launch_counts()["flash_attention_cores"] == 2  # the reduced config: f32, head dim 16
 
 
 @pytest.mark.parametrize("n", [17, 4096, 100_000])
@@ -179,6 +246,53 @@ def test_chunk_reduce_kernel_matches_plain(cuda, n, dtype, alpha, into):
     torch.testing.assert_close(got.float(), want.float(), **tol(dtype))
     assert torch.equal(got, want)
     assert ops.launch_counts() == dict(NO_LAUNCHES, chunk_reduce=1)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("into", ["new", "dst"])
+@pytest.mark.parametrize("alpha", [1.0, 0.5])
+def test_chunk_reduce_on_the_rows_of_a_chunked_buffer(cuda, dtype, into, alpha):
+    """The chain hop's case: dst is row k of ``buf.reshape(C, chunk)`` (as
+    ``collectives._to_chunks`` lays a leaf out) with an odd chunk, so the rows
+    start at every 2-byte (bf16) or 4-byte (f32) offset from a 16-byte
+    boundary, and src is a fresh tensor.  Bit for bit, and no other row moves."""
+    C, chunk = 8, 10_007
+    buf = torch.randn(C * chunk, generator=cuda, device="cuda").to(dtype)
+    rows = buf.reshape(C, chunk)
+    for k in range(C):
+        before = buf.clone()
+        dst = rows[k]
+        src = torch.randn(chunk, generator=cuda, device="cuda").to(dtype)
+        want = ref.chunk_reduce_ref(dst, src, alpha)
+        got = ops.chunk_reduce(dst, src, alpha, out=dst if into == "dst" else None)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"row {k}"
+        others = torch.ones(C, dtype=torch.bool, device="cuda")
+        others[k] = into == "new"
+        assert torch.equal(buf.reshape(C, chunk)[others], before.reshape(C, chunk)[others])
+    assert ops.launch_counts() == dict(NO_LAUNCHES, chunk_reduce=C)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("into", ["new", "dst"])
+@pytest.mark.parametrize("n", [1, 5, 17, 4099, 100_003])
+def test_chunk_reduce_with_a_misaligned_src(cuda, dtype, into, n):
+    """An aligned dst against src views that start at every element offset
+    from a 16-byte boundary, and both misaligned by different offsets."""
+    per = 16 // torch.tensor([], dtype=dtype).element_size()
+    big_src = torch.randn(n + per, generator=cuda, device="cuda").to(dtype)
+    big_dst = torch.randn(n + per, generator=cuda, device="cuda").to(dtype)
+    launches = 0
+    for s in range(per):
+        for d in (0, (s * 3 + 1) % per):
+            src = big_src[s : s + n]
+            dst = big_dst[d : d + n].clone() if d == 0 else big_dst[d : d + n]
+            want = ref.chunk_reduce_ref(dst, src, 1.0)
+            got = ops.chunk_reduce(dst, src, 1.0, out=dst if into == "dst" else None)
+            torch.cuda.synchronize()
+            launches += 1
+            assert torch.equal(got, want), f"src offset {s}, dst offset {d}"
+    assert ops.launch_counts() == dict(NO_LAUNCHES, chunk_reduce=launches)
 
 
 @pytest.mark.parametrize("n", [300, 70_000])

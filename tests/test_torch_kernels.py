@@ -51,7 +51,8 @@ RAGGED_CASES = [
 
 RMSNORM_SHAPES = [(4, 64), (3, 7, 256), (1000, 128)]
 
-NO_LAUNCHES = {"rmsnorm": 0, "flash_attention": 0, "chunk_reduce": 0, "dequant_add": 0}
+NO_LAUNCHES = {"rmsnorm": 0, "flash_attention_tc": 0, "flash_attention_cores": 0, "chunk_reduce": 0,
+               "dequant_add": 0}
 
 
 def tol(dtype):
@@ -248,6 +249,7 @@ C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "int": ctyp
 
 
 @pytest.mark.parametrize("wrapper,name", [(trn, "rmsnorm_fwd"), (tfa, "flash_attention_fwd"),
+                                          (tfa, "flash_attention_fwd_sm90"),
                                           (tcr, "chunk_reduce_fwd"), (tcr, "dequant_add_fwd")])
 def test_ctypes_signature_matches_the_c_interface(wrapper, name):
     """The wrapper's argtypes follow the extern "C" prototype in csrc/, one
@@ -260,5 +262,47 @@ def test_ctypes_signature_matches_the_c_interface(wrapper, name):
     assert [C_TYPES[p] for p in params] == argtypes
 
 
-def test_build_key_covers_every_source():
+def test_ctypes_signatures_cover_every_entry_point():
+    """Every extern "C" function in csrc/ has its argtypes in a wrapper."""
+    src = "\n".join(p.read_text() for p in sorted(_build.CSRC.glob("*.cu")))
+    names = set(re.findall(r'extern "C" int (\w+)\(', src))
+    bound = {"rmsnorm_fwd"} | set(tfa.ARGTYPES) | set(tcr.ARGTYPES)
+    assert names == bound
+
+
+def test_build_key_covers_every_source(monkeypatch, tmp_path):
+    """Every source is built, and the key moves with any source or header."""
     assert {p.stem for p in _build.CSRC.glob("*.cu")} == set(_build.SOURCES)
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for p in _build.CSRC.iterdir():
+        (csrc / p.name).write_bytes(p.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    keys = [_build._build_dir()]
+    (csrc / "common.cuh").write_text("// a header\n")
+    keys.append(_build._build_dir())
+    (csrc / "common.cuh").write_text("// a header, changed\n")
+    keys.append(_build._build_dir())
+    (csrc / "flash_attention_sm90.cu").write_text((csrc / "flash_attention_sm90.cu").read_text() + "\n")
+    keys.append(_build._build_dir())
+    assert len(set(keys)) == 4
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16])
+@pytest.mark.parametrize("D", [16, 32, 48, 64, 80, 96, 128, 256])
+def test_flash_route_is_a_function_of_dtype_and_head_dim(dtype, D):
+    """bf16 with D 64 or 128 takes the tensor cores; f32 (held to 2e-5) and
+    every other head dim take the exact CUDA-core kernel."""
+    want = "tc" if dtype == torch.bfloat16 and D in (64, 128) else "cores"
+    assert tfa.route(dtype, D) == want
+
+
+def test_flash_routes_of_the_configs():
+    """The serve config (qwen3-14b, head dim 128, bf16) takes the tensor cores;
+    its reduced config (f32, head dim 16) the CUDA cores."""
+    from repro_torch.configs import get_config, reduced_config
+
+    cfg = get_config("qwen3-14b")
+    assert tfa.route(getattr(torch, cfg.dtype), cfg.head_dim) == "tc"
+    small = reduced_config(cfg)
+    assert tfa.route(getattr(torch, small.dtype), small.head_dim) == "cores"

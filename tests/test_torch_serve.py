@@ -77,7 +77,8 @@ def np32(x):
 def _zero_counts():
     tops.reset_launch_counts()
     yield
-    assert tops.launch_counts() == dict.fromkeys(("rmsnorm", "flash_attention", "chunk_reduce", "dequant_add"), 0)  # CPU: plain versions only
+    assert tops.launch_counts() == dict.fromkeys(
+        ("rmsnorm", "flash_attention_tc", "flash_attention_cores", "chunk_reduce", "dequant_add"), 0)  # CPU: plain versions only
 
 
 # ---------------------------------------------------------------------------
