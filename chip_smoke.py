@@ -66,6 +66,9 @@ ARCH, BATCH, PROMPT, NEW_TOKENS, MAX_SEQ, SEED = "qwen3-14b", 4, 512, 32, 1024, 
 # block of gradients)
 SYNC_RANKS = 4
 
+# Names of the port's kernels in a profile (see device_profile).
+PORT_KERNELS = ("flash_fwd_sm90_kernel", "flash_fwd_kernel", "rmsnorm", "chunk_reduce_kernel")
+
 # Decode versus prefill of the longer prompt, in bf16 (see check_cache).
 CACHE_REL_L2_TOL = 5e-2
 
@@ -516,6 +519,10 @@ def device_profile(torch, fn, label: str, wall_ms: float):
     log(f"[profile] {label}: device busy {busy:.2f} ms of {wall_ms:.2f} ms wall "
         f"({100 * busy / wall_ms:.1f}%), {len(events)} device events; top: " + "; ".join(
             f"{name[:60]} {t / 1e3:.2f} ms x{n}" for name, (t, n) in top))
+    ours = {k: sum(t for name, (t, _) in per_name.items() if k in name) for k in PORT_KERNELS}
+    counts = {k: sum(n for name, (_, n) in per_name.items() if k in name) for k in PORT_KERNELS}
+    log(f"[profile] {label}: the port's kernels: " + "; ".join(
+        f"{k} {ours[k] / 1e3:.3f} ms x{counts[k]}" for k in PORT_KERNELS))
     return busy
 
 

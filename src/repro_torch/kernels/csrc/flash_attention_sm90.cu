@@ -159,6 +159,17 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// One box of shared memory into a 3-D tensor map; rows past the map's end
+// are not written.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // wgmma shared-memory descriptor for the 128-byte swizzle: start address,
 // leading and stride byte offsets (in 16-byte units), layout type 1 (B128).
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
@@ -166,7 +177,9 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
 }
 
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
@@ -252,6 +265,7 @@ __device__ __forceinline__ void wgmma_pv<128>(float (&o)[64], const uint32_t (&a
 // One work item on the two consumer warpgroups: thread tid of 256 owns two
 // rows of the 128.  `tile` counts the kv tiles this block has consumed, over
 // all its items: it names the ring's stage and phase.
+//
 // Accumulator fragment of a 64 x N wgmma tile (per warp 16 rows): element i
 // of a thread lies in row warp*16 + lane/4 + 8*((i/2) % 2) and column
 // 8*(i/4) + 2*(lane%4) + i%2.
@@ -386,19 +400,21 @@ __device__ __forceinline__ void attend(const Item& item, const CUtensorMap* o_ma
       const int i = 4 * c + 2 * r;
       const uint32_t addr = sQ + (c / 8) * kBQ * kRowBytes + row * kRowBytes +
                             (((c % 8) ^ (row & 7)) << 4) + col0 * 2;
-      asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(pack_bf16(acc[i] * inv[r], acc[i + 1] * inv[r])) : "memory");
+      const uint32_t v = pack_bf16(acc[i] * inv[r], acc[i + 1] * inv[r]);
+      asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
     }
   }
+  // The TMA (the async proxy) must see these stores, and all 128 threads'
+  // (named barrier 1 + wg: 0 is __syncthreads').
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  asm volatile("bar.sync %0, 128;\n" ::"r"(3 + wg) : "memory");
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
   if ((tid & 127) == 0) {
 #pragma unroll
     for (int box = 0; box < L::kBoxes; ++box)
-      asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n"
-                   ::"l"(reinterpret_cast<uint64_t>(o_map)), "r"(sQ + box * kBQ * kRowBytes + wg * 64 * kRowBytes),
-                   "r"(box * kBoxCols), "r"(q0 + wg * 64), "r"(item.bh) : "memory");
+      tma_store_3d(o_map, sQ + box * kBQ * kRowBytes + wg * 64 * kRowBytes, box * kBoxCols,
+                   q0 + wg * 64, item.bh);
     asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");  // the tile may be reused
   }
 }
 

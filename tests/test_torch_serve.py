@@ -191,10 +191,9 @@ def bf16_logit_tol(want):
     """The bf16 tolerance (tests/test_kernels.py:16-17), the absolute part
     taken at the logits' scale.  The port's CPU flash keeps P in f32, the JAX
     model's ``flash_ref`` rounds P to bf16 (``repro/models/attention.py:111``):
-    on the same q, k, v they differ by one bf16 ulp in a quarter of the
-    attention outputs, and the bf16 residual stream carries that into f32
-    logits of size 3-4, by up to 0.045, so about 0.5% of the logits near zero
-    lie outside an absolute 2e-2."""
+    on the same q, k, v part of the attention outputs differ by one bf16 ulp,
+    and the bf16 residual stream carries that into f32 logits of size 3-4 by
+    a few hundredths, so a few logits near zero lie outside an absolute 2e-2."""
     return dict(rtol=2e-2, atol=2e-2 * float(np.abs(np32(want)).max()))
 
 
