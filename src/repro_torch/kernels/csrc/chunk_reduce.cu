@@ -17,8 +17,7 @@
 // tensor, so the three pointers are aligned independently.  The kernel aligns
 // on `out`: a scalar head brings `out` to a 16-byte boundary, then each thread
 // of a grid-stride loop (at most kMaxBlocks blocks of kThreads) writes
-// kUnroll runs of 16 aligned bytes of `out` per step (8 bf16 or 4 f32 each),
-// all loads first.  dst and src are read
+// 16 aligned bytes of `out` per step (8 bf16 or 4 f32).  dst and src are read
 // with aligned 16-byte loads of the window that covers those bytes, one load
 // where the pointer shares `out`'s alignment and two otherwise, and realigned
 // in registers with __funnelshift_r.  A scalar tail takes the rest, so any n
@@ -43,7 +42,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr long long kMaxBlocks = 132 * 16;  // 16 blocks of 256 threads on each of 132 SMs
-constexpr int kUnroll = 2;                  // chunk_reduce: 16-byte vectors per thread per step
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -123,32 +121,13 @@ chunk_reduce_kernel(const T* dst, const T* __restrict__ src, T* out, long long n
   const uint4* d4 = reinterpret_cast<const uint4*>(dp - dshift);
   const uint4* s4 = reinterpret_cast<const uint4*>(sp - sshift);
   uint4* o4 = reinterpret_cast<uint4*>(out + head);
-  // Each step a block takes kUnroll * kThreads vectors, a warp's loads of one
-  // u contiguous, and every load of a thread is issued before any is used.
-  const long long per_step = (long long)kUnroll * kThreads;
-  for (long long v0 = (long long)blockIdx.x * per_step + threadIdx.x; v0 < nvec;
-       v0 += (long long)gridDim.x * per_step) {
-    uint4 dv[kUnroll], sv[kUnroll];
+  for (long long v = first; v < nvec; v += stride) {
+    float d[kVec], s[kVec];
+    unpack(load16(d4 + v, dshift), d);
+    unpack(load16(s4 + v, sshift), s);
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const long long v = v0 + (long long)u * kThreads;
-      if (v < nvec) {
-        dv[u] = load16(d4 + v, dshift);
-        sv[u] = load16(s4 + v, sshift);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const long long v = v0 + (long long)u * kThreads;
-      if (v < nvec) {
-        float d[kVec], s[kVec];
-        unpack(dv[u], d);
-        unpack(sv[u], s);
-#pragma unroll
-        for (int e = 0; e < kVec; ++e) d[e] = __fadd_rn(d[e], __fmul_rn(alpha, s[e]));
-        o4[v] = pack(d);
-      }
-    }
+    for (int e = 0; e < kVec; ++e) d[e] = __fadd_rn(d[e], __fmul_rn(alpha, s[e]));
+    o4[v] = pack(d);
   }
 }
 
@@ -169,11 +148,11 @@ unsigned grid_for(long long n) {
   return (unsigned)(blocks < kMaxBlocks ? blocks : kMaxBlocks);
 }
 
-// chunk_reduce: a thread per kUnroll vectors of 16 bytes of out, at least
-// one block for the head and tail.
+// chunk_reduce: a thread per 16 bytes of out, at least one block for the
+// head and tail.
 template <typename T>
 unsigned grid_for_vec(long long n) {
-  return grid_for(n / (16 / (long long)sizeof(T)) / kUnroll + 1);
+  return grid_for(n / (16 / (long long)sizeof(T)) + 1);
 }
 
 }  // namespace

@@ -71,13 +71,21 @@ def cuda():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
+def _qkv(gen, B, H, Kh, Sq, Skv, D, dtype):
+    """q of std 2 and k, v of std 1: the scaled scores q.k / sqrt(D) have a
+    std of 2 (the qk-normed serve path's are near 1), so the softmax is far
+    from uniform and the output depends on every score."""
+    q = (torch.randn(B, H, Sq, D, generator=gen, device="cuda") * 2).to(dtype)
+    k = torch.randn(B, Kh, Skv, D, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(B, Kh, Skv, D, generator=gen, device="cuda").to(dtype)
+    return q, k, v
+
+
 @pytest.mark.parametrize("case", FLASH_CASES)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_kernel_matches_plain(cuda, case, dtype):
     B, H, Kh, Sq, Skv, D, causal, window, off = case
-    q = (torch.randn(B, H, Sq, D, generator=cuda, device="cuda") / D ** 0.5).to(dtype)
-    k = (torch.randn(B, Kh, Skv, D, generator=cuda, device="cuda") / D ** 0.5).to(dtype)
-    v = torch.randn(B, Kh, Skv, D, generator=cuda, device="cuda").to(dtype)
+    q, k, v = _qkv(cuda, B, H, Kh, Sq, Skv, D, dtype)
     got = ops.flash_attention(q, k, v, causal, window, off)
     torch.cuda.synchronize()
     want = ref.flash_attention_ref(q, k, v, causal, window, off)
@@ -109,13 +117,6 @@ TC_CASES = [
 ]
 
 
-def _qkv(gen, B, H, Kh, Sq, Skv, D, dtype):
-    q = (torch.randn(B, H, Sq, D, generator=gen, device="cuda") / D ** 0.5).to(dtype)
-    k = (torch.randn(B, Kh, Skv, D, generator=gen, device="cuda") / D ** 0.5).to(dtype)
-    v = torch.randn(B, Kh, Skv, D, generator=gen, device="cuda").to(dtype)
-    return q, k, v
-
-
 @pytest.mark.parametrize("case", TC_CASES)
 def test_flash_tensor_cores_match_plain(cuda, case):
     B, H, Kh, Sq, Skv, D, causal, window, off = case
@@ -127,6 +128,10 @@ def test_flash_tensor_cores_match_plain(cuda, case):
     assert got.dtype == torch.bfloat16 and got.shape == q.shape
     torch.testing.assert_close(got.float(), want.float(), **tol(torch.bfloat16))
     assert ops.launch_counts() == dict(NO_LAUNCHES, flash_attention_tc=1)
+    if want.abs().max() > 0:  # some row sees a key: the check must fail a wrong Q.K^T
+        for kk in (k.roll(8, dims=-1), torch.zeros_like(k)):  # a 16-byte unit off; S = 0
+            bad = ref.flash_attention_ref(q, kk, v, causal, window, off)
+            assert not torch.allclose(got.float(), bad.float(), **tol(torch.bfloat16))
 
 
 @pytest.mark.parametrize("case", [c for c in TC_CASES if c[0] * c[1] * c[3] <= 4096])

@@ -218,10 +218,12 @@ def test_prefill_and_two_decode_steps_match_jax_bf16(model_bf16, S):
 
 @pytest.mark.parametrize("seed", [4, 5, 6])
 def test_engine_greedy_tokens_equal_jax_where_stable_bf16(model_bf16, seed):
-    """Greedy tokens agree while the choice is stable: in each row, up to the
-    first step where the JAX logits' top-two gap is within twice the logit
-    tolerance of the test above.  Past such a step the two packages may pick
-    different tokens, legitimately, and the rows' continuations part."""
+    """Greedy tokens agree at every step whose context the two engines share.
+    In each row the steps are compared in order while the tokens so far agree.
+    The first differing token is allowed only where the choice is unstable,
+    that is where the JAX logits' top-two gap is within twice the logit
+    tolerance of the test above.  The two continuations part there, and the
+    row ends.  At least half of all steps must have been compared."""
     cfg, jcfg, jp, tp = model_bf16
     B, S, N = 3, 9, 8
     toks = prompts(cfg, B, S, seed=seed)
@@ -232,15 +234,22 @@ def test_engine_greedy_tokens_equal_jax_where_stable_bf16(model_bf16, seed):
     assert got.shape == want.shape == (B, N)
     seq = np.concatenate([toks, want], axis=1)
     jl, jc = JT.prefill(jcfg, jp, {"tokens": jnp.asarray(toks)}, cache_seq=32)
-    stable = np.zeros((B, N), bool)
+    gap = np.zeros((B, N))
+    limit = np.zeros(N)
     for i in range(N):
         top2 = np.sort(np32(jl)[:, : cfg.vocab_size], axis=-1)[:, -2:]
-        stable[:, i] = top2[:, 1] - top2[:, 0] > 2 * bf16_logit_tol(jl)["atol"]
+        gap[:, i], limit[i] = top2[:, 1] - top2[:, 0], 2 * bf16_logit_tol(jl)["atol"]
         jl, jc = JT.decode_step(jcfg, jp, jnp.asarray(seq[:, S + i : S + i + 1]), jnp.int32(S + i), jc)
-    prefix = np.cumprod(stable, axis=1).sum(axis=1)  # leading stable steps per row
-    assert prefix.sum() >= B, f"too few stable steps to compare: {prefix}"
+    agreed = np.zeros(B, int)  # leading steps on which the engines chose alike
     for r in range(B):
-        np.testing.assert_array_equal(got[r, : prefix[r]], want[r, : prefix[r]], err_msg=f"row {r}")
+        for i in range(N):
+            if got[r, i] != want[r, i]:
+                assert gap[r, i] <= limit[i], (
+                    f"row {r} step {i}: token {got[r, i]} != {want[r, i]} with a top-two gap of "
+                    f"{gap[r, i]:.3f} > {limit[i]:.3f}")
+                break
+            agreed[r] += 1
+    assert agreed.sum() >= B * N // 2, f"too few steps compared: {agreed} of {N} per row"
 
 
 # ---------------------------------------------------------------------------
