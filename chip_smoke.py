@@ -5,7 +5,10 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
 ``build/``), holds each against its plain PyTorch version at the main paths'
-shapes and the sweeps of tests/test_kernels.py, then drives two paths:
+shapes and the sweeps of tests/test_kernels.py (flash attention's output and
+log-sum-exp on both routes, and its autograd backward against the CPU's),
+times RMSNorm against ``F.rms_norm`` and the flash forward at the train
+shape against SDPA, then drives three paths:
 
 - serve: qwen3-14b at full width (40 layers, d=5120, bf16 weights drawn on
   the card from seed 0), 4 prompts of 512 tokens, 32 greedy tokens each, with
@@ -19,6 +22,13 @@ shapes and the sweeps of tests/test_kernels.py, then drives two paths:
   result against the seeded mean; the chain methods' ranks must agree bit
   for bit.  Ranks 0 and 1 also measure the host-staged link, and all ranks
   measure it once more under load, exchanging around the ring at once.
+- train: ``launch.train.run`` on qwen3-14b at full width with its depth cut
+  to 4 layers (40 layers of weights, AdamW moments and f32 gradient sums do
+  not fit one card), bf16, at train_4k's sequence of 4096 tokens, a global
+  batch of 2 in 2 microbatches, full remat, AdamW as configured, 3 steps.
+  It checks the losses and gradient norms, the first loss against ln(vocab),
+  and the kernel launches per step against ``expected_train_launches``, and
+  profiles one more step.
 
 Every phase raises on failure; the script then exits non-zero.
 
@@ -47,7 +57,8 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 # host takes to enqueue any one kernel here.
 SPIN_CYCLES = 200_000
 
-# tests/test_kernels.py:16-17, used as both rtol and atol
+# tests/test_kernels.py:16-17, used as both rtol and atol; the log-sum-exp
+# (f32 from either type) is held to the same numbers, absolute
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 FLASH_CASES = [
@@ -62,12 +73,22 @@ FLASH_CASES = [
 
 ARCH, BATCH, PROMPT, NEW_TOKENS, MAX_SEQ, SEED = "qwen3-14b", 4, 512, 32, 1024, 0
 
+# The train phase: qwen3-14b's widths, its depth cut to TRAIN_LAYERS, train_4k's
+# sequence, TRAIN_BATCH rows in TRAIN_MICRO microbatches, TRAIN_STEPS steps.
+TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_STEPS = 4, 4096, 2, 2, 3
+# The flash forward at the train shape: one row of the batch, every head.
+FLASH_TRAIN = (1, 40, 8, TRAIN_SEQ, TRAIN_SEQ, 128, True, 0)
+
 # The sync phase: rank processes on the one card (each with one decoder
 # block of gradients)
 SYNC_RANKS = 4
 
 # Names of the port's kernels in a profile (see device_profile).
 PORT_KERNELS = ("flash_fwd_sm90_kernel", "flash_fwd_kernel", "rmsnorm", "chunk_reduce_kernel")
+# Kinds of device events in a profile, by a piece of their names; the first that matches wins.
+EVENT_KINDS = (("the port's kernels", PORT_KERNELS), ("f32 GEMMs", ("f32f32",)),
+               ("other GEMMs", ("gemm", "nvjet", "xmma", "cutlass")), ("elementwise", ("elementwise",)),
+               ("reductions", ("reduce",)), ("copies and fills", ("Memcpy", "Memset", "copy", "fill")))
 
 # Decode versus prefill of the longer prompt, in bf16 (see check_cache).
 CACHE_REL_L2_TOL = 5e-2
@@ -139,21 +160,41 @@ def check_rmsnorm(torch, rn, ref, gen):
             if shape == shapes[0] and dtype == "bfloat16":
                 path_err = err
     torch.cuda.synchronize()
+    spread = {str(shape): rmsnorm_vs_library(torch, rn, gen, shape) for shape in shapes[:2]}
     x = torch.randn(shapes[0], generator=gen, device="cuda").to(torch.bfloat16)
     w = (torch.randn(5120, generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
-    w1 = 1.0 + w  # the library call takes the whole scale
-    ms = time_ms(torch, lambda: rn.rmsnorm(x, w))
     plain = time_ms(torch, lambda: ref.rmsnorm_ref(x, w))
-    lib = time_ms(torch, lambda: torch.nn.functional.rms_norm(x, (5120,), w1, 1e-6))
+    path = spread[str(shapes[0])]
     b_ms, b_by = bound(2 * x.numel() * 2 + w.numel() * 2, 4 * x.numel(), "bfloat16")
-    log(f"[kernels] rmsnorm {tuple(x.shape)} bf16: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-        f"F.rms_norm {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    log(f"[kernels] rmsnorm {tuple(x.shape)} bf16: kernel {path['kernel_ms']:.4f} ms, plain {plain:.4f} ms, "
+        f"F.rms_norm {path['library_ms']:.4f} ms (medians), bound {b_ms:.4f} ms ({b_by})")
     return {
         "name": "rmsnorm", "route": "cuda", "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
         "replaces": "src/repro/kernels/rmsnorm.py:25", "shape": f"x {tuple(x.shape)} bf16",
-        "max_abs_err": path_err, "ms": ms, "kernel_ms": ms, "plain_ms": plain,
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+        "max_abs_err": path_err, "ms": path["kernel_ms"], "kernel_ms": path["kernel_ms"], "plain_ms": plain,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": path["library_ms"], "against_library": spread,
     }
+
+
+def rmsnorm_vs_library(torch, rn, gen, shape, reps: int = 5):
+    """The kernel and ``F.rms_norm`` (which takes the whole scale, 1 + w) on
+    the same bf16 x, timed in turns, ``reps`` runs of ``time_ms`` each: the
+    median and range of each and the ratio of the medians."""
+    d = shape[-1]
+    x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(d, generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+    w1 = 1.0 + w
+    ks, ls = [], []
+    for _ in range(reps):
+        ks.append(time_ms(torch, lambda: rn.rmsnorm(x, w)))
+        ls.append(time_ms(torch, lambda: torch.nn.functional.rms_norm(x, (d,), w1, 1e-6)))
+    k, lib = statistics.median(ks), statistics.median(ls)
+    log(f"[kernels] rmsnorm {shape} bf16 against F.rms_norm, {reps} turns of time_ms: kernel median {k:.6f} ms "
+        f"(range {min(ks):.6f}-{max(ks):.6f}), F.rms_norm median {lib:.6f} ms (range {min(ls):.6f}-{max(ls):.6f}), "
+        f"ratio of medians {k / lib:.4f} (per turn {min(a / b for a, b in zip(ks, ls)):.4f}-"
+        f"{max(a / b for a, b in zip(ks, ls)):.4f})")
+    return {"kernel_ms": k, "kernel_range": [min(ks), max(ks)], "library_ms": lib,
+            "library_range": [min(ls), max(ls)], "ratio": k / lib}
 
 
 def flash_pairs(torch, Sq, Skv, causal, window, q_offset) -> int:
@@ -221,7 +262,16 @@ def check_flash(torch, fa, ref, gen, spills: int):
                 check_sensitive(torch, ref, what, got, q, k, v, causal, win, off)
             if case == cfg_case and dtype == "bfloat16":
                 path_err = err
+            if case in FLASH_CASES or case == window:  # the window case has rows with no key
+                check_lse(torch, fa, ref, what, got, q, k, v, causal, win, off, dtype)
     log("[kernels] flash: on every tensor-core case the bf16 check fails K with rolled columns and S = 0")
+    B, H, Kh, S, _, D, causal, win = FLASH_TRAIN
+    q, k, v = flash_inputs(torch, gen, B, H, Kh, S, S, D, torch.bfloat16)
+    got = fa.flash_attention_fwd(q, k, v, causal=causal, window=win)
+    lse_err = check_lse(torch, fa, ref, f"flash {FLASH_TRAIN} bf16 (tc, the train shape)", got, q, k, v,
+                        causal, win, 0, "bfloat16")
+    log("[kernels] flash lse: on both routes, at every case above, the check fails an lse of S = 0 and one "
+        "in log2 units")
     torch.cuda.synchronize()
     B, H, Kh, S, _, D, _, _ = cfg_case
     q, k, v = flash_inputs(torch, gen, B, H, Kh, S, S, D, torch.bfloat16)
@@ -239,7 +289,7 @@ def check_flash(torch, fa, ref, gen, spills: int):
         f"bound {b_ms:.4f} ms ({b_by}), {ops / ms / 1e9:.2f} TFLOP/s")
     log(f"[kernels] flash same shape f32 (CUDA cores): kernel {f32_ms:.4f} ms, bound {f32_bound:.4f} ms "
         f"({f32_by}), {ops / f32_ms / 1e9:.2f} TFLOP/s")
-    return {
+    return dict({
         "name": "flash_attention", "route": "cuda", "kernel_route": "tc",
         "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention.py:93",
@@ -247,8 +297,79 @@ def check_flash(torch, fa, ref, gen, spills: int):
         "max_abs_err": path_err, "ms": ms, "kernel_ms": ms, "plain_ms": plain,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib, "spill_bytes": spills,
         "f32_route": "cores", "f32_source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "f32_ms": f32_ms, "f32_bound_ms": f32_bound,
-    }
+        "f32_ms": f32_ms, "f32_bound_ms": f32_bound, "train_shape_lse_max_abs_err": lse_err,
+    }, **time_flash_train_shape(torch, fa, ref, gen))
+
+
+def check_lse(torch, fa, ref, what, out, q, k, v, causal, window, q_offset, dtype: str) -> float:
+    """The kernel's log-sum-exp against the plain version's (+inf where a row
+    sees no key), with the same output as without it; and the check must fail
+    an lse of S = 0 (K zeroed) and one in log2 units, on the rows that see a
+    key.  Returns the largest error on those rows."""
+    got_out, lse = fa.flash_attention_fwd(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                                          return_lse=True)
+    want = ref.flash_attention_ref(q, k, v, causal, window, q_offset, return_lse=True)[1]
+    tol = TOL[dtype]
+    if not torch.equal(got_out, out):
+        raise AssertionError(f"{what}: the output changes when the kernel writes the lse")
+    seen = torch.isfinite(want)
+    if lse.dtype != torch.float32 or lse.shape != want.shape or not torch.equal(torch.isfinite(lse), seen) \
+            or (lse[~seen] != want[~seen]).any():
+        raise AssertionError(f"{what}: lse of the wrong type or shape, or not +inf exactly where no key is seen")
+    err = (lse[seen] - want[seen]).abs().max().item() if seen.any() else 0.0
+    log(f"[kernels] {what} lse: max_abs_err={err:.3e} tol={tol:g} {'ok' if err <= tol else 'FAIL'}")
+    if err > tol:
+        raise AssertionError(f"{what}: lse disagrees with its plain version (max_abs_err {err})")
+    if seen.any():
+        zero_s = ref.flash_attention_ref(q, torch.zeros_like(k), v, causal, window, q_offset, return_lse=True)[1]
+        for wrong, bad in (("S = 0", zero_s), ("log2 units", want / math.log(2.0))):
+            if torch.allclose(lse[seen], bad[seen], rtol=0, atol=tol):
+                raise AssertionError(f"{what}: the lse check cannot tell the lse from one of {wrong}")
+    return err
+
+
+def time_flash_train_shape(torch, fa, ref, gen):
+    """The tensor-core forward at the train shape (one row of train_4k's
+    batch, every head), without and with its lse, against SDPA on the same
+    inputs and its bound; and the plain backward there."""
+    B, H, Kh, S, _, D, causal, _ = FLASH_TRAIN
+    q, k, v = flash_inputs(torch, gen, B, H, Kh, S, S, D, torch.bfloat16)
+    ms = time_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, causal=True))
+    lse_ms = time_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, causal=True, return_lse=True))
+    lib = time_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True))
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True, return_lse=True)
+    dout = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    bwd = time_ms(torch, lambda: ref.flash_attention_bwd(q, k, v, out, lse, dout, True, 0, 0), reps=5, warmup=1)
+    ops = 4 * B * H * D * flash_pairs(torch, S, S, True, 0, 0)
+    b_ms, b_by = bound((2 * q.numel() + k.numel() + v.numel()) * 2 + B * H * S * 4, ops, "bfloat16")
+    log(f"[kernels] flash {tuple(q.shape)}x{tuple(k.shape)} causal bf16 (tensor cores, the train shape): kernel "
+        f"{ms:.4f} ms, with lse {lse_ms:.4f} ms, SDPA {lib:.4f} ms ({lse_ms / lib:.3f}x), bound {b_ms:.4f} ms "
+        f"({b_by}), {ops / lse_ms / 1e9:.2f} TFLOP/s; the plain backward {bwd:.3f} ms")
+    return {"train_shape": f"q {tuple(q.shape)} kv {tuple(k.shape)} causal bf16", "train_shape_ms": ms,
+            "train_shape_lse_ms": lse_ms, "train_shape_library_ms": lib, "train_shape_bound_ms": b_ms,
+            "train_shape_bound_by": b_by, "train_shape_backward_plain_ms": bwd}
+
+
+def check_flash_backward(torch, ops, gen):
+    """The flash autograd function on the card (the tensor-core forward and
+    its lse, the plain backward) against the CPU's (the plain forward and
+    backward), bf16 at one row of the serve shape: each gradient within 2e-2
+    of its largest magnitude (the kernel rounds P to bf16 for PV, the CPU's
+    plain forward keeps it in f32)."""
+    B, H, Kh, S, D = 1, 40, 8, PROMPT, 128
+    q, k, v = flash_inputs(torch, gen, B, H, Kh, S, S, D, torch.bfloat16)
+    dout = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    grads = []
+    for dev in ("cuda", "cpu"):
+        ts = [t.to(dev).requires_grad_() for t in (q, k, v)]
+        out = ops.flash_attention(*ts, True, 0, 0)
+        grads.append([g.float().cpu() for g in torch.autograd.grad(out, ts, dout.to(dev))])
+    errs = [((g - w).abs().max() / w.abs().max()).item() for g, w in zip(*grads)]
+    log(f"[kernels] flash backward {tuple(q.shape)}x{tuple(k.shape)} causal bf16, card (tensor-core forward) vs "
+        f"CPU: dq, dk, dv max err / max magnitude {', '.join(f'{e:.3e}' for e in errs)} (tol 2e-2)")
+    if max(errs) > 2e-2:
+        raise AssertionError(f"flash backward on the card disagrees with the CPU's: {errs}")
 
 
 def hop_chunks(cfg, C):
@@ -496,7 +617,92 @@ def sync(torch, card: str):
     return summary
 
 
-def device_profile(torch, fn, label: str, wall_ms: float):
+def expected_train_launches(cfg, options):
+    """Launches of one train step.  Per microbatch, the forward runs 4 RMSNorms
+    in each layer (ln1, ln2, the qk-norm of q and of k) and the final norm,
+    and one flash forward per layer, on the tensor cores (bf16, head dim
+    128); remat (full or dots) runs each layer's forward once more in the
+    backward.  The backward passes are plain PyTorch: no launch."""
+    L, runs = cfg.num_layers, 1 if options.remat == "none" else 2
+    n = options.num_microbatches
+    return {"rmsnorm": n * (4 * L * runs + 1), "flash_attention_tc": n * L * runs, "flash_attention_cores": 0,
+            "chunk_reduce": 0, "dequant_add": 0}
+
+
+def train(torch, card: str):
+    """The train step at full width through ``launch.train.run``: qwen3-14b cut
+    to TRAIN_LAYERS layers, TRAIN_BATCH x TRAIN_SEQ tokens a step in
+    TRAIN_MICRO microbatches, full remat, one pod, TRAIN_STEPS steps."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as LT
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as TS
+    from repro_torch.tree import leaves, tree_map
+
+    full = get_config(ARCH)
+    cfg = dataclasses.replace(full, num_layers=TRAIN_LAYERS)
+    shape = ShapeSpec("train_4k, batch cut", TRAIN_SEQ, TRAIN_BATCH, "train")
+    opts = TS.TrainOptions(num_microbatches=TRAIN_MICRO, remat="full", pod_sync="gspmd")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"[train] {cfg.name} at full width (d={cfg.d_model}, {cfg.num_heads} q / {cfg.num_kv_heads} kv heads, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), cut: {TRAIN_LAYERS} of {full.num_layers} layers "
+        f"({cfg.param_count() / 1e9:.2f} B parameters; 40 layers' weights, f32 moments and f32 gradient sums, "
+        f"{full.param_count() * 14 / 1e9:.0f} GB, do not fit one card), global batch {TRAIN_BATCH} of train_4k's "
+        f"256 rows of {TRAIN_SEQ} tokens ({tokens} tokens a step) in {TRAIN_MICRO} microbatches, remat "
+        f"{opts.remat}, one pod, {cfg.param_dtype} weights from seed {SEED}, AdamW {opts.adamw}")
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, recs = LT.run(cfg, shape, opts, "cuda", steps=TRAIN_STEPS, seed=SEED, log_every=1,
+                         log=lambda m: log(f"[train] {m}"))  # the main path
+    phase_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    state_gb = sum(t.numel() * t.element_size() for t in leaves(state)) / 1e9
+    want = expected_train_launches(cfg, opts)
+    for r in recs:
+        log(f"[train] step {r['step']}: loss {r['loss']:.6f} gnorm {r['grad_norm']:.6f} lr {r['lr']:.3e} "
+            f"{r['ms']:.2f} ms ({tokens / r['ms'] * 1e3:.1f} tok/s); launches {r['launches']}")
+    log(f"[train] {TRAIN_STEPS} steps in {phase_s:.1f} s (state drawn included); peak memory "
+        f"{peak_gb:.2f} GB (max_memory_allocated), state {state_gb:.2f} GB; launches {counts}, expected "
+        f"{want} a step")
+    losses = [r["loss"] for r in recs]
+    if len(recs) != TRAIN_STEPS or not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in recs):
+        raise AssertionError(f"train: {len(recs)} steps, losses {losses}")
+    if abs(losses[0] - math.log(cfg.vocab_size)) > 1.0:
+        raise AssertionError(f"train: first loss {losses[0]} is not within 1.0 of ln({cfg.vocab_size})")
+    if any(r["launches"] != want for r in recs) or counts != {k: TRAIN_STEPS * n for k, n in want.items()}:
+        raise AssertionError(f"train: launches {[r['launches'] for r in recs]} (in all {counts}), expected {want} a step")
+
+    step_ms = statistics.median(r["ms"] for r in recs[1:])
+    batch = pipeline.device_batch(cfg, shape, TRAIN_STEPS, torch.device("cuda"), SEED)
+    train_step = TS.make_train_step(cfg, opts)
+    busy = device_profile(torch, lambda: train_step(state, batch), "train step", step_ms, top=10)
+
+    # The optimizer's share of a step: AdamW over the whole state with f32
+    # gradients of every parameter, as the microbatched step hands it.
+    grads = tree_map(lambda p: torch.full(p.shape, 1e-3, dtype=torch.float32, device=p.device), state["params"])
+    opt_ms = time_ms(torch, lambda: adamw.adamw_update(grads, state["opt"], state["params"], opts.adamw),
+                     reps=3, warmup=1)
+    n = sum(p.numel() for p in leaves(state["params"]))
+    moved = sum(p.numel() * p.element_size() * 2 for p in leaves(state["params"])) + n * (4 + 2 * 8)
+    opt_bound, _ = bound(moved, 0, "float32")  # p read and written, g read, m and v read and written
+    log(f"[train] AdamW over {n / 1e9:.2f} B parameters: {opt_ms:.2f} ms of the {step_ms:.2f} ms step, bound "
+        f"{opt_bound:.2f} ms (bytes: {moved / 1e9:.1f} GB)")
+    return counts, {"step_ms": [r["ms"] for r in recs], "tok_s": [tokens / r["ms"] * 1e3 for r in recs],
+                    "loss": losses, "grad_norm": [r["grad_norm"] for r in recs], "lr": [r["lr"] for r in recs],
+                    "peak_gb": peak_gb, "state_gb": state_gb, "step_kernel_busy_ms": busy,
+                    "adamw_ms": opt_ms, "adamw_bound_ms": opt_bound,
+                    "layers": TRAIN_LAYERS, "seq": TRAIN_SEQ, "batch": TRAIN_BATCH, "microbatches": TRAIN_MICRO}
+
+
+def device_profile(torch, fn, label: str, wall_ms: float, top: int = 6):
     """Device busy time of one call of ``fn`` by torch.profiler: the union of
     the intervals of its device-side events (kernels, copies), against the
     unprofiled wall time, and the device events that took the most time."""
@@ -520,11 +726,18 @@ def device_profile(torch, fn, label: str, wall_ms: float):
     for e in events:
         t, n = per_name.get(e.name, (0.0, 0))
         per_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
-    top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:6]
+    top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:top]
     busy = busy_us / 1e3
     log(f"[profile] {label}: device busy {busy:.2f} ms of {wall_ms:.2f} ms wall "
         f"({100 * busy / wall_ms:.1f}%), {len(events)} device events; top: " + "; ".join(
             f"{name[:60]} {t / 1e3:.2f} ms x{n}" for name, (t, n) in top))
+    kinds = {}
+    for name, (t, n) in per_name.items():
+        kind = next((k for k, keys in EVENT_KINDS if any(key.lower() in name.lower() for key in keys)), "other")
+        kinds[kind] = kinds.get(kind, 0.0) + t
+    log(f"[profile] {label}: device time by kind: " + "; ".join(
+        f"{k} {t / 1e3:.2f} ms ({100 * t / max(1.0, sum(kinds.values())):.1f}%)"
+        for k, t in sorted(kinds.items(), key=lambda kv: -kv[1])))
     ours = {k: sum(t for name, (t, _) in per_name.items() if k in name) for k in PORT_KERNELS}
     counts = {k: sum(n for name, (_, n) in per_name.items() if k in name) for k in PORT_KERNELS}
     log(f"[profile] {label}: the port's kernels: " + "; ".join(
@@ -548,6 +761,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import chunk_reduce as cr
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.optim import compression
@@ -578,6 +792,7 @@ def main() -> int:
     records = [check_rmsnorm(torch, rn, ref, gen), check_flash(torch, fa, ref, gen, spills),
                check_chunk_reduce(torch, cr, ref, gen, *hop_chunks(cfg, C)),
                check_dequant_add(torch, cr, ref, compression, gen, cfg.d_model * cfg.d_ff)]
+    check_flash_backward(torch, ops, gen)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -590,12 +805,20 @@ def main() -> int:
     # Phase 4: the cross-pod gradient sync on rank processes sharing the card.
     summary = sync(torch, card)
     log(f"[sync] metrics {json.dumps(summary)} on {card}")
-    launches = dict(counts, chunk_reduce=sum(summary["methods"]["hoplite_chain"]["chunk_reduce"]),
-                    flash_attention=counts["flash_attention_tc"])  # the serve path's route
-    for r in records:
-        r["launches"] = launches[r["name"]]
 
-    # Phase 5 and 6: the kernels record, then the result.
+    # Phase 5: the train step at full width, depth cut.
+    train_counts, train_metrics = train(torch, card)
+    log(f"[train] metrics {json.dumps(train_metrics)} on {card}")
+
+    # launches of each kernel on each main path (flash: the tensor-core route's)
+    by_path = {"serve": counts, "sync": {"chunk_reduce": sum(summary["methods"]["hoplite_chain"]["chunk_reduce"])},
+               "train": train_counts}
+    for r in records:
+        name = "flash_attention_tc" if r["name"] == "flash_attention" else r["name"]
+        r["launches_by_path"] = {path: c.get(name, 0) for path, c in by_path.items()}
+        r["launches"] = sum(r["launches_by_path"].values())
+
+    # Phase 6 and 7: the kernels record, then the result.
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

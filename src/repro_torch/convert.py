@@ -4,7 +4,8 @@
 weights once in the JAX package and hand the same numbers to both packages:
 the leaves of ``repro.models.common.init_params(T.model_skel(cfg), key)``
 passed through ``np.asarray``.  Trees with no model skeleton (gradients,
-error-feedback residuals) cross with ``tree_from_numpy``.
+error-feedback residuals) cross with ``tree_from_numpy``; a train state
+(parameters, AdamW moments, counts) with ``state_from_jax``.
 """
 
 from __future__ import annotations
@@ -19,12 +20,14 @@ from repro_torch.tree import tree_map
 
 
 def _tensor(a, dev, want) -> torch.Tensor:
-    """A numpy array (bfloat16 from ml_dtypes included) as a tensor, exactly."""
+    """A numpy array (bfloat16 from ml_dtypes included) as a tensor of its
+    own, exactly: never a view of the array, which the train step's in-place
+    updates would write through."""
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":  # ml_dtypes: exact through f32
         t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
     else:
-        t = torch.from_numpy(np.ascontiguousarray(a))
+        t = torch.from_numpy(np.array(a))
     return t.to(device=dev, dtype=want or t.dtype)
 
 
@@ -65,3 +68,20 @@ def params_from_jax(tree, cfg, device=None, dtype=None):
         return [walk(s, n, f"{path}[{i}]") for i, (s, n) in enumerate(zip(skel, node))]
 
     return walk(T.model_skel(cfg), tree, "")
+
+
+def state_from_jax(tree, cfg, device=None):
+    """The port's train state from a JAX one as numpy:
+    ``{"params", "opt": {"m", "v", "count"}, "step"}``, as
+    ``repro.train.step.init_state`` lays it out.  Parameters and moments must
+    have the names and shapes of the model skeleton; every leaf keeps its
+    type (moments f32, counts int32)."""
+    dev = resolve_device(device)
+    opt = tree["opt"]
+    count = lambda a: torch.tensor(np.asarray(a).item(), dtype=torch.int32, device=dev)
+    return {
+        "params": params_from_jax(tree["params"], cfg, dev),
+        "opt": {"m": params_from_jax(opt["m"], cfg, dev), "v": params_from_jax(opt["v"], cfg, dev),
+                "count": count(opt["count"])},
+        "step": count(tree["step"]),
+    }

@@ -31,6 +31,11 @@
 //    needs to divide a tile, and kv tiles wholly outside the causal/window
 //    band of the query tile are skipped.
 //  * Any D that is a multiple of 16 up to 256 (template on D / 32 rounded up).
+//  * Optionally the row's log-sum-exp of the scaled scores, lse = m + log(l)
+//    in natural-log units, f32 (B, H, Sq), as _flash_fwd saves it for the
+//    backward (repro/models/attention.py); +inf for a row with no visible
+//    key, so that the backward's p = exp(s - lse) is 0 there.  Lane 0 of the
+//    warp that owns the row writes it, once; a null pointer skips it.
 //
 // C interface (loaded with ctypes): flash_attention_fwd returns cudaGetLastError().
 
@@ -73,8 +78,8 @@ size_t smem_bytes(int D) {
 template <typename T, int kCols>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, int H, int Kh, int Sq, int Skv, int D, int causal,
-                 int window, long long q_offset, float scale) {
+                 T* __restrict__ o, float* __restrict__ lse, int H, int Kh, int Sq, int Skv,
+                 int D, int causal, int window, long long q_offset, float scale) {
   extern __shared__ float smem[];
   float* sQ = smem;                  // kBQ x D
   float* sK = sQ + kBQ * D;          // kBK x (D + 1)
@@ -181,6 +186,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const int r = q0 + warp * kRowsPerWarp + i;
     if (r >= Sq) continue;
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+    if (lse != nullptr && lane == 0)
+      lse[(size_t)bh * Sq + r] = l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
       const int col = lane + 32 * c;
@@ -190,8 +197,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 }
 
 template <typename T, int kCols>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int Kh, int Sq,
-           int Skv, int D, int causal, int window, long long q_offset, float scale,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H, int Kh,
+           int Sq, int Skv, int D, int causal, int window, long long q_offset, float scale,
            cudaStream_t stream) {
   const size_t smem = smem_bytes(D);
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, kCols>,
@@ -200,23 +207,23 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
   const dim3 grid((unsigned)(B * H), (unsigned)((Sq + kBQ - 1) / kBQ));
   flash_fwd_kernel<T, kCols><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), H, Kh, Sq, Skv, D, causal, window, q_offset, scale);
+      static_cast<T*>(o), lse, H, Kh, Sq, Skv, D, causal, window, q_offset, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int B, int H, int Kh, int Sq,
-             int Skv, int D, int causal, int window, long long q_offset, float scale,
+int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H, int Kh,
+             int Sq, int Skv, int D, int causal, int window, long long q_offset, float scale,
              cudaStream_t s) {
   switch ((D + 31) / 32) {
-    case 1: return launch<T, 1>(q, k, v, o, B, H, Kh, Sq, Skv, D, causal, window, q_offset, scale, s);
-    case 2: return launch<T, 2>(q, k, v, o, B, H, Kh, Sq, Skv, D, causal, window, q_offset, scale, s);
-    case 3: return launch<T, 3>(q, k, v, o, B, H, Kh, Sq, Skv, D, causal, window, q_offset, scale, s);
-    case 4: return launch<T, 4>(q, k, v, o, B, H, Kh, Sq, Skv, D, causal, window, q_offset, scale, s);
-    case 5: return launch<T, 5>(q, k, v, o, B, H, Kh, Sq, Skv, D, causal, window, q_offset, scale, s);
-    case 6: return launch<T, 6>(q, k, v, o, B, H, Kh, Sq, Skv, D, causal, window, q_offset, scale, s);
-    case 7: return launch<T, 7>(q, k, v, o, B, H, Kh, Sq, Skv, D, causal, window, q_offset, scale, s);
-    case 8: return launch<T, 8>(q, k, v, o, B, H, Kh, Sq, Skv, D, causal, window, q_offset, scale, s);
+    case 1: return launch<T, 1>(q, k, v, o, lse, B, H, Kh, Sq, Skv, D, causal, window, q_offset, scale, s);
+    case 2: return launch<T, 2>(q, k, v, o, lse, B, H, Kh, Sq, Skv, D, causal, window, q_offset, scale, s);
+    case 3: return launch<T, 3>(q, k, v, o, lse, B, H, Kh, Sq, Skv, D, causal, window, q_offset, scale, s);
+    case 4: return launch<T, 4>(q, k, v, o, lse, B, H, Kh, Sq, Skv, D, causal, window, q_offset, scale, s);
+    case 5: return launch<T, 5>(q, k, v, o, lse, B, H, Kh, Sq, Skv, D, causal, window, q_offset, scale, s);
+    case 6: return launch<T, 6>(q, k, v, o, lse, B, H, Kh, Sq, Skv, D, causal, window, q_offset, scale, s);
+    case 7: return launch<T, 7>(q, k, v, o, lse, B, H, Kh, Sq, Skv, D, causal, window, q_offset, scale, s);
+    case 8: return launch<T, 8>(q, k, v, o, lse, B, H, Kh, Sq, Skv, D, causal, window, q_offset, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -224,14 +231,17 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B, int H,
 }  // namespace
 
 // q (B, H, Sq, D), k and v (B, Kh, Skv, D), o (B, H, Sq, D), all contiguous and
-// of one type.  dtype codes: 0 = float32, 1 = bfloat16.  The wrapper has
-// checked shapes, types, H % Kh == 0, D % 16 == 0, D <= 256 and grid limits.
-extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int B,
-                                   int H, int Kh, int Sq, int Skv, int D, int causal, int window,
-                                   long long q_offset, float scale, int dtype, void* stream) {
+// of one type; lse null or f32 (B, H, Sq).  dtype codes: 0 = float32,
+// 1 = bfloat16.  The wrapper has checked shapes, types, H % Kh == 0,
+// D % 16 == 0, D <= 256 and grid limits.
+extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+                                   int B, int H, int Kh, int Sq, int Skv, int D, int causal,
+                                   int window, long long q_offset, float scale, int dtype,
+                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (B * H == 0 || Sq == 0) return (int)cudaGetLastError();
-  if (dtype == 0) return dispatch<float>(q, k, v, o, B, H, Kh, Sq, Skv, D, causal, window, q_offset, scale, s);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(q, k, v, o, B, H, Kh, Sq, Skv, D, causal, window, q_offset, scale, s);
+  if (dtype == 0) return dispatch<float>(q, k, v, o, l, B, H, Kh, Sq, Skv, D, causal, window, q_offset, scale, s);
+  if (dtype == 1) return dispatch<__nv_bfloat16>(q, k, v, o, l, B, H, Kh, Sq, Skv, D, causal, window, q_offset, scale, s);
   return (int)cudaErrorInvalidValue;
 }

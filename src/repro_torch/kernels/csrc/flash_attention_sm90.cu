@@ -54,6 +54,13 @@
 //  * O is staged, in the swizzled layout, in the warpgroup's own rows of the
 //    item's Q buffer and written by a TMA store per box (rows past Sq are
 //    dropped by the store).
+//  * Optionally the row's log-sum-exp, f32 (B, H, Sq), for the backward
+//    (_flash_fwd in repro/models/attention.py saves m + log(l)): in natural
+//    log units of the scaled scores, m * scale + log(l), with m in raw units
+//    as kept here; +inf for a row with no visible key, so that the
+//    backward's p = exp(s - lse) is 0 there.  The quad's first thread writes
+//    it, once per row, where 1 / l is formed; a null pointer skips it (the
+//    serve path's prefill).
 //
 // C interface (loaded with ctypes): flash_attention_fwd_sm90 returns 0 or the
 // cudaError of the launch, -1 if the driver's cuTensorMapEncodeTiled cannot be
@@ -76,6 +83,7 @@ constexpr int kConsumerRegs = 240;
 constexpr int kProducerRegs = 24;
 constexpr int kBoxCols = 64;   // bf16 columns in one 128-byte swizzled row
 constexpr int kRowBytes = 128;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Shared memory, from a base aligned to 1024 bytes (the swizzle's period):
 // two Q tiles (the next work item's Q loads while this one's O is stored
@@ -270,8 +278,8 @@ __device__ __forceinline__ void wgmma_pv<128>(float (&o)[64], const uint32_t (&a
 // of a thread lies in row warp*16 + lane/4 + 8*((i/2) % 2) and column
 // 8*(i/4) + 2*(lane%4) + i%2.
 template <int D>
-__device__ __forceinline__ void attend(const Item& item, const CUtensorMap* o_map, uint32_t sQ,
-                                       uint32_t sK, uint32_t sV, uint32_t bar_full,
+__device__ __forceinline__ void attend(const Item& item, const CUtensorMap* o_map, float* lse,
+                                       uint32_t sQ, uint32_t sK, uint32_t sV, uint32_t bar_full,
                                        uint32_t bar_empty, int& tile, int Sq, int Skv,
                                        int causal, int window, long long q_offset,
                                        float scale_log2) {
@@ -388,6 +396,9 @@ __device__ __forceinline__ void attend(const Item& item, const CUtensorMap* o_ma
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;  // no visible key: zeros
+    const int row = q0 + r0 + 8 * r;
+    if (lse != nullptr && (lane & 3) == 0 && row < Sq)
+      lse[(size_t)item.bh * Sq + row] = l[r] > 0.f ? fmaf(m[r], scale_log2, log2f(l[r])) * kLn2 : INFINITY;
   }
   // Stage this warpgroup's 64 rows of O in its own rows of the Q tile (its
   // products are done), in the 128-byte swizzle, then a TMA store per box
@@ -426,9 +437,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
                       const __grid_constant__ CUtensorMap k_map,
                       const __grid_constant__ CUtensorMap v_map,
-                      const __grid_constant__ CUtensorMap o_map, int BH, int nq, int H, int Kh,
-                      int Sq, int Skv, int causal, int window, long long q_offset,
-                      float scale_log2) {
+                      const __grid_constant__ CUtensorMap o_map, float* __restrict__ lse, int BH,
+                      int nq, int H, int Kh, int Sq, int Skv, int causal, int window,
+                      long long q_offset, float scale_log2) {
   using L = Layout<D>;
   constexpr int kStages = L::kStages;
   extern __shared__ unsigned char smem_raw[];
@@ -495,8 +506,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
       const Item item = item_of(w, BH, nq, H, Kh, Sq, Skv, causal, window, q_offset);
       const int qb = k & 1;
       mbar_wait(bar_qfull + 8 * qb, (k / 2) & 1);
-      attend<D>(item, &o_map, sQ + qb * L::kQBytes, sK, sV, bar_full, bar_empty, tile, Sq, Skv,
-                causal, window, q_offset, scale_log2);
+      attend<D>(item, &o_map, lse, sQ + qb * L::kQBytes, sK, sV, bar_full, bar_empty, tile, Sq,
+                Skv, causal, window, q_offset, scale_log2);
       if ((tid & 127) == 0) mbar_arrive(bar_qempty + 8 * qb);  // after its store read the tile
     }
   }
@@ -539,9 +550,17 @@ int make_map(CUtensorMap* map, const void* ptr, int heads, int S, int D, int row
   return r == CUDA_SUCCESS ? 0 : -(1000 + (int)r);
 }
 
+// Every element of p[0, n) set to v: the lse of rows that have no key at all.
+__global__ void fill_kernel(float* __restrict__ p, long long n, float v) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x)
+    p[i] = v;
+}
+
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int Kh, int Sq,
-           int Skv, int causal, int window, long long q_offset, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H, int Kh,
+           int Sq, int Skv, int causal, int window, long long q_offset, float scale,
+           cudaStream_t stream) {
   CUtensorMap qm, km, vm, om;
   int err = make_map(&qm, q, B * H, Sq, D, kBQ);
   if (err == 0) err = make_map(&om, o, B * H, Sq, D, 64);
@@ -560,7 +579,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
   const long long items = (long long)B * H * nq;
   const unsigned grid = (unsigned)(items < sms ? items : sms);
   flash_fwd_sm90_kernel<D><<<grid, kThreads, smem, stream>>>(
-      qm, km, vm, om, B * H, nq, H, Kh, Sq, Skv, causal, window, q_offset,
+      qm, km, vm, om, lse, B * H, nq, H, Kh, Sq, Skv, causal, window, q_offset,
       scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
@@ -568,16 +587,25 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
 }  // namespace
 
 // q (B, H, Sq, D), k and v (B, Kh, Skv, D), o (B, H, Sq, D): contiguous bf16,
-// base addresses 16-byte aligned (TMA), D 64 or 128.  The wrapper has checked
-// shapes, types, alignment, H % Kh == 0 and grid limits.
-extern "C" int flash_attention_fwd_sm90(const void* q, const void* k, const void* v, void* o, int B,
-                                        int H, int Kh, int Sq, int Skv, int D, int causal,
-                                        int window, long long q_offset, float scale, void* stream) {
+// base addresses 16-byte aligned (TMA), D 64 or 128; lse null or f32
+// (B, H, Sq).  The wrapper has checked shapes, types, alignment, H % Kh == 0
+// and grid limits.
+extern "C" int flash_attention_fwd_sm90(const void* q, const void* k, const void* v, void* o,
+                                        void* lse, int B, int H, int Kh, int Sq, int Skv, int D,
+                                        int causal, int window, long long q_offset, float scale,
+                                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (B * H == 0 || Sq == 0) return (int)cudaGetLastError();
-  if (Skv == 0)  // no key for any row: zeros (a tensor map cannot have an empty dim)
-    return (int)cudaMemsetAsync(o, 0, (size_t)B * H * Sq * D * 2, s);
-  if (D == 64) return launch<64>(q, k, v, o, B, H, Kh, Sq, Skv, causal, window, q_offset, scale, s);
-  if (D == 128) return launch<128>(q, k, v, o, B, H, Kh, Sq, Skv, causal, window, q_offset, scale, s);
+  if (Skv == 0) {  // no key for any row: zeros (a tensor map cannot have an empty dim)
+    cudaError_t e = cudaMemsetAsync(o, 0, (size_t)B * H * Sq * D * 2, s);
+    if (e == cudaSuccess && l != nullptr) {
+      fill_kernel<<<256, 256, 0, s>>>(l, (long long)B * H * Sq, INFINITY);
+      e = cudaGetLastError();
+    }
+    return (int)e;
+  }
+  if (D == 64) return launch<64>(q, k, v, o, l, B, H, Kh, Sq, Skv, causal, window, q_offset, scale, s);
+  if (D == 128) return launch<128>(q, k, v, o, l, B, H, Kh, Sq, Skv, causal, window, q_offset, scale, s);
   return (int)cudaErrorInvalidValue;
 }

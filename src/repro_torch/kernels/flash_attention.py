@@ -15,6 +15,12 @@ Two kernels, one route each, chosen by ``route(dtype, D)`` before the launch:
   (``csrc/flash_attention.cu``).  f32 is held to 2e-5, which no bf16 or TF32
   product meets.
 
+Both kernels can also write each query row's log-sum-exp of the scaled
+scores (``return_lse=True``): f32 (B, H, Sq), natural-log units, ``+inf``
+for a row with no visible key.  The train step's backward recomputes the
+softmax from it (``ops.flash_attention``); the serve path does not ask for
+it and its kernels skip the writes.
+
 A launch that a route's kernel refuses raises; it never goes to the other.
 """
 
@@ -37,14 +43,14 @@ launches_tc = 0
 launches_cores = 0
 
 
-# flash_attention_fwd(q, k, v, o, B, H, Kh, Sq, Skv, D, causal, window, q_offset,
-#                     scale, dtype, stream) in csrc/flash_attention.cu;
-# flash_attention_fwd_sm90(q, k, v, o, B, H, Kh, Sq, Skv, D, causal, window,
+# flash_attention_fwd(q, k, v, o, lse, B, H, Kh, Sq, Skv, D, causal, window,
+#                     q_offset, scale, dtype, stream) in csrc/flash_attention.cu;
+# flash_attention_fwd_sm90(q, k, v, o, lse, B, H, Kh, Sq, Skv, D, causal, window,
 #                          q_offset, scale, stream) in csrc/flash_attention_sm90.cu
 ARGTYPES = {
-    "flash_attention_fwd": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+    "flash_attention_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
         ctypes.c_longlong, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
-    "flash_attention_fwd_sm90": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+    "flash_attention_fwd_sm90": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
         ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p],
 }
 _LIBS = {"flash_attention_fwd": "flash_attention", "flash_attention_fwd_sm90": "flash_attention_sm90"}
@@ -70,8 +76,10 @@ def flash_attention_fwd(
     causal: bool = True,
     window: int = 0,
     q_offset: int = 0,
-) -> torch.Tensor:
-    """(B,H,Sq,D) x (B,Kh,Skv,D)^2 -> (B,H,Sq,D); q head h reads kv head h // (H/Kh)."""
+    return_lse: bool = False,
+):
+    """(B,H,Sq,D) x (B,Kh,Skv,D)^2 -> (B,H,Sq,D); q head h reads kv head h // (H/Kh).
+    With ``return_lse`` the result is ``(out, lse)``, lse f32 (B, H, Sq)."""
     global launches_tc, launches_cores
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"flash kernel takes CUDA tensors on one device, got {q.device}, {k.device}, {v.device}")
@@ -93,8 +101,10 @@ def flash_attention_fwd(
     if tc and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("tensor-core flash kernel: TMA needs q, k and v to start 16-byte aligned")
     out = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if return_lse else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, Kh, Sq, Skv, D,
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), B, H, Kh, Sq, Skv, D,
             int(bool(causal)), int(window), int(q_offset), 1.0 / math.sqrt(D))
     if tc:
         err = _fn("flash_attention_fwd_sm90")(*args, stream)
@@ -108,4 +118,4 @@ def flash_attention_fwd(
         launches_tc += 1
     else:
         launches_cores += 1
-    return out
+    return (out, lse) if return_lse else out

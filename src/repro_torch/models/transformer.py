@@ -1,12 +1,14 @@
 """Model assembly: embed -> layer stages -> norm -> lm head (port of
-``repro.models.transformer``), prefill and decode for the dense path.
+``repro.models.transformer``): ``train_loss`` (and ``forward``), prefill and
+decode for the dense path.
 
 Parameters keep the JAX package's tree: each stage stacks its layers on a
 leading "layers" axis, and where JAX scans over that axis the port runs a
 Python loop over it.  Caches mirror the JAX tree too: per stage,
 ``{"pos0": {"k": (L,B,C,K,D), "v": (L,B,C,K,D)}}``; the port fills and
 updates them in place (JAX returns new arrays).  GSPMD sharding hints have
-no counterpart on one device.
+no counterpart on one device.  The dense path has no MoE auxiliary loss, so
+``layer_fwd``, ``stage_fwd`` and ``forward`` return no ``aux`` term.
 
 The slice runs dense attention layers with RMSNorm, SwiGLU and RoPE; any
 other configuration raises ``NotImplementedError`` (:func:`check_supported`).
@@ -14,7 +16,7 @@ other configuration raises ``NotImplementedError`` (:func:`check_supported`).
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
@@ -105,6 +107,13 @@ def _ffn_part(cfg, lp, x):
     return x + moe_mod.ffn_fwd(cfg, lp["ffn"], apply_norm(cfg, lp["ln2"], x))
 
 
+def layer_fwd(cfg, spec, lp, x, q_pos):
+    """Full-sequence forward of one layer (training)."""
+    h = apply_norm(cfg, lp["ln1"], x)
+    x = x + attn.attention_fwd(cfg, lp["attn"], h, spec, q_pos)
+    return _ffn_part(cfg, lp, x)
+
+
 def layer_prefill(cfg, spec, lp, x, q_pos, cache):
     """Forward one layer over the prompt and write its K/V into ``cache``
     (``{"k", "v"}`` views of shape (B, C, K, D), filled in place)."""
@@ -131,6 +140,22 @@ def layer_decode(cfg, spec, lp, x, t: int, cache):
 
 def _num_blocks(stage_params) -> int:
     return stage_params["pos0"]["ln1"]["w"].shape[0]
+
+
+def stage_fwd(cfg, pattern, stage_params, x, q_pos, wrap: Optional[Callable] = None):
+    """Every block of the stage in turn.  ``wrap`` (the train step's remat)
+    maps the block function ``(h, block_params) -> h`` to the one that runs,
+    as the JAX train step wraps its scanned block body in ``jax.checkpoint``."""
+
+    def block(h, bp):
+        for i, spec in enumerate(pattern):
+            h = layer_fwd(cfg, spec, bp[f"pos{i}"], h, q_pos)
+        return h
+
+    run = block if wrap is None else wrap(block)
+    for blk in range(_num_blocks(stage_params)):
+        x = run(x, _layer(stage_params, blk))
+    return x
 
 
 def stage_prefill(cfg, pattern, stage_params, x, q_pos, cache_seq: int):
@@ -167,20 +192,74 @@ def _embed(cfg, params, tokens):
     return params["embed"][tokens].to(getattr(torch, cfg.dtype))
 
 
+class _F32Product(torch.autograd.Function):
+    """``x2 @ w`` of bf16 operands with cuBLAS's f32 output (``mm`` with
+    ``out_dtype``), which has no derivative in torch.  Back, dx and dw are
+    products of the same kind: the f32 cotangent rounded to bf16, bf16
+    operands, f32 accumulation, each result rounded to its operand's type."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        return torch.mm(x2, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        g = g.to(x2.dtype)
+        dx = torch.mm(g, w.t(), out_dtype=torch.float32).to(x2.dtype) if ctx.needs_input_grad[0] else None
+        dw = torch.mm(x2.t(), g, out_dtype=torch.float32).to(w.dtype) if ctx.needs_input_grad[1] else None
+        return dx, dw
+
+
 def _unembed(cfg, params, x):
     """Logits as an f32 product, as the JAX package asks its dot for an f32
     result: of bf16 x and w, cuBLAS's f32 output on the card (``mm`` with
-    ``out_dtype``), the product of the upcast values on the CPU; where the
-    types differ, JAX promotes both to f32 and so does this."""
+    ``out_dtype``, through ``_F32Product`` for its gradient), the product of
+    the upcast values on the CPU; where the types differ, JAX promotes both
+    to f32 and so does this."""
     w = params.get("lm_head")
     if w is None:
         w = params["embed"].T
     x2 = x.reshape(-1, x.shape[-1])
     if x.device.type == "cuda" and x.dtype == w.dtype == torch.bfloat16:
-        y = torch.mm(x2, w, out_dtype=torch.float32)
+        y = _F32Product.apply(x2, w)
     else:
         y = torch.mm(x2.float(), w.float())
     return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def forward(cfg: ModelConfig, params, batch, wrap: Optional[Callable] = None) -> torch.Tensor:
+    """Full-sequence logits (B, S, V_padded) in f32.
+
+    ``batch["x_embed"]`` (embeddings gathered already) takes precedence over
+    ``batch["tokens"]``: the microbatched train step hoists the embedding
+    gather out of its loop, as the JAX package's does.  ``wrap`` is the
+    remat of each layer block (``stage_fwd``)."""
+    check_supported(cfg)
+    if "x_embed" in batch:
+        x = batch["x_embed"].to(getattr(torch, cfg.dtype))
+    else:
+        x = _embed(cfg, params, batch["tokens"])
+    q_pos = torch.arange(x.shape[1], device=x.device)
+    for (pattern, _n), sp in zip(cfg.stages(), params["stages"]):
+        x = stage_fwd(cfg, pattern, sp, x, q_pos, wrap)
+    x = apply_norm(cfg, params["final_norm"], x)
+    return _unembed(cfg, params, x)
+
+
+def train_loss(cfg: ModelConfig, params, batch, wrap: Optional[Callable] = None) -> torch.Tensor:
+    """Next-token cross-entropy in f32, the mean over labels >= 0.
+
+    The label's log-probability is a gather where the JAX package contracts
+    with a one-hot (a form for its SPMD partitioner): a sum with one nonzero
+    term is exact in f32, so both give the same number."""
+    logits = forward(cfg, params, batch, wrap)
+    labels = batch["labels"]
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return -((picked - lse) * mask).sum() / mask.sum().clamp(min=1.0)
 
 
 def prefill(cfg: ModelConfig, params, batch, cache_seq: int):

@@ -1,1 +1,1 @@
-"""Optimizer-side helpers of the port: gradient compression."""
+"""Optimizer-side helpers of the port: AdamW and gradient compression."""

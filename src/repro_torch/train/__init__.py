@@ -1,1 +1,1 @@
-"""Training of the port: so far the cross-pod gradient sync of the train step."""
+"""Training of the port: the train step (remat, microbatches, the cross-pod gradient sync, AdamW)."""

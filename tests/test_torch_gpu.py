@@ -10,12 +10,15 @@ against the port's plain versions, which tests/test_torch_kernels.py holds
 against the JAX package on the CPU.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 import torch_rank_cases as cases
 from repro_torch.configs import get_config, reduced_config
+from repro_torch.configs.base import ShapeSpec
 from repro_torch.core import collectives as C
 from repro_torch.core import group as G
 from repro_torch.kernels import chunk_reduce as tcr
@@ -27,6 +30,9 @@ from repro_torch.models import transformer as T
 from repro_torch.models.common import init_params
 from repro_torch.optim import compression
 from repro_torch.serving.engine import Engine, ServeOptions
+from repro_torch.data import pipeline
+from repro_torch.train import step as TS
+from repro_torch.tree import leaves, tree_map, unflatten_like
 
 pytestmark = pytest.mark.gpu
 
@@ -143,6 +149,156 @@ def test_flash_f32_takes_the_cuda_cores(cuda, case):
     torch.cuda.synchronize()
     torch.testing.assert_close(got, ref.flash_attention_ref(q, k, v, causal, window, off), **tol(torch.float32))
     assert ops.launch_counts() == dict(NO_LAUNCHES, flash_attention_cores=1)
+
+
+LSE_CASES = ([(c, dt) for c in FLASH_CASES for dt in DTYPES] + [(c, torch.bfloat16) for c in TC_CASES]
+             + [((1, 40, 8, 4096, 4096, 128, True, 0, 0), torch.bfloat16)])  # the train shape
+
+
+@pytest.mark.parametrize("case,dtype", LSE_CASES)
+def test_flash_lse_matches_plain(cuda, case, dtype):
+    """Both routes' log-sum-exp against the plain version's (2e-5 absolute
+    in f32, 2e-2 in bf16; +inf on rows with no visible key), with the same
+    output as without it; and the check fails a wrong lse (S = 0, and the
+    lse in log2 units) on the rows that see a key."""
+    B, H, Kh, Sq, Skv, D, causal, window, off = case
+    q, k, v = _qkv(cuda, B, H, Kh, Sq, Skv, D, dtype)
+    out, lse = tfa.flash_attention_fwd(q, k, v, causal, window, off, return_lse=True)
+    alone = tfa.flash_attention_fwd(q, k, v, causal, window, off)
+    torch.cuda.synchronize()
+    want_out, want = ref.flash_attention_ref(q, k, v, causal, window, off, return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (B, H, Sq)
+    assert torch.equal(out, alone)
+    atol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(lse, want, rtol=0, atol=atol)
+    torch.testing.assert_close(out.float(), want_out.float(), **tol(dtype))
+    seen = torch.isfinite(want)
+    if seen.any():
+        zero_s = ref.flash_attention_ref(q, torch.zeros_like(k), v, causal, window, off, return_lse=True)[1]
+        for bad in (zero_s, want / 0.6931471805599453):
+            assert not torch.allclose(lse[seen], bad[seen], rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("case,dtype", [((1, 40, 8, 512, 512, 128, True, 0, 0), torch.bfloat16),
+                                        ((2, 4, 2, 100, 100, 64, True, 16, 0), torch.bfloat16),
+                                        ((1, 4, 1, 256, 256, 32, True, 0, 0), torch.float32)])
+def test_flash_backward_on_the_card_matches_the_cpu(cuda, case, dtype):
+    """The autograd function on the card (the kernel's forward and lse, the
+    plain backward) against the same on the CPU (the plain forward): f32 at
+    2e-4 / 1e-5, bf16 at 2e-2 of each gradient's largest magnitude (the
+    tensor-core kernel rounds P to bf16, the CPU's plain forward keeps it)."""
+    B, H, Kh, Sq, Skv, D, causal, window, off = case
+    q, k, v = _qkv(cuda, B, H, Kh, Sq, Skv, D, dtype)
+    dout = torch.randn(q.shape, generator=cuda, device="cuda").to(dtype)
+    grads = []
+    for dev in ("cuda", "cpu"):
+        ts = [t.to(dev).requires_grad_() for t in (q, k, v)]
+        out = ops.flash_attention(*ts, causal, window, off)
+        grads.append([g.cpu().float() for g in torch.autograd.grad(out, ts, dout.to(dev))])
+    route = tfa.route(dtype, D)
+    assert ops.launch_counts() == dict(NO_LAUNCHES, **{f"flash_attention_{route}": 1})
+    for g, w in zip(*grads):
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, w, rtol=2e-4, atol=1e-5)
+        else:
+            assert (g - w).abs().max() <= 2e-2 * w.abs().max()
+
+
+def test_rmsnorm_backward_on_the_card_matches_the_cpu(cuda):
+    x = torch.randn(3, 7, 256, generator=cuda, device="cuda").bfloat16()
+    w = (torch.randn(256, generator=cuda, device="cuda") * 0.1).bfloat16()
+    dy = torch.randn(x.shape, generator=cuda, device="cuda").bfloat16()
+    grads = []
+    for dev in ("cuda", "cpu"):
+        ts = [x.to(dev).requires_grad_(), w.to(dev).requires_grad_()]
+        grads.append([g.cpu().float() for g in torch.autograd.grad(ops.rmsnorm(*ts), ts, dy.to(dev))])
+    assert ops.launch_counts() == dict(NO_LAUNCHES, rmsnorm=1)
+    for g, want in zip(*grads):
+        torch.testing.assert_close(g, want, **tol(torch.bfloat16))
+
+
+@pytest.mark.parametrize("tied", [False, True])
+def test_unembed_gradient_on_the_card(cuda, tied):
+    """``_unembed``'s f32 product of bf16 operands has no derivative in
+    torch; its autograd function's dx and dw (bf16 products of the rounded
+    cotangent, f32 accumulation) against the CPU's exact f32 gradients, at
+    2e-2 of the largest magnitude."""
+    cfg = reduced_config(get_config("qwen3-14b"))
+    x = torch.randn(2, 3, 512, generator=cuda, device="cuda").bfloat16()
+    w = torch.randn(512, 1000, generator=cuda, device="cuda").bfloat16()
+    c = torch.randn(2, 3, 1000, generator=cuda, device="cuda")
+    grads = []
+    for dev in ("cuda", "cpu"):
+        xx, ww = x.to(dev).requires_grad_(), w.to(dev).requires_grad_()
+        params = {"embed": ww.T} if tied else {"lm_head": ww}
+        y = T._unembed(cfg, params, xx)
+        assert y.dtype == torch.float32
+        grads.append([g.cpu().float() for g in torch.autograd.grad((y * c.to(dev)).sum(), [xx, ww])])
+    for g, want in zip(*grads):
+        assert (g - want).abs().max() <= 2e-2 * want.abs().max()
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """Two steps of reduced qwen3-14b (f32, the CUDA-core flash route), two
+    microbatches, full remat: the card against the CPU, metrics at 1e-4
+    relative and every weight within lr (AdamW moves a weight whose gradient
+    is at the f32 noise by a noisy fraction of lr), and the launches that the
+    step's forward and recompute make."""
+    cfg = reduced_config(get_config("qwen3-14b"))
+    shape = ShapeSpec("t", 32, 4, "train")
+    adam = TS.AdamWConfig(lr=3e-3, warmup_steps=2)
+    opts = TS.TrainOptions(num_microbatches=2, remat="full", adamw=adam)
+    runs = []
+    for dev in ("cuda", "cpu"):
+        state = TS.init_state(cfg, seed=1, device="cpu")
+        state = _to_cuda(state) if dev == "cuda" else state
+        step = TS.make_train_step(cfg, opts)
+        metrics = []
+        for i in range(2):
+            state, m = step(state, pipeline.device_batch(cfg, shape, i, torch.device(dev)))
+            metrics.append([float(m[k]) for k in ("loss", "grad_norm", "lr")])
+        runs.append((metrics, [t.cpu() for t in leaves(state["params"])]))
+    np.testing.assert_allclose(runs[0][0], runs[1][0], rtol=1e-4)
+    for a, b in zip(runs[0][1], runs[1][1]):
+        torch.testing.assert_close(a, b, rtol=0, atol=adam.lr)
+    L = cfg.num_layers
+    assert ops.launch_counts() == dict(NO_LAUNCHES, rmsnorm=2 * 2 * (4 * L * 2 + 1),
+                                       flash_attention_cores=2 * 2 * L * 2)
+
+
+def _rel_l2(a, b) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def test_bf16_train_gradients_on_the_card(cuda):
+    """The bf16 train path on the card (the tensor-core flash forward and its
+    lse, the plain backward, RMSNorm, the f32-output lm_head product and its
+    autograd function) on a small config with head dim 64: each gradient lies
+    no further from the f32 gradient of the same weights than twice the CPU's
+    bf16 gradient does (both round in bf16, at different places)."""
+    cfg = dataclasses.replace(reduced_config(get_config("qwen3-14b")), head_dim=64)
+    bf16 = dataclasses.replace(cfg, dtype="bfloat16", param_dtype="bfloat16")
+    params = init_params(T.model_skel(cfg), torch.Generator().manual_seed(2), "cpu", "bfloat16")
+    rng = np.random.RandomState(2)
+    for blk in params["stages"][0]["pos0"].values():
+        for name in ("w", "q_norm", "k_norm"):
+            if name in blk:
+                blk[name].copy_(torch.from_numpy(rng.randn(*blk[name].shape).astype(np.float32) * 0.3))
+    batch = pipeline.host_batch(cfg, ShapeSpec("t", 96, 2, "train"), 0)
+
+    def grads(c, p, dev):
+        ps = [t.to(dev).requires_grad_() for t in leaves(p)]
+        tree = unflatten_like(p, ps)
+        loss = T.train_loss(c, tree, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+        return [g.cpu() for g in torch.autograd.grad(loss, ps)]
+
+    f32 = grads(cfg, tree_map(lambda t: t.float(), params), "cpu")
+    cpu = grads(bf16, params, "cpu")
+    card = grads(bf16, params, "cuda")
+    assert ops.launch_counts()["flash_attention_tc"] == cfg.num_layers
+    for g, c, w in zip(card, cpu, f32):
+        assert g.dtype == torch.bfloat16
+        assert _rel_l2(g, w) <= 2 * _rel_l2(c, w), (_rel_l2(g, w), _rel_l2(c, w))
 
 
 def test_flash_tensor_cores_refuse_a_misaligned_start(cuda):
