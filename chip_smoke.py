@@ -520,6 +520,7 @@ def check_cache(torch, T, eng, toks):
 
 def serve(torch, card: str):
     from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import build_engine, random_prompts
     from repro_torch.models import transformer as T
@@ -548,6 +549,9 @@ def serve(torch, card: str):
     log(f"[serve] generate: {out.shape} tokens in {gen_s:.3f} s; launches {counts} (expected {want})")
     if counts != want:
         raise AssertionError(f"kernel launches {counts} != expected {want}")
+    log(f"[serve] flash launches that wrote the lse: {fa.lse_launches} of {counts['flash_attention_tc']}")
+    if fa.lse_launches:
+        raise AssertionError("the serve path's flash launches wrote the lse, which only gradients need")
     if out.shape != (BATCH, NEW_TOKENS) or out.min() < 0 or out.max() >= cfg.vocab_size:
         raise AssertionError(f"tokens out of range or of the wrong shape: {out.shape}, {out.min()}..{out.max()}")
 
@@ -638,6 +642,7 @@ def train(torch, card: str):
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.data import pipeline
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.launch import train as LT
     from repro_torch.optim import adamw
@@ -663,6 +668,7 @@ def train(torch, card: str):
                          log=lambda m: log(f"[train] {m}"))  # the main path
     phase_s = time.perf_counter() - t0
     counts = ops.launch_counts()
+    lse_launches = fa.lse_launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     state_gb = sum(t.numel() * t.element_size() for t in leaves(state)) / 1e9
     want = expected_train_launches(cfg, opts)
@@ -679,6 +685,9 @@ def train(torch, card: str):
         raise AssertionError(f"train: first loss {losses[0]} is not within 1.0 of ln({cfg.vocab_size})")
     if any(r["launches"] != want for r in recs) or counts != {k: TRAIN_STEPS * n for k, n in want.items()}:
         raise AssertionError(f"train: launches {[r['launches'] for r in recs]} (in all {counts}), expected {want} a step")
+    log(f"[train] flash launches that wrote the lse: {lse_launches} of {counts['flash_attention_tc']}")
+    if lse_launches != counts["flash_attention_tc"]:
+        raise AssertionError("train: a flash launch under autograd wrote no lse")
 
     step_ms = statistics.median(r["ms"] for r in recs[1:])
     batch = pipeline.device_batch(cfg, shape, TRAIN_STEPS, torch.device("cuda"), SEED)

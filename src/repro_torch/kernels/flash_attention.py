@@ -38,9 +38,11 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BQ = 32  # query rows per block of the CUDA-core kernel, as kBQ in its source
 TC_HEAD_DIMS = (64, 128)
 
-# Launches of each kernel in this process; ``ops.reset_launch_counts`` zeroes them.
+# Launches of each kernel in this process, and how many of them wrote the
+# lse; ``ops.reset_launch_counts`` zeroes them.
 launches_tc = 0
 launches_cores = 0
+lse_launches = 0
 
 
 # flash_attention_fwd(q, k, v, o, lse, B, H, Kh, Sq, Skv, D, causal, window,
@@ -80,7 +82,7 @@ def flash_attention_fwd(
 ):
     """(B,H,Sq,D) x (B,Kh,Skv,D)^2 -> (B,H,Sq,D); q head h reads kv head h // (H/Kh).
     With ``return_lse`` the result is ``(out, lse)``, lse f32 (B, H, Sq)."""
-    global launches_tc, launches_cores
+    global launches_tc, launches_cores, lse_launches
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"flash kernel takes CUDA tensors on one device, got {q.device}, {k.device}, {v.device}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -118,4 +120,6 @@ def flash_attention_fwd(
         launches_tc += 1
     else:
         launches_cores += 1
+    if lse is not None:
+        lse_launches += 1
     return (out, lse) if return_lse else out

@@ -119,5 +119,6 @@ def reset_launch_counts() -> None:
     _rn.launches = 0
     _fa.launches_tc = 0
     _fa.launches_cores = 0
+    _fa.lse_launches = 0
     _cr.chunk_reduce_launches = 0
     _cr.dequant_add_launches = 0

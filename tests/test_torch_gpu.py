@@ -166,6 +166,7 @@ def test_flash_lse_matches_plain(cuda, case, dtype):
     out, lse = tfa.flash_attention_fwd(q, k, v, causal, window, off, return_lse=True)
     alone = tfa.flash_attention_fwd(q, k, v, causal, window, off)
     torch.cuda.synchronize()
+    assert tfa.lse_launches == 1
     want_out, want = ref.flash_attention_ref(q, k, v, causal, window, off, return_lse=True)
     assert lse.dtype == torch.float32 and lse.shape == (B, H, Sq)
     assert torch.equal(out, alone)
