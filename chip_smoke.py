@@ -26,9 +26,11 @@ shape against SDPA, then drives three paths:
   to 4 layers (40 layers of weights, AdamW moments and f32 gradient sums do
   not fit one card), bf16, at train_4k's sequence of 4096 tokens, a global
   batch of 2 in 2 microbatches, full remat, AdamW as configured, 3 steps.
-  It checks the losses and gradient norms, the first loss against ln(vocab),
-  and the kernel launches per step against ``expected_train_launches``, and
-  profiles one more step.
+  First it holds the loss and every gradient of the path, at full width cut
+  to one layer and one microbatch, to plain f32 autograd with no kernel
+  (``check_train_gradients``).  It checks the losses and gradient norms, the
+  first loss against ln(vocab), and the kernel launches per step against
+  ``expected_train_launches``, and profiles one more step.
 
 Every phase raises on failure; the script then exits non-zero.
 
@@ -93,6 +95,11 @@ EVENT_KINDS = (("the port's kernels", PORT_KERNELS), ("f32 GEMMs", ("f32f32",)),
 # Decode versus prefill of the longer prompt, in bf16 (see check_cache).
 CACHE_REL_L2_TOL = 5e-2
 
+# The train path's bf16 gradients against plain f32 autograd, relative L2 per
+# leaf (see check_train_gradients): on the CPU each package's bf16 gradients of
+# the reduced model lie 0.8-2.5% from its f32 ones (tests/test_torch_train.py).
+GRAD_REL_L2_TOL = 5e-2
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -147,9 +154,13 @@ def compare(torch, what: str, got, want, dtype: str) -> float:
 
 
 def check_rmsnorm(torch, rn, ref, gen):
-    """Kernel against plain version; returns the record at the path's shape."""
+    """Kernel against plain version at the serve and train paths' shapes (a
+    microbatch of the train path is one row of TRAIN_SEQ tokens: ln1, ln2 and
+    the final norm, the qk-norm of q's 40 heads and k's 8); returns the record
+    at the serve path's shape."""
     rows = BATCH * PROMPT
-    shapes = [(rows, 5120), (rows * 40, 128), (BATCH, 5120), (5, 16383)]
+    shapes = [(rows, 5120), (rows * 40, 128), (BATCH, 5120), (5, 16383),
+              (TRAIN_SEQ, 5120), (TRAIN_SEQ * 40, 128), (TRAIN_SEQ * 8, 128)]
     path_err = None
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
@@ -268,8 +279,11 @@ def check_flash(torch, fa, ref, gen, spills: int):
     B, H, Kh, S, _, D, causal, win = FLASH_TRAIN
     q, k, v = flash_inputs(torch, gen, B, H, Kh, S, S, D, torch.bfloat16)
     got = fa.flash_attention_fwd(q, k, v, causal=causal, window=win)
-    lse_err = check_lse(torch, fa, ref, f"flash {FLASH_TRAIN} bf16 (tc, the train shape)", got, q, k, v,
-                        causal, win, 0, "bfloat16")
+    what = f"flash {FLASH_TRAIN} bf16 (tc, the train shape)"
+    train_err = compare(torch, what, got, ref.flash_attention_ref(q, k, v, causal, win, 0), "bfloat16")
+    check_sensitive(torch, ref, what, got, q, k, v, causal, win, 0)
+    lse_err = check_lse(torch, fa, ref, what, got, q, k, v, causal, win, 0, "bfloat16")
+    del q, k, v, got
     log("[kernels] flash lse: on both routes, at every case above, the check fails an lse of S = 0 and one "
         "in log2 units")
     torch.cuda.synchronize()
@@ -297,7 +311,8 @@ def check_flash(torch, fa, ref, gen, spills: int):
         "max_abs_err": path_err, "ms": ms, "kernel_ms": ms, "plain_ms": plain,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib, "spill_bytes": spills,
         "f32_route": "cores", "f32_source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "f32_ms": f32_ms, "f32_bound_ms": f32_bound, "train_shape_lse_max_abs_err": lse_err,
+        "f32_ms": f32_ms, "f32_bound_ms": f32_bound, "train_shape_max_abs_err": train_err,
+        "train_shape_lse_max_abs_err": lse_err,
     }, **time_flash_train_shape(torch, fa, ref, gen))
 
 
@@ -355,8 +370,8 @@ def check_flash_backward(torch, ops, gen):
     """The flash autograd function on the card (the tensor-core forward and
     its lse, the plain backward) against the CPU's (the plain forward and
     backward), bf16 at one row of the serve shape: each gradient within 2e-2
-    of its largest magnitude (the kernel rounds P to bf16 for PV, the CPU's
-    plain forward keeps it in f32)."""
+    of its largest magnitude (both forwards round P to bf16 for PV, each
+    against its own running or row max)."""
     B, H, Kh, S, D = 1, 40, 8, PROMPT, 128
     q, k, v = flash_inputs(torch, gen, B, H, Kh, S, S, D, torch.bfloat16)
     dout = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
@@ -633,6 +648,97 @@ def expected_train_launches(cfg, options):
             "chunk_reduce": 0, "dequant_add": 0}
 
 
+def check_train_gradients(torch):
+    """The train path's loss and gradients at full width, held to an
+    independent computation: qwen3-14b cut to one layer, one microbatch of
+    train_4k (1 x TRAIN_SEQ tokens), bf16 weights from seed SEED with norm
+    weights drawn too.  The path under test is ``train_loss`` with autograd
+    on the card: the tensor-core flash forward with its lse, the RMSNorm
+    kernel, their plain backward passes, the logits' f32 product.  The
+    reference is the same weights in f32 through plain autograd of
+    ``ref.flash_attention_ref`` and ``ref.rmsnorm_ref`` (no kernel, no
+    hand-written backward; TF32 is off).  Every gradient leaf must lie
+    within GRAD_REL_L2_TOL (relative L2) of the reference's, and the check
+    must fail the attention gradients that an lse off by ln 2 gives (p
+    halved in the backward)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import init_params
+    from repro_torch.tree import leaves, tree_map
+
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=1)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = init_params(T.model_skel(cfg), gen, "cuda", dtype_override=cfg.param_dtype)
+    for w in (params["final_norm"]["w"], *(params["stages"][0]["pos0"][n]["w"] for n in ("ln1", "ln2")),
+              params["stages"][0]["pos0"]["attn"]["q_norm"], params["stages"][0]["pos0"]["attn"]["k_norm"]):
+        w.normal_(0.0, 0.3, generator=gen)  # zeros would hide the 1 + w
+    batch = pipeline.device_batch(cfg, ShapeSpec("train_4k, one microbatch", TRAIN_SEQ, 1, "train"), 0,
+                                  torch.device("cuda"), SEED)
+    names = [n for n, _ in _named_leaves(params)]
+
+    def kernel_path():
+        ps = tree_map(lambda t: t.detach().requires_grad_(), params)
+        loss = T.train_loss(cfg, ps, batch)
+        return loss.item(), [g.float() for g in torch.autograd.grad(loss, list(leaves(ps)))]
+
+    before = ops.launch_counts()
+    loss, grads = kernel_path()
+    launched = {k: n - before[k] for k, n in ops.launch_counts().items()}
+    if launched["flash_attention_tc"] != 1 or launched["rmsnorm"] != 5:
+        raise AssertionError(f"train gradients: the kernel path launched {launched}")
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    p32 = tree_map(lambda t: t.detach().float().requires_grad_(), params)
+    kernels = ops.flash_attention, ops.rmsnorm
+    ops.flash_attention, ops.rmsnorm = ref.flash_attention_ref, ref.rmsnorm_ref
+    try:
+        before = ops.launch_counts()
+        loss32 = T.train_loss(cfg32, p32, batch)
+        want = torch.autograd.grad(loss32, list(leaves(p32)))
+        if ops.launch_counts() != before:
+            raise AssertionError("train gradients: the f32 reference launched a kernel")
+    finally:
+        ops.flash_attention, ops.rmsnorm = kernels
+    del p32
+    rel = lambda g, w: ((g - w).norm() / w.norm()).item()
+    errs = {n: rel(g, w) for n, g, w in zip(names, grads, want)}
+    log(f"[train] gradients at full width (1 layer, 1 x {TRAIN_SEQ} tokens), bf16 kernel path vs plain f32 "
+        f"autograd: loss {loss:.6f} vs {loss32.item():.6f}; relative L2 per leaf (tol {GRAD_REL_L2_TOL:g}): "
+        + ", ".join(f"{n} {e:.3e}" for n, e in errs.items()))
+    if max(errs.values()) > GRAD_REL_L2_TOL or abs(loss - loss32.item()) > 2e-2 * abs(loss32.item()):
+        raise AssertionError(f"train gradients disagree with plain f32 autograd: {errs}")
+
+    plain_bwd = ref.flash_attention_bwd
+    ref.flash_attention_bwd = lambda q, k, v, out, lse, *a: plain_bwd(q, k, v, out, lse + math.log(2.0), *a)
+    try:
+        _, bad = kernel_path()
+    finally:
+        ref.flash_attention_bwd = plain_bwd
+    bad_errs = {n: rel(g, w) for n, g, w in zip(names, bad, want) if "/attn/" in n}
+    log("[train] with the lse off by ln 2 the attention leaves lie " + ", ".join(
+        f"{n} {e:.3e}" for n, e in bad_errs.items()))
+    if max(bad_errs.values()) <= GRAD_REL_L2_TOL:
+        raise AssertionError("train gradients: the check cannot tell an lse off by ln 2")
+    return {"grad_rel_l2": errs, "loss_bf16": loss, "loss_f32": loss32.item()}
+
+
+def _named_leaves(tree, path=""):
+    """(path, leaf) in ``tree.leaves``' order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named_leaves(v, f"{path}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _named_leaves(v, f"{path}/{i}")
+    else:
+        yield path, tree
+
+
 def train(torch, card: str):
     """The train step at full width through ``launch.train.run``: qwen3-14b cut
     to TRAIN_LAYERS layers, TRAIN_BATCH x TRAIN_SEQ tokens a step in
@@ -660,6 +766,9 @@ def train(torch, card: str):
         f"{full.param_count() * 14 / 1e9:.0f} GB, do not fit one card), global batch {TRAIN_BATCH} of train_4k's "
         f"256 rows of {TRAIN_SEQ} tokens ({tokens} tokens a step) in {TRAIN_MICRO} microbatches, remat "
         f"{opts.remat}, one pod, {cfg.param_dtype} weights from seed {SEED}, AdamW {opts.adamw}")
+    grad_check = check_train_gradients(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     ops.reset_launch_counts()
@@ -707,7 +816,7 @@ def train(torch, card: str):
     return counts, {"step_ms": [r["ms"] for r in recs], "tok_s": [tokens / r["ms"] * 1e3 for r in recs],
                     "loss": losses, "grad_norm": [r["grad_norm"] for r in recs], "lr": [r["lr"] for r in recs],
                     "peak_gb": peak_gb, "state_gb": state_gb, "step_kernel_busy_ms": busy,
-                    "adamw_ms": opt_ms, "adamw_bound_ms": opt_bound,
+                    "adamw_ms": opt_ms, "adamw_bound_ms": opt_bound, "gradient_check": grad_check,
                     "layers": TRAIN_LAYERS, "seq": TRAIN_SEQ, "batch": TRAIN_BATCH, "microbatches": TRAIN_MICRO}
 
 

@@ -35,6 +35,11 @@ def flash_attention_ref(
     key come out as zeros.  With ``return_lse`` the result is ``(out, lse)``:
     each row's log-sum-exp of the scaled scores, f32 (B, H, Sq), ``+inf``
     where no key is visible (the kernels' contract).
+
+    As the JAX model's ``flash_ref`` and the tensor-core kernel do, the
+    unnormalised p = exp(s - rowmax) is rounded to v's type before the PV
+    product (a no-op in f32), which accumulates in f32; the row sum l and the
+    division by it stay in f32.
     """
     B, H, Sq, D = q.shape
     Kh, Skv = k.shape[1], k.shape[2]
@@ -44,14 +49,16 @@ def flash_attention_ref(
     s = torch.einsum("bhqd,bhsd->bhqs", q.float(), kf) / math.sqrt(D)
     mask = _mask(q_offset, 0, Sq, 0, Skv, causal, window, q.device)
     s = torch.where(mask[None, None], s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhqs,bhsd->bhqd", p, vf)
+    m = s.amax(dim=-1, keepdim=True) if Skv else torch.full((B, H, Sq, 1), NEG_INF, device=q.device)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhqs,bhsd->bhqd", p.to(v.dtype).float(), vf) / l
     # fully-masked rows (window start-up) produce uniform p; zero them
     seen = mask.any(dim=-1)
     out = torch.where(seen[None, None, :, None], out, torch.zeros_like(out)).to(q.dtype)
     if not return_lse:
         return out
-    lse = torch.where(seen[None, None], torch.logsumexp(s, dim=-1), math.inf)
+    lse = torch.where(seen[None, None], (m + torch.log(l))[..., 0], math.inf)
     return out, lse
 
 

@@ -8,8 +8,9 @@ the CPU.  The state is drawn from seed 0 on the device, the batches come
 from the deterministic pipeline (``data/pipeline.py``, the JAX package's
 numbers) through a prefetch thread, and every ``--log-every`` steps it
 prints the JAX driver's line: loss, gradient norm, learning rate, tokens/s.
-Checkpoint and restart (``--ckpt-dir``) are not ported yet: the flag
-raises ``NotImplementedError``.
+Checkpoint and restart (``--ckpt-dir``) and the multi-pod step (a
+``--pod-sync`` other than ``gspmd``, one pod) are not ported yet: those
+flags raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -77,13 +78,16 @@ def main(argv: Optional[List[str]] = None):
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--ckpt-dir", default=None, help="not ported yet: raises")
     ap.add_argument("--pod-sync", default="gspmd", choices=["gspmd", *TS.POD_SYNC_METHODS],
-                    help="the pods' gradient sync; one process is one pod, so it is not used here")
+                    help="the pods' gradient sync; only gspmd (one pod) so far, the others raise")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None, help="default: cuda (raises when absent)")
     args = ap.parse_args(argv)
 
     if args.ckpt_dir is not None:
         raise NotImplementedError("--ckpt-dir: checkpoint and restart (repro.checkpoint) are not ported yet")
+    if args.pod_sync != "gspmd":
+        raise NotImplementedError(f"--pod-sync {args.pod_sync}: the launcher trains one pod; the multi-pod step "
+                                  "runs through train.step.make_train_step(pod=...) only so far")
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:

@@ -343,9 +343,9 @@ def _hidden_bf16(cfg, B, S, seed):
 
 @pytest.mark.parametrize("S", [16, 13, 64])
 def test_attention_fwd_bf16(small_bf16, S):
-    """The port's prefill attention keeps P in f32 (``ref.flash_attention_ref``,
-    the kernel's contract); the JAX model's ``flash_ref`` rounds P to bf16
-    before PV.  Both round q, k, v and the output to bf16 at the same places."""
+    """The port's prefill attention (``ref.flash_attention_ref``, the
+    kernel's contract) and the JAX model's ``flash_ref`` both round P to bf16
+    before PV, and q, k, v and the output to bf16 at the same places."""
     cfg, jcfg, jp, tp = small_bf16
     jx, tx = _hidden_bf16(cfg, 2, S, 8)
     want = jattn.attention_fwd(jcfg, layer0(jp, "attn"), jx, jcfg.pattern[0], jnp.arange(S, dtype=jnp.int32))

@@ -6,8 +6,7 @@ remat mode, the pod sync on gloo ranks, and the launcher.
 Inputs are drawn once with numpy (or, for weights, by the JAX package) and
 handed to both packages.  Tolerances, as stated at each test: f32 gradients
 at the JAX kernel test's 2e-4 / 1e-5 (tests/test_kernels.py:67) or at 1e-4
-relative; bf16 at 2e-2 of the largest magnitude, because the port's plain
-flash keeps P in f32 where the JAX model rounds it to bf16.
+relative; bf16 at 2e-2 of the largest magnitude.
 """
 
 import dataclasses
@@ -380,6 +379,14 @@ def perturbed_jax_params(jcfg, dtype, seed=0):
     return jax.tree_util.tree_map_with_path(fix, tree)
 
 
+def rounded_as_written(fn, *args):
+    """``jax.jit(fn)(*args)`` compiled with XLA's excess precision off.  By
+    default XLA on the CPU may drop a bf16 rounding between two f32 ops (it
+    removes the f32 -> bf16 -> f32 pair), so the reference would keep f32
+    where its program, and the port, round to bf16."""
+    return jax.jit(fn).lower(*args).compile({"xla_allow_excess_precision": False})(*args)
+
+
 @pytest.fixture(scope="module", params=["float32", "bfloat16"])
 def loss_case(request):
     """reduced qwen3-14b in f32 or bf16 with the same weights and batch in
@@ -391,8 +398,8 @@ def loss_case(request):
     if request.param == "bfloat16":
         cfg, jcfg = dataclasses.replace(cfg, **BF16), dataclasses.replace(jcfg, **BF16)
     np_params = perturbed_jax_params(jcfg, getattr(jnp, request.param))
-    jloss, jgrads = jax.value_and_grad(lambda p: JT.train_loss(jcfg, p, batch))(
-        jax.tree_util.tree_map(jnp.asarray, np_params))
+    jloss, jgrads = rounded_as_written(jax.value_and_grad(lambda p: JT.train_loss(jcfg, p, batch)),
+                                       jax.tree_util.tree_map(jnp.asarray, np_params))
     _, jgrads32 = grad32(jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float32), np_params))
     tparams = convert.params_from_jax(np_params, cfg, device="cpu")
     ps = tree_map(lambda t: t.requires_grad_(), tparams)
@@ -416,13 +423,12 @@ def test_every_gradient_matches_jax(loss_case):
     """Each leaf's gradient keeps its parameter's type.  f32: within 1e-4 of
     the leaf's largest magnitude, elementwise (measured: 2e-6).
 
-    bf16: the two packages round at different places (P in the flash
-    forward, the order of cotangent sums), and each one's bf16 gradients lie
-    1-2% (relative L2) from the f32 gradients of the same weights.  So the
-    port's bf16 gradient must lie no further from the f32 gradient than 1.5x
-    the JAX package's own bf16 gradient does, and within 4e-2 of the largest
-    magnitude of the JAX bf16 gradient, elementwise (measured here: 2.8e-2;
-    JAX's own bf16 gradients lie up to 2.4e-2 from its f32 ones)."""
+    bf16: within 2e-2 of the largest magnitude of the JAX bf16 gradient,
+    elementwise (measured here: 1.1e-2, the embedding; with XLA's default
+    excess precision the reference drops roundings the program asks for and
+    q_norm's lies 2.2e-2 away).  Each package's bf16 gradients lie 1-2.5%
+    (relative L2) from the f32 gradients of the same weights, so the port's
+    must also lie no further from them than 1.5x the JAX package's do."""
     dtype, _, _, tgrads, jgrads, jgrads32 = loss_case
     n = 0
     for (path, g, w), (_, _, w32) in zip(paired(tgrads, jgrads), paired(tgrads, jgrads32)):
@@ -432,7 +438,7 @@ def test_every_gradient_matches_jax(loss_case):
             np.testing.assert_allclose(np32(g), np32(w), rtol=1e-4, atol=1e-4 * np.abs(np32(w)).max(), err_msg=path)
         else:
             assert rel_l2(g, w32) <= 1.5 * rel_l2(w, w32), (path, rel_l2(g, w32), rel_l2(w, w32))
-            near_largest(g, w, 4e-2, path)
+            near_largest(g, w, 2e-2, path)
         n += 1
     assert n == len(jax.tree_util.tree_leaves(jgrads)) == 14
 
@@ -652,6 +658,12 @@ def test_train_main_without_device_raises(monkeypatch):
 def test_train_main_ckpt_dir_is_not_ported(tmp_path):
     with pytest.raises(NotImplementedError, match="checkpoint"):
         ttrain.main(["--arch", "qwen3-14b", "--reduced", "--device", "cpu", "--ckpt-dir", str(tmp_path)])
+
+
+@pytest.mark.parametrize("method", sorted(TS.POD_SYNC_METHODS))
+def test_train_main_pod_sync_is_not_ported(method):
+    with pytest.raises(NotImplementedError, match="one pod"):
+        ttrain.main(["--arch", "qwen3-14b", "--reduced", "--device", "cpu", "--pod-sync", method])
 
 
 def test_train_module_runs_in_a_subprocess():
