@@ -6,15 +6,28 @@
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
 ``build/``), holds each against its plain PyTorch version at the main paths'
 shapes and the sweeps of tests/test_kernels.py (flash attention's output and
-log-sum-exp on both routes, and its autograd backward against the CPU's),
-times RMSNorm against ``F.rms_norm`` and the flash forward at the train
-shape against SDPA, then drives three paths:
+log-sum-exp on both routes, its autograd backward against the CPU's, and
+the windowed flash at mixtral's prefill shape), times RMSNorm against
+``F.rms_norm``, the flash forward at the train shape against SDPA and the
+windowed one against SDPA with the window as a boolean mask, then drives
+four paths:
 
 - serve: qwen3-14b at full width (40 layers, d=5120, bf16 weights drawn on
   the card from seed 0), 4 prompts of 512 tokens, 32 greedy tokens each, with
   a max_seq of 1024.  It checks that the serve run launched the kernels, that
   the tokens and logits are sane, and that decode agrees with prefill, then
   times prefill and decode and profiles one of each (kernel busy time).
+- serve_moe: the MoE family at full width, its depth cut (the whole models
+  do not fit one card): mixtral-8x22b (8 experts top-2, sliding window 4096)
+  cut to 8 of 56 layers, 2 prompts of 4608 tokens and 32 greedy tokens with a
+  max_seq of 8192, so that its caches are rings of 4096 slots, prefill takes
+  the ring's roll and every decode step wraps; and llama4-scout-17b-a16e (16
+  experts top-1 and a shared expert) cut to 2 of 48 layers, 4 prompts of 512
+  tokens and 8 greedy tokens.  The same checks and times as serve.  Before
+  them it holds the windowed flash at mixtral's prefill shape to the plain
+  version (and times it against SDPA with the window as a boolean mask), and
+  one full-width mixtral MoE layer's dropping dispatch, with room for every
+  token, to the dense one.
 - sync: the train step's cross-pod gradient sync (``launch/sync.py``) on 4
   rank processes that share the card, over the bf16 gradient tree of one
   full-width qwen3-14b decoder block per rank, by every method.  Each rank
@@ -75,6 +88,16 @@ FLASH_CASES = [
 
 ARCH, BATCH, PROMPT, NEW_TOKENS, MAX_SEQ, SEED = "qwen3-14b", 4, 512, 32, 1024, 0
 
+# The serve_moe phase, per arch: (layers kept, batch, prompt, greedy tokens, max_seq).
+MOE_RUNS = {"mixtral-8x22b": (8, 2, 4608, 32, 8192), "llama4-scout-17b-a16e": (2, 4, 512, 8, 1024)}
+# The windowed flash at mixtral's prefill shape: one row of the batch, every head.
+FLASH_MOE = (1, 48, 8, 4608, 4608, 128, True, 4096)
+# One full-width mixtral MoE layer's two dispatches on this many tokens (B, S).
+MOE_LAYER_TOKENS = (2, 512)
+# The dropping dispatch with room for every token against the dense one, bf16:
+# max abs error over the dense output's largest magnitude.
+MOE_DISPATCH_TOL = 2e-2
+
 # The train phase: qwen3-14b's widths, its depth cut to TRAIN_LAYERS, train_4k's
 # sequence, TRAIN_BATCH rows in TRAIN_MICRO microbatches, TRAIN_STEPS steps.
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_STEPS = 4, 4096, 2, 2, 3
@@ -94,6 +117,13 @@ EVENT_KINDS = (("the port's kernels", PORT_KERNELS), ("f32 GEMMs", ("f32f32",)),
 
 # Decode versus prefill of the longer prompt, in bf16 (see check_cache).
 CACHE_REL_L2_TOL = 5e-2
+# The routing rule (see check_cache): a token may route differently only
+# where its k-th and (k+1)-th router logits lie this close, over its largest
+# router-logit magnitude.
+ROUTE_MARGIN = 2e-2
+# Rows of the cache check (the serve batch, and more prompts from the same
+# seed where the batch is smaller).
+CACHE_ROWS = 4
 
 # The train path's bf16 gradients against plain f32 autograd, relative L2 per
 # leaf (see check_train_gradients): on the CPU each package's bf16 gradients of
@@ -156,11 +186,13 @@ def compare(torch, what: str, got, want, dtype: str) -> float:
 def check_rmsnorm(torch, rn, ref, gen):
     """Kernel against plain version at the serve and train paths' shapes (a
     microbatch of the train path is one row of TRAIN_SEQ tokens: ln1, ln2 and
-    the final norm, the qk-norm of q's 40 heads and k's 8); returns the record
-    at the serve path's shape."""
+    the final norm, the qk-norm of q's 40 heads and k's 8) and serve_moe's
+    (mixtral's prefill and decode rows of 6144; llama4's are qwen3's);
+    returns the record at the serve path's shape."""
     rows = BATCH * PROMPT
+    _, mb, mp, _, _ = MOE_RUNS["mixtral-8x22b"]
     shapes = [(rows, 5120), (rows * 40, 128), (BATCH, 5120), (5, 16383),
-              (TRAIN_SEQ, 5120), (TRAIN_SEQ * 40, 128), (TRAIN_SEQ * 8, 128)]
+              (TRAIN_SEQ, 5120), (TRAIN_SEQ * 40, 128), (TRAIN_SEQ * 8, 128), (mb * mp, 6144), (mb, 6144)]
     path_err = None
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
@@ -200,12 +232,13 @@ def rmsnorm_vs_library(torch, rn, gen, shape, reps: int = 5):
         ks.append(time_ms(torch, lambda: rn.rmsnorm(x, w)))
         ls.append(time_ms(torch, lambda: torch.nn.functional.rms_norm(x, (d,), w1, 1e-6)))
     k, lib = statistics.median(ks), statistics.median(ls)
+    b_ms, b_by = bound(2 * x.numel() * 2 + w.numel() * 2, 4 * x.numel(), "bfloat16")
     log(f"[kernels] rmsnorm {shape} bf16 against F.rms_norm, {reps} turns of time_ms: kernel median {k:.6f} ms "
         f"(range {min(ks):.6f}-{max(ks):.6f}), F.rms_norm median {lib:.6f} ms (range {min(ls):.6f}-{max(ls):.6f}), "
         f"ratio of medians {k / lib:.4f} (per turn {min(a / b for a, b in zip(ks, ls)):.4f}-"
-        f"{max(a / b for a, b in zip(ks, ls)):.4f})")
+        f"{max(a / b for a, b in zip(ks, ls)):.4f}); bound {b_ms:.4f} ms ({b_by})")
     return {"kernel_ms": k, "kernel_range": [min(ks), max(ks)], "library_ms": lib,
-            "library_range": [min(ls), max(ls)], "ratio": k / lib}
+            "library_range": [min(ls), max(ls)], "ratio": k / lib, "bound_ms": b_ms, "bound_by": b_by}
 
 
 def flash_pairs(torch, Sq, Skv, causal, window, q_offset) -> int:
@@ -492,49 +525,105 @@ def check_dequant_add(torch, cr, ref, compression, gen, leaf: int):
 
 
 def expected_launches(cfg, decode_steps: int):
-    """RMSNorm: ln1 + ln2 + final, the qk-norm of q and k, and in prefill
-    the k-norm again (attention_prefill_kv recomputes k, as the JAX package
-    does).  Flash attention: once per layer in prefill, all on the tensor
-    cores (bf16, head dim 128); decode has none."""
+    """RMSNorm: ln1 + ln2 + final, and with qk-norm the norms of q and k, and
+    in prefill the k-norm again (attention_prefill_kv recomputes k, as the JAX
+    package does).  Flash attention: once per layer in prefill, all on the
+    tensor cores (bf16, head dim 128); decode has none."""
     L = cfg.num_layers
-    per_decode = 2 * L + 1 + 2 * L
-    prefill = per_decode + L
+    per_decode = 2 * L + 1 + (2 * L if cfg.qk_norm else 0)
+    prefill = per_decode + (L if cfg.qk_norm else 0)
     return {"rmsnorm": prefill + decode_steps * per_decode, "flash_attention_tc": L,
             "flash_attention_cores": 0, "chunk_reduce": 0, "dequant_add": 0}
 
 
-def check_cache(torch, T, eng, toks):
+class RoutingLog:
+    """While active, records each MoE layer's routing of the last token of
+    its input: (that token's MoE input, its chosen experts, its router logits)."""
+
+    def __init__(self, moe):
+        self.moe, self.calls = moe, []
+
+    def __enter__(self):
+        route, dense = self.moe._route, self.moe.dense
+
+        def logged(cfg, p, x):
+            w, aux = route(cfg, p, x)
+            self.calls.append((x[:, -1].float(), w[:, -1] > 0, dense(x[:, -1], p["router"]).float()))
+            return w, aux
+
+        self.route, self.moe._route = route, logged
+        return self.calls
+
+    def __exit__(self, *exc):
+        self.moe._route = self.route
+
+
+def check_cache(torch, T, eng, toks, tag: str):
     """Decode step 1 against the last position of prefill(prompt + token).
 
     Both sides run bf16 weights and activations: the two paths round in
     different places (the flash kernel against decode's plain attention,
-    matmuls of 2052 rows against 4), and 40 layers carry those roundings on.
-    Held as a relative L2 error of the logit vector against CACHE_REL_L2_TOL,
-    and the greedy token must agree on most rows."""
-    cfg, params = eng.cfg, eng.params
+    matmuls of thousands of rows against a few), and the layers carry those
+    roundings on.  Held as a relative L2 error of the logit vector against
+    CACHE_REL_L2_TOL, and the greedy token must agree on most rows.
+
+    With MoE layers, those roundings can move a router's choice where two
+    experts' logits nearly tie, and the rows part from there.  The routing
+    rule of tests/test_torch_moe.py: a row may route differently only where
+    the prefill's margin (its k-th and (k+1)-th router logits) lies within
+    ROUTE_MARGIN of the token's largest router-logit magnitude, and only
+    where both paths' MoE inputs still agree within CACHE_REL_L2_TOL; such a
+    row is not compared, and at least half the rows must be."""
+    from repro_torch.models import moe
+
+    cfg, params, max_seq = eng.cfg, eng.params, eng.options.max_seq
+    B, prompt = toks.shape
     with torch.inference_mode():
-        logits, caches = T.prefill(cfg, params, {"tokens": toks}, MAX_SEQ)
+        logits, caches = T.prefill(cfg, params, {"tokens": toks}, max_seq)
         if not torch.isfinite(logits).all():
             raise AssertionError("prefill logits are not finite")
         first = logits[:, : cfg.vocab_size].argmax(-1)[:, None]  # greedy, as the engine
-        step1, _ = T.decode_step(cfg, params, first, PROMPT, caches)
-        longer, _ = T.prefill(cfg, params, {"tokens": torch.cat([toks, first], dim=1)}, MAX_SEQ)
+        with RoutingLog(moe) as dec:
+            step1, _ = T.decode_step(cfg, params, first, prompt, caches)
+        del caches
+        with RoutingLog(moe) as pre:
+            longer, _ = T.prefill(cfg, params, {"tokens": torch.cat([toks, first], dim=1)}, max_seq)
     if not torch.isfinite(step1).all():
         raise AssertionError("decode logits are not finite")
+    rows, parted = torch.ones(B, dtype=torch.bool, device=toks.device), []
+    for layer, ((xd, sd, _), (xp, sp, lp)) in enumerate(zip(dec, pre)):
+        top = lp.sort(dim=-1, descending=True).values
+        margin = (top[:, cfg.top_k - 1] - top[:, cfg.top_k]) / top.abs().amax(-1)
+        x_rel = (xd - xp).norm(dim=-1) / xp.norm(dim=-1)
+        for r in (rows & ~(sd == sp).all(-1)).nonzero()[:, 0].tolist():
+            parted.append((r, layer, margin[r].item(), x_rel[r].item()))
+            log(f"[{tag}] {cfg.name} cache check: row {r} routes differently at layer {layer}: margin "
+                f"{margin[r].item():.3e} (rule {ROUTE_MARGIN:g}), MoE inputs {x_rel[r].item():.3e} apart")
+            if margin[r] > ROUTE_MARGIN or x_rel[r] > CACHE_REL_L2_TOL:
+                raise AssertionError(f"row {r} routes differently at layer {layer} outside the routing rule")
+            rows[r] = False
+    if 2 * int(rows.sum()) < B:
+        raise AssertionError(f"the cache check compares {int(rows.sum())} of {B} rows")
     V = cfg.vocab_size
-    a, b = step1[:, :V].float(), longer[:, :V].float()
+    a, b = step1[rows, :V].float(), longer[rows, :V].float()
     rel = ((a - b).norm() / b.norm()).item()
     max_abs = (a - b).abs().max().item()
     agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
-    log(f"[serve] cache check: decode step 1 vs prefill(prompt + token): rel_l2={rel:.3e} "
-        f"max_abs={max_abs:.3e} (|logit| max {b.abs().max().item():.3f}) argmax agree {agree:.2f}")
+    log(f"[{tag}] {cfg.name} cache check: decode step 1 (position {prompt}) vs prefill(prompt + token) on "
+        f"{int(rows.sum())} of {B} rows: rel_l2={rel:.3e} max_abs={max_abs:.3e} (|logit| max "
+        f"{b.abs().max().item():.3f}) argmax agree {agree:.2f}")
     if rel > CACHE_REL_L2_TOL:
         raise AssertionError(f"decode disagrees with prefill: rel_l2 {rel} > {CACHE_REL_L2_TOL}")
-    return rel, max_abs
+    return rel, max_abs, parted
 
 
-def serve(torch, card: str):
-    from repro_torch.configs import get_config
+def serve_model(torch, card: str, cfg, batch: int, prompt: int, new_tokens: int, max_seq: int, tag: str):
+    """Serve ``cfg`` (bf16 weights drawn on the card from SEED) through the
+    engine: ``batch`` prompts of ``prompt`` tokens, ``new_tokens`` greedy
+    tokens, caches of ``max_seq``.  The launches of that run must be
+    ``expected_launches`` exactly, with no flash launch writing the lse; then
+    the cache check, prefill (median of 3) and decode times, peak memory, and
+    one profiled prefill and decode step."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import build_engine, random_prompts
@@ -542,65 +631,194 @@ def serve(torch, card: str):
     from repro_torch.serving.engine import ServeOptions
     from repro_torch.tree import leaves
 
-    cfg = get_config(ARCH)
     t0 = time.perf_counter()
-    eng = build_engine(cfg, "cuda", SEED, ServeOptions(max_seq=MAX_SEQ, batch_size=BATCH))
+    eng = build_engine(cfg, "cuda", SEED, ServeOptions(max_seq=max_seq, batch_size=batch))
     torch.cuda.synchronize()
     weight_gb = sum(t.numel() * t.element_size() for t in leaves(eng.params)) / 1e9
-    log(f"[serve] {cfg.name}: {cfg.param_count() / 1e9:.2f} B parameters, {weight_gb:.2f} GB of "
+    log(f"[{tag}] {cfg.name}: {cfg.param_count() / 1e9:.2f} B parameters, {weight_gb:.2f} GB of "
         f"{cfg.param_dtype} weights drawn on the card in {time.perf_counter() - t0:.1f} s")
-    tokens = random_prompts(cfg, BATCH, PROMPT, SEED)
+    tokens = random_prompts(cfg, batch, prompt, SEED)
     toks = torch.as_tensor(tokens, device="cuda")
 
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    out = eng.generate({"tokens": tokens}, NEW_TOKENS)  # the main path
+    out = eng.generate({"tokens": tokens}, new_tokens)  # the main path
     gen_s = time.perf_counter() - t0
     counts = ops.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    want = expected_launches(cfg, NEW_TOKENS - 1)
-    log(f"[serve] generate: {out.shape} tokens in {gen_s:.3f} s; launches {counts} (expected {want})")
+    want = expected_launches(cfg, new_tokens - 1)
+    log(f"[{tag}] {cfg.name} generate: {out.shape} tokens in {gen_s:.3f} s; launches {counts} (expected {want})")
     if counts != want:
         raise AssertionError(f"kernel launches {counts} != expected {want}")
-    log(f"[serve] flash launches that wrote the lse: {fa.lse_launches} of {counts['flash_attention_tc']}")
+    log(f"[{tag}] flash launches that wrote the lse: {fa.lse_launches} of {counts['flash_attention_tc']}")
     if fa.lse_launches:
         raise AssertionError("the serve path's flash launches wrote the lse, which only gradients need")
-    if out.shape != (BATCH, NEW_TOKENS) or out.min() < 0 or out.max() >= cfg.vocab_size:
+    if out.shape != (batch, new_tokens) or out.min() < 0 or out.max() >= cfg.vocab_size:
         raise AssertionError(f"tokens out of range or of the wrong shape: {out.shape}, {out.min()}..{out.max()}")
 
-    rel, max_abs = check_cache(torch, T, eng, toks)
+    cache_toks = torch.as_tensor(random_prompts(cfg, max(batch, CACHE_ROWS), prompt, SEED), device="cuda")
+    rel, max_abs, parted = check_cache(torch, T, eng, cache_toks, tag)
+    del cache_toks
 
     with torch.inference_mode():
         pre = []
         for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            logits, caches = T.prefill(cfg, eng.params, {"tokens": toks}, MAX_SEQ)
+            logits, caches = T.prefill(cfg, eng.params, {"tokens": toks}, max_seq)
             torch.cuda.synchronize()
             pre.append((time.perf_counter() - t0) * 1e3)
         tok = logits[:, : cfg.vocab_size].argmax(-1)[:, None]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for i in range(NEW_TOKENS - 1):
-            logits, caches = T.decode_step(cfg, eng.params, tok, PROMPT + i, caches)
+        for i in range(new_tokens - 1):
+            logits, caches = T.decode_step(cfg, eng.params, tok, prompt + i, caches)
             tok = logits[:, : cfg.vocab_size].argmax(-1)[:, None]
         torch.cuda.synchronize()
-        dec_ms = (time.perf_counter() - t0) * 1e3 / (NEW_TOKENS - 1)
+        dec_ms = (time.perf_counter() - t0) * 1e3 / (new_tokens - 1)
         prefill_ms = statistics.median(pre)
         prefill_busy = device_profile(
-            torch, lambda: T.prefill(cfg, eng.params, {"tokens": toks}, MAX_SEQ), "prefill", prefill_ms)
+            torch, lambda: T.prefill(cfg, eng.params, {"tokens": toks}, max_seq), f"{cfg.name} prefill", prefill_ms)
         decode_busy = device_profile(
-            torch, lambda: T.decode_step(cfg, eng.params, tok, PROMPT + NEW_TOKENS - 1, caches),
-            "decode step", dec_ms)
-    log(f"[serve] {card}: prefill {BATCH}x{PROMPT} {prefill_ms:.2f} ms (median of 3), decode "
-        f"{dec_ms:.2f} ms per step of {BATCH} tokens, generate {BATCH * NEW_TOKENS / gen_s:.1f} tok/s "
-        f"(prefill included), peak memory {peak_gb:.2f} GB")
-    return counts, {"prefill_ms": prefill_ms, "decode_ms_per_step": dec_ms,
+            torch, lambda: T.decode_step(cfg, eng.params, tok, prompt + new_tokens - 1, caches),
+            f"{cfg.name} decode step", dec_ms)
+    log(f"[{tag}] {card}: {cfg.name} prefill {batch}x{prompt} {prefill_ms:.2f} ms (median of 3: "
+        f"{', '.join(f'{t:.2f}' for t in pre)}), decode {dec_ms:.2f} ms per step of {batch} tokens, generate "
+        f"{batch * new_tokens / gen_s:.1f} tok/s (prefill included), peak memory {peak_gb:.2f} GB")
+    return counts, {"prefill_ms": prefill_ms, "prefill_runs_ms": pre, "decode_ms_per_step": dec_ms,
                     "prefill_kernel_busy_ms": prefill_busy, "decode_kernel_busy_ms": decode_busy,
-                    "generate_tok_s": BATCH * NEW_TOKENS / gen_s, "peak_gb": peak_gb,
-                    "cache_rel_l2": rel, "cache_max_abs": max_abs}
+                    "generate_tok_s": batch * new_tokens / gen_s, "generate_s": gen_s, "peak_gb": peak_gb,
+                    "cache_rel_l2": rel, "cache_max_abs": max_abs, "cache_rows_routed_apart": parted,
+                    "weight_gb": weight_gb}
+
+
+def serve(torch, card: str):
+    from repro_torch.configs import get_config
+
+    return serve_model(torch, card, get_config(ARCH), BATCH, PROMPT, NEW_TOKENS, MAX_SEQ, "serve")
+
+
+def sdpa_kernels(torch, fn, top: int = 2):
+    """The device kernels that took most of one profiled call of ``fn``: which
+    backend SDPA chose."""
+    per_name = device_events(torch, fn)[1]
+    return [n[:80] for n, _ in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:top]]
+
+
+def check_flash_window(torch, fa, ref, gen):
+    """The tensor-core flash at mixtral's prefill shape (FLASH_MOE: one row of
+    the batch, 48 q / 8 kv heads, 4608 tokens, causal, window 4096): output
+    and lse against the plain version, the wrong-Q.K^T checks, a check that
+    full causal attention is told apart, and its time against its bound, the
+    plain version's and SDPA's with the window as an explicit boolean mask."""
+    B, H, Kh, S, _, D, causal, win = FLASH_MOE
+    q, k, v = flash_inputs(torch, gen, B, H, Kh, S, S, D, torch.bfloat16)
+    before = fa.launches_tc
+    got = fa.flash_attention_fwd(q, k, v, causal=causal, window=win)
+    if fa.launches_tc != before + 1:
+        raise AssertionError(f"flash {FLASH_MOE}: launched off the tensor-core route")
+    what = f"flash {FLASH_MOE} bf16 (tc, mixtral's prefill shape)"
+    err = compare(torch, what, got, ref.flash_attention_ref(q, k, v, causal, win, 0), "bfloat16")
+    check_sensitive(torch, ref, what, got, q, k, v, causal, win, 0)
+    lse_err = check_lse(torch, fa, ref, what, got, q, k, v, causal, win, 0, "bfloat16")
+    if torch.allclose(got.float(), ref.flash_attention_ref(q, k, v, causal, 0, 0).float(),
+                      rtol=TOL["bfloat16"], atol=TOL["bfloat16"]):
+        raise AssertionError(f"{what}: the check cannot tell the window from full causal attention")
+    pos = torch.arange(S, device="cuda")
+    mask = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < win)
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+    compare(torch, f"SDPA with the boolean window mask at {FLASH_MOE} (against the plain version)", sdpa(),
+            ref.flash_attention_ref(q, k, v, causal, win, 0), "bfloat16")
+    del got
+    torch.cuda.synchronize()
+    ms = time_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, causal=True, window=win))
+    plain = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, True, win, 0), reps=5, warmup=1)
+    lib = time_ms(torch, sdpa)
+    backend = sdpa_kernels(torch, sdpa)
+    pairs = flash_pairs(torch, S, S, True, win, 0)
+    ops = 4 * B * H * D * pairs
+    b_ms, b_by = bound((2 * q.numel() + k.numel() + v.numel()) * 2, ops, "bfloat16")
+    log(f"[kernels] flash {tuple(q.shape)}x{tuple(k.shape)} causal window {win} bf16 (tensor cores, mixtral's "
+        f"prefill shape, {pairs} visible pairs per head): kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA with the "
+        f"boolean mask {lib:.4f} ms ({ms / lib:.3f}x; its kernels {backend}), bound {b_ms:.4f} ms ({b_by}, "
+        f"{ops / 1e9:.1f} GFLOP), {ops / ms / 1e9:.2f} TFLOP/s")
+    return {"window_shape": f"q {tuple(q.shape)} kv {tuple(k.shape)} causal window {win} bf16",
+            "window_max_abs_err": err, "window_lse_max_abs_err": lse_err, "window_ms": ms, "window_plain_ms": plain,
+            "window_library_ms": lib, "window_library_kernels": backend, "window_bound_ms": b_ms,
+            "window_bound_by": b_by}
+
+
+def check_moe_dispatch(torch):
+    """One full-width mixtral MoE layer (bf16 weights drawn on the card from
+    SEED: the router and 8 experts of 6144 x 16384) on MOE_LAYER_TOKENS
+    tokens of std 1.  ``moe_fwd_dropping`` with capacity_factor = E / k,
+    which drops no token, is held to ``moe_fwd``: two formulations of one
+    function (a gather, per-expert f32 products and an f32 combine against
+    one f32 contraction over experts and d_ff of the router-weighted h), to
+    MOE_DISPATCH_TOL of the dense output's largest magnitude.  Times both
+    dispatches, the dropping one also at its default capacity factor."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.common import init_params
+
+    cfg = get_config("mixtral-8x22b")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    p = init_params(moe.moe_skel(cfg), gen, "cuda", dtype_override=cfg.param_dtype)
+    B, S = MOE_LAYER_TOKENS
+    x = torch.randn(B, S, cfg.d_model, generator=gen, device="cuda").to(torch.bfloat16)
+    room = cfg.num_experts / cfg.top_k
+    with torch.inference_mode():
+        dense, dense_aux = moe.moe_fwd(cfg, p, x)
+        drop, drop_aux = moe.moe_fwd_dropping(cfg, p, x, capacity_factor=room)
+        a, b = drop.float(), dense.float()
+        err = ((a - b).abs().max() / b.abs().max()).item()
+        rel = ((a - b).norm() / b.norm()).item()
+        log(f"[serve_moe] one full-width {cfg.name} MoE layer on {B}x{S} tokens, bf16: dropping (capacity factor "
+            f"{room:g}, no token drops) vs dense: max err / max magnitude {err:.3e} (tol {MOE_DISPATCH_TOL:g}), "
+            f"rel_l2 {rel:.3e}, aux {drop_aux.item():.6f} vs {dense_aux.item():.6f}")
+        if not torch.isfinite(a).all() or err > MOE_DISPATCH_TOL or not torch.equal(drop_aux, dense_aux):
+            raise AssertionError(f"the dropping dispatch disagrees with the dense one: {err}, {rel}")
+        dense_ms = time_ms(torch, lambda: moe.moe_fwd(cfg, p, x), reps=5, warmup=1)
+        drop_ms = time_ms(torch, lambda: moe.moe_fwd_dropping(cfg, p, x, capacity_factor=room), reps=5, warmup=1)
+        drop125_ms = time_ms(torch, lambda: moe.moe_fwd_dropping(cfg, p, x), reps=5, warmup=1)
+    log(f"[serve_moe] that layer: dense dispatch {dense_ms:.3f} ms, dropping {drop_ms:.3f} ms at capacity factor "
+        f"{room:g}, {drop125_ms:.3f} ms at 1.25 (device time, medians of 5)")
+    return {"max_err_over_max": err, "rel_l2": rel, "dense_ms": dense_ms, "dropping_no_drop_ms": drop_ms,
+            "dropping_1_25_ms": drop125_ms}
+
+
+def serve_moe(torch, card: str):
+    """The MoE family at full width, depth cut by ``dataclasses.replace``
+    (MOE_RUNS): mixtral-8x22b, then llama4-scout-17b-a16e.  Returns the
+    launches of both runs' generate, summed, and each run's metrics."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    counts, metrics = {}, {}
+    for arch, (layers, batch, prompt, new_tokens, max_seq) in MOE_RUNS.items():
+        t0 = time.perf_counter()
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, num_layers=layers)
+        spec = cfg.pattern[0]
+        log(f"[serve_moe] {arch} at full width (d={cfg.d_model}, {cfg.num_heads} q / {cfg.num_kv_heads} kv heads, "
+            f"head dim {cfg.head_dim}, d_ff {cfg.d_ff}, {cfg.num_experts} experts top-{cfg.top_k}"
+            f"{' and a shared expert' if cfg.shared_expert else ''}, {spec.attention} attention"
+            f"{f' of window {spec.window}' if spec.window else ''}, vocab {cfg.vocab_size}), cut: {layers} of "
+            f"{full.num_layers} layers ({full.param_count() / 1e9:.1f} B parameters in all, "
+            f"{full.param_count() * 2 / 1e9:.0f} GB in bf16); {batch} prompts of {prompt} tokens, {new_tokens} "
+            f"greedy tokens, max_seq {max_seq}")
+        c, m = serve_model(torch, card, cfg, batch, prompt, new_tokens, max_seq, "serve_moe")
+        for name, n in c.items():
+            counts[name] = counts.get(name, 0) + n
+        m["phase_s"] = time.perf_counter() - t0
+        metrics[arch] = m
+        log(f"[serve_moe] {arch}: {m['phase_s']:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return counts, metrics
 
 
 def sync(torch, card: str):
@@ -820,10 +1038,9 @@ def train(torch, card: str):
                     "layers": TRAIN_LAYERS, "seq": TRAIN_SEQ, "batch": TRAIN_BATCH, "microbatches": TRAIN_MICRO}
 
 
-def device_profile(torch, fn, label: str, wall_ms: float, top: int = 6):
-    """Device busy time of one call of ``fn`` by torch.profiler: the union of
-    the intervals of its device-side events (kernels, copies), against the
-    unprofiled wall time, and the device events that took the most time."""
+def device_events(torch, fn):
+    """One call of ``fn`` under torch.profiler: its device-side events
+    (kernels, copies), and their total time and count by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -832,6 +1049,18 @@ def device_profile(torch, fn, label: str, wall_ms: float, top: int = 6):
         fn()
         torch.cuda.synchronize()
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    per_name = {}
+    for e in events:
+        t, n = per_name.get(e.name, (0.0, 0))
+        per_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
+    return events, per_name
+
+
+def device_profile(torch, fn, label: str, wall_ms: float, top: int = 6):
+    """Device busy time of one call of ``fn`` by torch.profiler: the union of
+    the intervals of its device-side events (kernels, copies), against the
+    unprofiled wall time, and the device events that took the most time."""
+    events, per_name = device_events(torch, fn)
     busy_us, end = 0.0, None
     for s, e in sorted((e.time_range.start, e.time_range.end) for e in events):
         if end is None or s > end:
@@ -840,10 +1069,6 @@ def device_profile(torch, fn, label: str, wall_ms: float, top: int = 6):
         elif e > end:
             busy_us += e - end
             end = e
-    per_name = {}
-    for e in events:
-        t, n = per_name.get(e.name, (0.0, 0))
-        per_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
     top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:top]
     busy = busy_us / 1e3
     log(f"[profile] {label}: device busy {busy:.2f} ms of {wall_ms:.2f} ms wall "
@@ -885,6 +1110,7 @@ def main() -> int:
     from repro_torch.optim import compression
 
     # Phase 1: the card, and the kernels built from source.
+    start = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
     card = card_line()
     log(f"[card] {kind}; torch {torch.__version__} cuda {torch.version.cuda}; nvidia-smi:")
@@ -911,6 +1137,9 @@ def main() -> int:
                check_chunk_reduce(torch, cr, ref, gen, *hop_chunks(cfg, C)),
                check_dequant_add(torch, cr, ref, compression, gen, cfg.d_model * cfg.d_ff)]
     check_flash_backward(torch, ops, gen)
+    t0 = time.perf_counter()
+    records[1].update(check_flash_window(torch, fa, ref, gen))
+    log(f"[kernels] the windowed flash at mixtral's prefill shape: {time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -918,7 +1147,16 @@ def main() -> int:
     counts, metrics = serve(torch, card)
     log(f"[serve] metrics {json.dumps(metrics)} on {card}")
     gc.collect()
-    torch.cuda.empty_cache()  # the engine's 30 GB go back before the ranks start
+    torch.cuda.empty_cache()  # the engine's 30 GB go back before the next phase
+
+    # Phase 3b: serve the MoE family at full width, depth cut.
+    t0 = time.perf_counter()
+    dispatch = check_moe_dispatch(torch)
+    log(f"[serve_moe] the dispatch check: {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_counts, moe_metrics = serve_moe(torch, card)
+    log(f"[serve_moe] metrics {json.dumps(dict(moe_metrics, dispatch=dispatch))} on {card}")
 
     # Phase 4: the cross-pod gradient sync on rank processes sharing the card.
     summary = sync(torch, card)
@@ -929,7 +1167,8 @@ def main() -> int:
     log(f"[train] metrics {json.dumps(train_metrics)} on {card}")
 
     # launches of each kernel on each main path (flash: the tensor-core route's)
-    by_path = {"serve": counts, "sync": {"chunk_reduce": sum(summary["methods"]["hoplite_chain"]["chunk_reduce"])},
+    by_path = {"serve": counts, "serve_moe": moe_counts,
+               "sync": {"chunk_reduce": sum(summary["methods"]["hoplite_chain"]["chunk_reduce"])},
                "train": train_counts}
     for r in records:
         name = "flash_attention_tc" if r["name"] == "flash_attention" else r["name"]
@@ -937,6 +1176,7 @@ def main() -> int:
         r["launches"] = sum(r["launches_by_path"].values())
 
     # Phase 6 and 7: the kernels record, then the result.
+    log(f"[card] all phases: {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

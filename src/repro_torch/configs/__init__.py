@@ -1,7 +1,7 @@
 """Architecture registry of the port: the configs whose path it runs.
 
-Only qwen3-14b so far; the other architectures of ``repro.configs`` arrive
-with the slices that run them.
+qwen3-14b (dense), mixtral-8x22b and llama4-scout-17b-a16e (MoE); the other
+architectures of ``repro.configs`` arrive with the slices that run them.
 """
 
 from __future__ import annotations
@@ -10,9 +10,11 @@ import dataclasses
 from typing import Dict
 
 from repro_torch.configs.base import LayerSpec, ModelConfig, ShapeSpec  # noqa: F401
+from repro_torch.configs.llama4_scout_17b_a16e import CONFIG as LLAMA4_SCOUT
+from repro_torch.configs.mixtral_8x22b import CONFIG as MIXTRAL
 from repro_torch.configs.qwen3_14b import CONFIG as QWEN3
 
-ARCHS: Dict[str, ModelConfig] = {c.name: c for c in [QWEN3]}
+ARCHS: Dict[str, ModelConfig] = {c.name: c for c in [QWEN3, MIXTRAL, LLAMA4_SCOUT]}
 
 
 def get_config(name: str) -> ModelConfig:

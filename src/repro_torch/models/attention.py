@@ -1,10 +1,12 @@
-"""Attention: GQA with full causal attention, prefill and decode (port of
-``repro.models.attention``).
+"""Attention: GQA, full causal or sliding-window, prefill and decode (port
+of ``repro.models.attention``).
 
 Prefill runs the flash-attention kernel through ``ops.flash_attention`` in
-the kernel's (B, H, S, D) layout; decode attends one query position against
-a linear KV cache in plain PyTorch, as the JAX package does with plain jnp.
-Sliding-window layers (ring caches) and cross-attention are later slices.
+the kernel's (B, H, S, D) layout, with the layer's window; decode attends one
+query position against the KV cache in plain PyTorch, as the JAX package does
+with plain jnp.  A windowed layer whose cache holds exactly its window uses
+it as a ring (slot ``t % C``); any other cache is linear (slot = position).
+Cross-attention is a later slice.
 """
 
 from __future__ import annotations
@@ -34,13 +36,6 @@ def attn_skel(cfg):
     return s
 
 
-def _check_full(spec) -> None:
-    if spec.attention != "full":
-        raise NotImplementedError(
-            f"{spec.attention!r} attention: the port runs full causal attention only so far"
-        )
-
-
 def _positions_rope(cfg, p, q, k, q_pos, kv_pos):
     """Apply qk-norm then rotary embedding.  q: (B,S,K,G,D), k: (B,S,K,D)."""
     if cfg.qk_norm:
@@ -55,7 +50,6 @@ def _positions_rope(cfg, p, q, k, q_pos, kv_pos):
 
 def attention_fwd(cfg, p, x: torch.Tensor, spec, q_pos: torch.Tensor) -> torch.Tensor:
     """Prefill self-attention (no cache).  x: (B, S, d); q_pos: (S,) positions."""
-    _check_full(spec)
     B, S = x.shape[:2]
     K, H, D = cfg.num_kv_heads, cfg.num_heads, cfg.head_dim
     G = H // K
@@ -67,9 +61,11 @@ def attention_fwd(cfg, p, x: torch.Tensor, spec, q_pos: torch.Tensor) -> torch.T
     qh = q.permute(0, 2, 3, 1, 4).reshape(B, H, S, D).contiguous()
     kh = k.permute(0, 2, 1, 3).contiguous()
     vh = v.permute(0, 2, 1, 3).contiguous()
-    # q and kv share positions, so the causal mask q_pos[i] >= kv_pos[j] is
-    # i >= j whatever q_pos starts at: the kernel's q_offset is 0
-    out = ops.flash_attention(qh, kh, vh, causal=True, window=0, q_offset=0)
+    # q and kv share positions, so the masks q_pos[i] >= kv_pos[j] and
+    # q_pos[i] - kv_pos[j] < window are i >= j and i - j < window whatever
+    # q_pos starts at: the kernel's q_offset is 0
+    window = spec.window if spec.attention == "window" else 0
+    out = ops.flash_attention(qh, kh, vh, causal=True, window=window, q_offset=0)
     out = out.reshape(B, K, G, S, D).permute(0, 3, 1, 2, 4).reshape(B, S, H * D)
     return dense(out, p["wo"])
 
@@ -93,11 +89,14 @@ def decode_attend(
     v_cache: torch.Tensor,  # (B, C, K, D)
     kv_positions: torch.Tensor,  # (C,) token position per slot; < 0 invalid
     t: int,  # position of the new token
+    window: int = 0,
 ) -> torch.Tensor:
     """One-token attention over the cache, scores and softmax in f32."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bkgqd,bskd->bkgqs", q.float(), k_cache.float()) * scale
     mask = (kv_positions >= 0) & (kv_positions <= t)
+    if window:
+        mask &= (t - kv_positions) < window
     s = torch.where(mask[None, None, None, None, :], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqs,bskd->bkgqd", p.to(v_cache.dtype).float(), v_cache.float())
@@ -109,15 +108,17 @@ def attention_decode(
     p,
     x: torch.Tensor,  # (B, 1, d)
     spec,
-    cache: Tuple[torch.Tensor, torch.Tensor],  # k, v: (B, C, K, D); slot == position
+    cache: Tuple[torch.Tensor, torch.Tensor],  # k, v: (B, C, K, D); C = S or window
     t: int,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """One decode step against a linear cache: returns (output, cache).
+    """One decode step: returns (output, cache).
 
-    The new token's k/v are written into slot ``t`` of the cache in place
-    (JAX returns an updated copy with ``dynamic_update_slice``); a ``t`` past
-    the cache raises ``IndexError`` instead of being clamped."""
-    _check_full(spec)
+    A windowed layer whose cache has ``C == window`` slots uses it as a RING:
+    slot j holds the latest position congruent to j (mod C), and the new
+    token goes to slot ``t % C``.  Any other cache is linear: slot == position.
+    The new token's k/v are written in place (JAX returns an updated copy
+    with ``dynamic_update_slice``); a ``t`` past a linear cache raises
+    ``IndexError`` instead of being clamped."""
     B = x.shape[0]
     K, H, D = cfg.num_kv_heads, cfg.num_heads, cfg.head_dim
     G = H // K
@@ -128,9 +129,14 @@ def attention_decode(
     xv = dense(x, p["wv"]).reshape(B, 1, K, D)
     pos = torch.full((1,), t, dtype=torch.long, device=x.device)
     q, xk = _positions_rope(cfg, p, q, xk, pos, pos)
-    k_cache[:, t] = xk[:, 0]
-    v_cache[:, t] = xv[:, 0]
-    kv_positions = torch.arange(C, device=x.device)
-    out = decode_attend(q.permute(0, 2, 3, 1, 4), k_cache, v_cache, kv_positions, t)
+    windowed = spec.attention == "window" and C == spec.window
+    slot = t % C if windowed else t
+    k_cache[:, slot] = xk[:, 0]
+    v_cache[:, slot] = xv[:, 0]
+    j = torch.arange(C, device=x.device)
+    # ring: positions in (t - C, t], floor modulo as jnp's; < 0 => empty slot
+    kv_positions = t - torch.remainder(t - j, C) if windowed else j
+    window = spec.window if spec.attention == "window" else 0
+    out = decode_attend(q.permute(0, 2, 3, 1, 4), k_cache, v_cache, kv_positions, t, window)
     out = out.permute(0, 3, 1, 2, 4).reshape(B, 1, H * D)
     return dense(out, p["wo"]), (k_cache, v_cache)

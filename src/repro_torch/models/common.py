@@ -100,6 +100,38 @@ def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.to(dt), w.to(dt)).to(x.dtype)
 
 
+class _F32Product(torch.autograd.Function):
+    """``a @ b`` of bf16 operands with cuBLAS's f32 output (``mm`` with
+    ``out_dtype``), which has no derivative in torch.  Back, da and db are
+    products of the same kind: the f32 cotangent rounded to bf16, bf16
+    operands, f32 accumulation, each result rounded to its operand's type."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        da = torch.mm(g, b.t(), out_dtype=torch.float32).to(a.dtype) if ctx.needs_input_grad[0] else None
+        db = torch.mm(a.t(), g, out_dtype=torch.float32).to(b.dtype) if ctx.needs_input_grad[1] else None
+        return da, db
+
+
+def f32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of 2-D operands with an f32 result, as the JAX package asks a
+    dot for ``preferred_element_type=float32``: of bf16 operands on the card,
+    cuBLAS's f32 output (through ``_F32Product`` for its gradient), which
+    accumulates in f32 and never rounds the product to bf16; elsewhere, and
+    where the types differ (JAX promotes both to f32), the product of the
+    upcast operands."""
+    if a.device.type == "cuda" and a.dtype == b.dtype == torch.bfloat16:
+        return _F32Product.apply(a, b)
+    return torch.mm(a.float(), b.float())
+
+
 # ---------------------------------------------------------------------------
 # rotary embeddings
 # ---------------------------------------------------------------------------

@@ -1,17 +1,20 @@
 """Model assembly: embed -> layer stages -> norm -> lm head (port of
 ``repro.models.transformer``): ``train_loss`` (and ``forward``), prefill and
-decode for the dense path.
+decode.
 
 Parameters keep the JAX package's tree: each stage stacks its layers on a
 leading "layers" axis, and where JAX scans over that axis the port runs a
 Python loop over it.  Caches mirror the JAX tree too: per stage,
-``{"pos0": {"k": (L,B,C,K,D), "v": (L,B,C,K,D)}}``; the port fills and
-updates them in place (JAX returns new arrays).  GSPMD sharding hints have
-no counterpart on one device.  The dense path has no MoE auxiliary loss, so
-``layer_fwd``, ``stage_fwd`` and ``forward`` return no ``aux`` term.
+``{"pos0": {"k": (L,B,C,K,D), "v": (L,B,C,K,D)}}`` with C the position's own
+length (``cache_len_for``: a windowed layer keeps at most its window, as a
+ring); the port fills and updates them in place (JAX returns new arrays).
+GSPMD sharding hints have no counterpart on one device.  ``layer_fwd``,
+``stage_fwd`` and ``forward`` carry the MoE auxiliary loss (0 for a plain
+FFN), as the JAX package's do.
 
-The slice runs dense attention layers with RMSNorm, SwiGLU and RoPE; any
-other configuration raises ``NotImplementedError`` (:func:`check_supported`).
+The port runs attention layers, full or sliding-window, with a SwiGLU FFN or
+a mixture of SwiGLU experts, RMSNorm and RoPE; any other configuration raises
+``NotImplementedError`` (:func:`check_supported`).
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import torch
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.common import Param, apply_norm, norm_skel, tree_map_params
+from repro_torch.models.common import Param, apply_norm, f32_product, norm_skel, tree_map_params
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -32,10 +35,8 @@ def check_supported(cfg: ModelConfig) -> None:
     for spec in cfg.pattern + cfg.tail_pattern:
         if spec.kind != "attn":
             missing.append(f"{spec.kind} layers")
-        elif spec.attention != "full":
-            missing.append(f"{spec.attention} attention with ring caches")
-        if spec.moe:
-            missing.append("MoE FFN")
+        elif spec.attention not in ("full", "window"):
+            missing.append(f"{spec.attention} attention")
     if cfg.is_encoder_decoder:
         missing.append("encoder and cross-attention")
     if cfg.rope != "rope":
@@ -46,8 +47,8 @@ def check_supported(cfg: ModelConfig) -> None:
         missing.append(f"act={cfg.act!r}")
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense attention with RMSNorm, SwiGLU and RoPE "
-            f"only so far; missing: {', '.join(sorted(set(missing)))}"
+            f"{cfg.name}: the port runs attention layers (full or windowed) with SwiGLU "
+            f"FFNs or experts, RMSNorm and RoPE only so far; missing: {', '.join(sorted(set(missing)))}"
         )
 
 
@@ -57,14 +58,14 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def layer_skel(cfg: ModelConfig, spec: LayerSpec):
-    if spec.kind != "attn" or spec.moe:
-        raise NotImplementedError(f"{spec}: the port runs dense attention layers only so far")
-    return {
-        "ln1": norm_skel(cfg),
-        "attn": attn.attn_skel(cfg),
-        "ln2": norm_skel(cfg),
-        "ffn": moe_mod.ffn_skel(cfg),
-    }
+    if spec.kind != "attn":
+        raise NotImplementedError(f"{spec}: the port runs attention layers only so far")
+    s: Dict[str, Any] = {"ln1": norm_skel(cfg), "attn": attn.attn_skel(cfg), "ln2": norm_skel(cfg)}
+    if spec.moe:
+        s["moe"] = moe_mod.moe_skel(cfg)
+    else:
+        s["ffn"] = moe_mod.ffn_skel(cfg)
+    return s
 
 
 def _stack(skel, n: int):
@@ -103,34 +104,58 @@ def _layer(tree, i: int):
 # ---------------------------------------------------------------------------
 
 
-def _ffn_part(cfg, lp, x):
-    return x + moe_mod.ffn_fwd(cfg, lp["ffn"], apply_norm(cfg, lp["ln2"], x))
+def _ffn_part(cfg, lp, spec, x):
+    """The residual FFN or MoE block: (x + out, aux), aux 0.0 for a plain FFN."""
+    h = apply_norm(cfg, lp["ln2"], x)
+    if spec.moe:
+        if moe_mod.MOE_MODE[0] == "dropping":
+            out, aux = moe_mod.moe_fwd_dropping(cfg, lp["moe"], h)
+        else:
+            out, aux = moe_mod.moe_fwd(cfg, lp["moe"], h)
+    else:
+        out, aux = moe_mod.ffn_fwd(cfg, lp["ffn"], h), 0.0
+    return x + out, aux
 
 
 def layer_fwd(cfg, spec, lp, x, q_pos):
-    """Full-sequence forward of one layer (training)."""
+    """Full-sequence forward of one layer (training): (x, aux)."""
     h = apply_norm(cfg, lp["ln1"], x)
     x = x + attn.attention_fwd(cfg, lp["attn"], h, spec, q_pos)
-    return _ffn_part(cfg, lp, x)
+    return _ffn_part(cfg, lp, spec, x)
+
+
+def cache_len_for(cfg, spec: LayerSpec, seq_len: int) -> int:
+    """Slots of an attention position's cache: a windowed layer keeps at most its window."""
+    if spec.attention == "window":
+        return min(seq_len, spec.window)
+    return seq_len
 
 
 def layer_prefill(cfg, spec, lp, x, q_pos, cache):
     """Forward one layer over the prompt and write its K/V into ``cache``
-    (``{"k", "v"}`` views of shape (B, C, K, D), filled in place)."""
+    (``{"k", "v"}`` views of shape (B, C, K, D), filled in place): the prompt
+    from slot 0 when it fits, else a ring of its last C positions, position
+    p at slot p % C.  Returns (x, aux)."""
     h = apply_norm(cfg, lp["ln1"], x)
     x = x + attn.attention_fwd(cfg, lp["attn"], h, spec, q_pos)
     # recomputes k and v as the JAX package does (attention_prefill_kv)
     k, v = attn.attention_prefill_kv(cfg, lp["attn"], h, q_pos)
-    cache["k"][:, : k.shape[1]] = k
-    cache["v"][:, : v.shape[1]] = v
-    return _ffn_part(cfg, lp, x)
+    S, C = k.shape[1], cache["k"].shape[1]
+    if C >= S:
+        cache["k"][:, :S] = k
+        cache["v"][:, :S] = v
+    else:  # ring cache: keep the last C positions at slots pos % C
+        cache["k"].copy_(torch.roll(k[:, -C:], S % C, dims=1))
+        cache["v"].copy_(torch.roll(v[:, -C:], S % C, dims=1))
+    return _ffn_part(cfg, lp, spec, x)
 
 
 def layer_decode(cfg, spec, lp, x, t: int, cache):
     """One-token forward against the cache (updated in place)."""
     h = apply_norm(cfg, lp["ln1"], x)
     out, _ = attn.attention_decode(cfg, lp["attn"], h, spec, (cache["k"], cache["v"]), t)
-    return _ffn_part(cfg, lp, x + out)
+    x, _ = _ffn_part(cfg, lp, spec, x + out)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -143,19 +168,24 @@ def _num_blocks(stage_params) -> int:
 
 
 def stage_fwd(cfg, pattern, stage_params, x, q_pos, wrap: Optional[Callable] = None):
-    """Every block of the stage in turn.  ``wrap`` (the train step's remat)
-    maps the block function ``(h, block_params) -> h`` to the one that runs,
-    as the JAX train step wraps its scanned block body in ``jax.checkpoint``."""
+    """Every block of the stage in turn: (x, the f32 sum of the layers' aux).
+    ``wrap`` (the train step's remat) maps the block function
+    ``(h, block_params) -> (h, aux)`` to the one that runs, as the JAX train
+    step wraps its scanned block body in ``jax.checkpoint``."""
 
     def block(h, bp):
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for i, spec in enumerate(pattern):
-            h = layer_fwd(cfg, spec, bp[f"pos{i}"], h, q_pos)
-        return h
+            h, a = layer_fwd(cfg, spec, bp[f"pos{i}"], h, q_pos)
+            aux = aux + a
+        return h, aux
 
     run = block if wrap is None else wrap(block)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for blk in range(_num_blocks(stage_params)):
-        x = run(x, _layer(stage_params, blk))
-    return x
+        x, a = run(x, _layer(stage_params, blk))
+        aux = aux + a
+    return x, aux
 
 
 def stage_prefill(cfg, pattern, stage_params, x, q_pos, cache_seq: int):
@@ -163,15 +193,15 @@ def stage_prefill(cfg, pattern, stage_params, x, q_pos, cache_seq: int):
     if S > cache_seq:
         raise ValueError(f"prompt of {S} tokens does not fit a cache of {cache_seq}")
     n = _num_blocks(stage_params)
-    shape = (n, B, cache_seq, cfg.num_kv_heads, cfg.head_dim)
-    caches = {
-        f"pos{i}": {"k": x.new_zeros(shape), "v": x.new_zeros(shape)}
-        for i in range(len(pattern))
-    }
+    caches = {}
+    for i, spec in enumerate(pattern):
+        shape = (n, B, cache_len_for(cfg, spec, cache_seq), cfg.num_kv_heads, cfg.head_dim)
+        caches[f"pos{i}"] = {"k": x.new_zeros(shape), "v": x.new_zeros(shape)}
     for blk in range(n):
         bp = _layer(stage_params, blk)
         for i, spec in enumerate(pattern):
-            x = layer_prefill(cfg, spec, bp[f"pos{i}"], x, q_pos, _layer(caches[f"pos{i}"], blk))
+            # prefill's aux is dropped, as the JAX package drops it
+            x, _ = layer_prefill(cfg, spec, bp[f"pos{i}"], x, q_pos, _layer(caches[f"pos{i}"], blk))
     return x, caches
 
 
@@ -192,45 +222,18 @@ def _embed(cfg, params, tokens):
     return params["embed"][tokens].to(getattr(torch, cfg.dtype))
 
 
-class _F32Product(torch.autograd.Function):
-    """``x2 @ w`` of bf16 operands with cuBLAS's f32 output (``mm`` with
-    ``out_dtype``), which has no derivative in torch.  Back, dx and dw are
-    products of the same kind: the f32 cotangent rounded to bf16, bf16
-    operands, f32 accumulation, each result rounded to its operand's type."""
-
-    @staticmethod
-    def forward(ctx, x2, w):
-        ctx.save_for_backward(x2, w)
-        return torch.mm(x2, w, out_dtype=torch.float32)
-
-    @staticmethod
-    def backward(ctx, g):
-        x2, w = ctx.saved_tensors
-        g = g.to(x2.dtype)
-        dx = torch.mm(g, w.t(), out_dtype=torch.float32).to(x2.dtype) if ctx.needs_input_grad[0] else None
-        dw = torch.mm(x2.t(), g, out_dtype=torch.float32).to(w.dtype) if ctx.needs_input_grad[1] else None
-        return dx, dw
-
-
 def _unembed(cfg, params, x):
-    """Logits as an f32 product, as the JAX package asks its dot for an f32
-    result: of bf16 x and w, cuBLAS's f32 output on the card (``mm`` with
-    ``out_dtype``, through ``_F32Product`` for its gradient), the product of
-    the upcast values on the CPU; where the types differ, JAX promotes both
-    to f32 and so does this."""
+    """Logits as an f32 product (``common.f32_product``), as the JAX package
+    asks its dot for an f32 result."""
     w = params.get("lm_head")
     if w is None:
         w = params["embed"].T
-    x2 = x.reshape(-1, x.shape[-1])
-    if x.device.type == "cuda" and x.dtype == w.dtype == torch.bfloat16:
-        y = _F32Product.apply(x2, w)
-    else:
-        y = torch.mm(x2.float(), w.float())
+    y = f32_product(x.reshape(-1, x.shape[-1]), w)
     return y.reshape(*x.shape[:-1], w.shape[-1])
 
 
-def forward(cfg: ModelConfig, params, batch, wrap: Optional[Callable] = None) -> torch.Tensor:
-    """Full-sequence logits (B, S, V_padded) in f32.
+def forward(cfg: ModelConfig, params, batch, wrap: Optional[Callable] = None):
+    """Full-sequence (logits (B, S, V_padded) in f32, the f32 sum of the MoE aux).
 
     ``batch["x_embed"]`` (embeddings gathered already) takes precedence over
     ``batch["tokens"]``: the microbatched train step hoists the embedding
@@ -242,29 +245,36 @@ def forward(cfg: ModelConfig, params, batch, wrap: Optional[Callable] = None) ->
     else:
         x = _embed(cfg, params, batch["tokens"])
     q_pos = torch.arange(x.shape[1], device=x.device)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for (pattern, _n), sp in zip(cfg.stages(), params["stages"]):
-        x = stage_fwd(cfg, pattern, sp, x, q_pos, wrap)
+        x, aux = stage_fwd(cfg, pattern, sp, x, q_pos, wrap)
+        aux_total = aux_total + aux
     x = apply_norm(cfg, params["final_norm"], x)
-    return _unembed(cfg, params, x)
+    return _unembed(cfg, params, x), aux_total
 
 
 def train_loss(cfg: ModelConfig, params, batch, wrap: Optional[Callable] = None) -> torch.Tensor:
-    """Next-token cross-entropy in f32, the mean over labels >= 0.
+    """Next-token cross-entropy in f32, the mean over labels >= 0, plus the
+    MoE aux loss weighted by ``router_aux_weight / num_layers``.
 
     The label's log-probability is a gather where the JAX package contracts
     with a one-hot (a form for its SPMD partitioner): a sum with one nonzero
     term is exact in f32, so both give the same number."""
-    logits = forward(cfg, params, batch, wrap)
+    logits, aux = forward(cfg, params, batch, wrap)
     labels = batch["labels"]
     lse = torch.logsumexp(logits, dim=-1)
     picked = logits.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
     mask = (labels >= 0).float()
-    return -((picked - lse) * mask).sum() / mask.sum().clamp(min=1.0)
+    loss = -((picked - lse) * mask).sum() / mask.sum().clamp(min=1.0)
+    if cfg.num_experts:
+        loss = loss + cfg.router_aux_weight * aux / max(1, cfg.num_layers)
+    return loss
 
 
 def prefill(cfg: ModelConfig, params, batch, cache_seq: int):
     """Process the prompt ``batch["tokens"]`` (B, S); return (last-token
-    logits (B, V_padded) in f32, caches of length ``cache_seq``)."""
+    logits (B, V_padded) in f32, caches of ``cache_len_for(.., cache_seq)``
+    slots per position)."""
     check_supported(cfg)
     tokens = batch["tokens"]
     S = tokens.shape[1]

@@ -26,8 +26,9 @@ from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rmsnorm as trn
 from repro_torch.launch import serve
+from repro_torch.models import moe
 from repro_torch.models import transformer as T
-from repro_torch.models.common import init_params
+from repro_torch.models.common import dense, init_params
 from repro_torch.optim import compression
 from repro_torch.serving.engine import Engine, ServeOptions
 from repro_torch.data import pipeline
@@ -366,6 +367,72 @@ def test_reduced_model_on_the_card_matches_the_cpu(cuda):
     opts = ServeOptions(max_seq=32, batch_size=2)
     got = Engine(cfg, gparams, opts).generate({"tokens": toks}, 6)
     want = Engine(cfg, params, opts).generate({"tokens": toks}, 6)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_full_width_moe_layer_on_the_card_matches_the_cpu(cuda):
+    """One full-width mixtral MoE layer (bf16 weights drawn on the CPU from a
+    seed: the router and 8 experts of 6144 x 16384) on 2 x 16 tokens: the
+    card's dense and no-drop dropping dispatches (cuBLAS f32 products)
+    against the CPU's (products of the upcast operands), within 2e-2 of the
+    largest magnitude on the tokens both route alike.  A token may route
+    differently only where the CPU's margin (its k-th and (k+1)-th router
+    logits) lies within 2e-2 of its largest router-logit magnitude, and at
+    least 90% must route alike."""
+    cfg = get_config("mixtral-8x22b")
+    p = init_params(moe.moe_skel(cfg), torch.Generator().manual_seed(2), "cpu", "bfloat16")
+    x = torch.randn(2, 16, cfg.d_model, generator=torch.Generator().manual_seed(3)).bfloat16()
+    gp, gx = _to_cuda(p), x.cuda()
+    E, k = cfg.num_experts, cfg.top_k
+    logits = dense(x, p["router"]).float().reshape(-1, E)
+    s = logits.sort(dim=-1, descending=True).values
+    margin = (s[:, k - 1] - s[:, k]) / s.abs().amax(-1)
+    cw, caux = moe._route(cfg, p, x)
+    gw, gaux = moe._route(cfg, gp, gx)
+    alike = ((cw > 0) == (gw.cpu() > 0)).all(-1).reshape(-1)
+    assert (margin[~alike] <= 2e-2).all() and alike.float().mean() >= 0.9, (alike, margin)
+    torch.testing.assert_close(gaux.cpu(), caux, rtol=2e-2, atol=0)
+    room = E / k
+    for name, fn in (("dense", moe.moe_fwd), ("dropping", lambda c, p_, x_: moe.moe_fwd_dropping(c, p_, x_, room))):
+        want, _ = fn(cfg, p, x)
+        got, _ = fn(cfg, gp, gx)
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape, name
+        g, w = got.cpu().float().reshape(-1, cfg.d_model)[alike], want.float().reshape(-1, cfg.d_model)[alike]
+        err = (g - w).abs().max() / w.abs().max()
+        assert err <= 2e-2, (name, float(err))
+    assert ops.launch_counts() == NO_LAUNCHES
+
+
+def test_reduced_mixtral_ring_decode_on_the_card_matches_the_cpu(cuda):
+    """reduced mixtral in f32 (4 experts top-2, window 8): prefill of 12
+    tokens into caches of cache_seq 16, a ring of 8 slots (the roll path),
+    and six decode steps past its wrap, the card (CUDA-core flash at head
+    dim 16, cuBLAS) against the CPU's plain path at 1e-4, and the engine's
+    greedy tokens; with the launches the path makes."""
+    cfg = reduced_config(get_config("mixtral-8x22b"))
+    params = init_params(T.model_skel(cfg), torch.Generator().manual_seed(1), "cpu", "float32")
+    rng = np.random.RandomState(1)
+    for blk in params["stages"][0]["pos0"].values():
+        if "w" in blk:
+            blk["w"].copy_(torch.from_numpy(rng.randn(*blk["w"].shape).astype(np.float32) * 0.3))
+    gparams = _to_cuda(params)
+    toks = torch.from_numpy(serve.random_prompts(cfg, 2, 18, 1))
+    cl, cc = T.prefill(cfg, params, {"tokens": toks[:, :12]}, 16)
+    gl, gc = T.prefill(cfg, gparams, {"tokens": toks[:, :12].cuda()}, 16)
+    assert gc[0]["pos0"]["k"].shape[2] == 8
+    torch.testing.assert_close(gl.cpu(), cl, rtol=1e-4, atol=1e-4)
+    for t in range(12, 18):
+        cl, cc = T.decode_step(cfg, params, toks[:, t : t + 1], t, cc)
+        gl, gc = T.decode_step(cfg, gparams, toks[:, t : t + 1].cuda(), t, gc)
+        torch.testing.assert_close(gl.cpu(), cl, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(gc[0]["pos0"]["k"].cpu(), cc[0]["pos0"]["k"], rtol=1e-4, atol=1e-4)
+    counts = ops.launch_counts()
+    L = cfg.num_layers
+    assert counts["flash_attention_cores"] == L and counts["flash_attention_tc"] == 0
+    assert counts["rmsnorm"] == (2 * L + 1) * 7
+    opts = ServeOptions(max_seq=16, batch_size=2)
+    got = Engine(cfg, gparams, opts).generate({"tokens": toks[:, :12]}, 6)
+    want = Engine(cfg, params, opts).generate({"tokens": toks[:, :12]}, 6)
     np.testing.assert_array_equal(got, want)
 
 

@@ -156,10 +156,8 @@ def test_convert_keeps_bf16_and_checks_the_tree():
 
 
 UNSUPPORTED = {
-    "moe": dict(pattern=(LayerSpec(kind="attn", moe=True),), num_experts=4, top_k=2),
     "mamba": dict(pattern=(LayerSpec(kind="mamba"),)),
     "rwkv": dict(pattern=(LayerSpec(kind="rwkv"),)),
-    "window": dict(pattern=(LayerSpec(kind="attn", attention="window", window=8),)),
     "cross": dict(encoder_layers=2, encoder_seq=32),
     "mrope": dict(rope="mrope", mrope_sections=(2, 3, 3)),
     "layernorm": dict(norm="layernorm"),
