@@ -21,6 +21,8 @@ token of an expert whose queue it changes) is not compared, and most tokens
 """
 
 import dataclasses
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -52,12 +54,22 @@ from repro_torch.serving import engine as tengine
 from repro_torch.train import step as TS
 from repro_torch.tree import leaves, unflatten_like
 
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+CS = _chip_smoke()  # its routing rule, cache check and launch counts are held here too
+
 ARCHS = ["mixtral-8x22b", "llama4-scout-17b-a16e"]
 NORMS = ("ln1", "ln2", "final_norm", "q_norm", "k_norm")
 TOL = dict(rtol=2e-5, atol=2e-5)
 BF16 = dict(dtype="bfloat16", param_dtype="bfloat16")
 BF16_FRAC = 2e-2
-MARGIN_FRAC = 2e-2  # the routing rule's margin, of the token's largest router-logit magnitude
+MARGIN_FRAC = CS.ROUTE_MARGIN  # the routing rule's margin, of the token's largest router-logit magnitude
 
 
 def np32(x):
@@ -162,8 +174,7 @@ def prompts(cfg, B, S, seed):
 def router_margin(logits: np.ndarray, k: int) -> np.ndarray:
     """Per token: the gap between the k-th and (k+1)-th router logits over the
     token's largest router-logit magnitude."""
-    s = -np.sort(-logits.reshape(-1, logits.shape[-1]), axis=-1)
-    return (s[:, k - 1] - s[:, k]) / np.abs(s).max(-1)
+    return CS.route_margin(torch.tensor(logits).reshape(-1, logits.shape[-1]), k).numpy()
 
 
 def routed_alike(jw, tw, margin) -> np.ndarray:
@@ -727,16 +738,6 @@ def test_train_step_matches_jax_on_reduced_mixtral():
 # ---------------------------------------------------------------------------
 
 
-def _chip_smoke():
-    import importlib.util
-    from pathlib import Path
-
-    spec = importlib.util.spec_from_file_location("chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 @pytest.mark.parametrize("arch", ["qwen3-14b"] + ARCHS)
 def test_chip_smoke_expects_the_calls_the_serve_path_makes(arch, monkeypatch):
     """The card counts one launch per call of ``ops.rmsnorm`` and
@@ -759,6 +760,57 @@ def test_chip_smoke_expects_the_calls_the_serve_path_makes(arch, monkeypatch):
     steps = 5
     tengine.Engine(cfg, params, tengine.ServeOptions(max_seq=16, batch_size=2)).generate(
         {"tokens": prompts(cfg, 2, 12, 0)}, steps)
-    want = _chip_smoke().expected_launches(cfg, steps - 1)
+    want = CS.expected_launches(cfg, steps - 1)
     assert calls == {k: want[k] for k in calls}
     assert want["flash_attention_cores"] == want["chunk_reduce"] == want["dequant_add"] == 0
+
+
+def _ring_fault(fault, monkeypatch):
+    """Plants a ring slot off by one: in prefill's roll (the ring left rolled
+    one slot further) or in decode's write (the new token one slot on; all
+    C slots lie in the window at t >= C, so decode reads the same)."""
+    if fault == "prefill roll":
+        prefill = TT.prefill
+
+        def rolled(cfg, params, batch, cache_seq):
+            logits, caches = prefill(cfg, params, batch, cache_seq)
+            for stage in caches:
+                for c in stage.values():
+                    if c["k"].shape[1] < cache_seq:
+                        c["k"].copy_(torch.roll(c["k"], 1, dims=1))
+                        c["v"].copy_(torch.roll(c["v"], 1, dims=1))
+            return logits, caches
+
+        monkeypatch.setattr(TT, "prefill", rolled)
+    elif fault == "decode slot":
+        decode = tattn.attention_decode
+
+        def one_on(cfg, p, x, spec, cache, t):
+            k, v = cache
+            for c in cache:
+                c.copy_(torch.roll(c, -1, dims=1))
+            out, _ = decode(cfg, p, x, spec, cache, t)
+            for c in cache:
+                c.copy_(torch.roll(c, 1, dims=1))
+            return out, (k, v)
+
+        monkeypatch.setattr(tattn, "attention_decode", one_on)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("fault", [None, "prefill roll", "decode slot"])
+def test_chip_smoke_cache_check_fails_a_ring_slot_fault(fault, seed, monkeypatch):
+    """``chip_smoke.check_cache``, routing rule included, on the reduced
+    mixtral in bf16: 4 prompts of 12 tokens into rings of 8, decode at 12.
+    It passes the port as it is and fails a ring slot off by one."""
+    cfg = dataclasses.replace(tconfigs.reduced_config(tconfigs.get_config("mixtral-8x22b")), **BF16)
+    params = tcommon.init_params(TT.model_skel(cfg), torch.Generator().manual_seed(seed), "cpu", "bfloat16")
+    eng = tengine.Engine(cfg, params, tengine.ServeOptions(max_seq=16, batch_size=4))
+    toks = torch.from_numpy(prompts(cfg, 4, 12, seed).astype(np.int64))
+    _ring_fault(fault, monkeypatch)
+    if fault is None:
+        rel, _, _ = CS.check_cache(torch, TT, eng, toks, "test")
+        assert rel <= CS.CACHE_REL_L2_TOL
+    else:
+        with pytest.raises(AssertionError):
+            CS.check_cache(torch, TT, eng, toks, "test")
