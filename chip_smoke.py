@@ -45,7 +45,9 @@ four paths:
   first loss against ln(vocab), and the kernel launches per step against
   ``expected_train_launches``, and profiles one more step.
 
-Every phase raises on failure; the script then exits non-zero.
+Every phase raises on failure; the script then exits non-zero.  At the end
+it stops multiprocessing's resource tracker (started by the sync phase's
+ranks) and fails if any process it started is still there.
 
 The last two lines are a JSON ``kernels`` record (times, bounds, launches)
 and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -57,6 +59,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -1088,6 +1091,34 @@ def device_profile(torch, fn, label: str, wall_ms: float, top: int = 6):
     return busy
 
 
+def stop_resource_tracker() -> None:
+    """Stop multiprocessing's resource tracker if it runs.  The sync phase's
+    spawned ranks start it, and a Python whose tracker has no finalizer lets it
+    outlive this script until it reads the end of its pipe."""
+    from multiprocessing import resource_tracker
+
+    gc.collect()  # the rank queues' semaphores unregister as they are freed
+    resource_tracker._resource_tracker._stop()
+
+
+def check_no_children() -> None:
+    """Fail if any process this script started is still there (running or
+    not yet reaped): every phase stops what it starts."""
+    me, left = str(os.getpid()), []
+    for stat in Path("/proc").glob("[0-9]*/stat"):
+        try:
+            text = stat.read_text()
+        except OSError:  # ended while we looked
+            continue
+        name, rest = text[text.index("(") + 1:].rsplit(")", 1)
+        state, ppid = rest.split()[:2]
+        if ppid == me:
+            left.append(f"{stat.parent.name} {name} (state {state})")
+    if left:
+        raise AssertionError(f"child processes left: {left}")
+    log("[card] no child process left")
+
+
 def main() -> int:
     import torch
 
@@ -1166,6 +1197,9 @@ def main() -> int:
     train_counts, train_metrics = train(torch, card)
     log(f"[train] metrics {json.dumps(train_metrics)} on {card}")
 
+    stop_resource_tracker()
+    check_no_children()
+
     # launches of each kernel on each main path (flash: the tensor-core route's)
     by_path = {"serve": counts, "serve_moe": moe_counts,
                "sync": {"chunk_reduce": sum(summary["methods"]["hoplite_chain"]["chunk_reduce"])},
@@ -1184,4 +1218,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:  # also when a phase raised
+        stop_resource_tracker()
+    sys.exit(code)
