@@ -28,6 +28,17 @@ four paths:
   version (and times it against SDPA with the window as a boolean mask), and
   one full-width mixtral MoE layer's dropping dispatch, with room for every
   token, to the dense one.
+- serve_dense: the rest of the dense-attention family at full width, with
+  the same checks and times as serve: gemma3-27b (all 62 layers, 5:1
+  local:global windows of 1024, qk-norm, the gelu FFN), 2 prompts of 1536
+  tokens and 16 greedy tokens with a max_seq of 2048, so that prefill rolls
+  the local rings and every decode step wraps them; starcoder2-3b (LayerNorm,
+  the gelu FFN, 2 kv heads) and stablelm-3b (LayerNorm, 32 kv heads, head dim
+  80: flash on the CUDA cores), 4 prompts of 512 tokens and 32 greedy tokens;
+  qwen2-vl-72b (M-RoPE) cut to 16 of 80 layers, 4 prompts of 512 tokens and 8
+  greedy tokens.  The kernel phase holds the flash forward at the prefill
+  shapes of stablelm, gemma3 and starcoder2 to the plain version and times
+  it against SDPA.
 - sync: the train step's cross-pod gradient sync (``launch/sync.py``) on 4
   rank processes that share the card, over the bf16 gradient tree of one
   full-width qwen3-14b decoder block per rank, by every method.  Each rank
@@ -95,6 +106,14 @@ ARCH, BATCH, PROMPT, NEW_TOKENS, MAX_SEQ, SEED = "qwen3-14b", 4, 512, 32, 1024, 
 MOE_RUNS = {"mixtral-8x22b": (8, 2, 4608, 32, 8192), "llama4-scout-17b-a16e": (2, 4, 512, 8, 1024)}
 # The windowed flash at mixtral's prefill shape: its batch, every head.
 FLASH_MOE = (MOE_RUNS["mixtral-8x22b"][1], 48, 8, 4608, 4608, 128, True, 4096)
+
+# The serve_dense phase, per arch: (layers kept, batch, prompt, greedy tokens,
+# max_seq).  qwen2-vl-72b's 80 layers are 145 GB of bf16 weights.
+DENSE_RUNS = {"gemma3-27b": (62, 2, 1536, 16, 2048), "starcoder2-3b": (30, 4, 512, 32, 1024),
+              "stablelm-3b": (32, 4, 512, 32, 1024), "qwen2-vl-72b": (16, 4, 512, 8, 1024)}
+# The archs whose prefill shape the kernel phase holds the flash forward at
+# (stablelm's on the CUDA cores, the others' on the tensor cores).
+FLASH_DENSE_ARCHS = ("stablelm-3b", "gemma3-27b", "starcoder2-3b")
 # One full-width mixtral MoE layer's two dispatches on this many tokens (B, S).
 MOE_LAYER_TOKENS = (2, 512)
 # The dropping dispatch with room for every token against the dense one, bf16:
@@ -114,7 +133,8 @@ SYNC_RANKS = 4
 # Names of the port's kernels in a profile (see device_profile).
 PORT_KERNELS = ("flash_fwd_sm90_kernel", "flash_fwd_kernel", "rmsnorm", "chunk_reduce_kernel")
 # Kinds of device events in a profile, by a piece of their names; the first that matches wins.
-EVENT_KINDS = (("the port's kernels", PORT_KERNELS), ("f32 GEMMs", ("f32f32",)),
+EVENT_KINDS = (("the port's kernels", PORT_KERNELS), ("LayerNorm", ("layer_norm",)), ("GELU", ("gelu",)),
+               ("f32 GEMMs", ("f32f32",)),
                ("other GEMMs", ("gemm", "nvjet", "xmma", "cutlass")), ("elementwise", ("elementwise",)),
                ("reductions", ("reduce",)), ("copies and fills", ("Memcpy", "Memset", "copy", "fill")))
 
@@ -528,15 +548,24 @@ def check_dequant_add(torch, cr, ref, compression, gen, leaf: int):
 
 
 def expected_launches(cfg, decode_steps: int):
-    """RMSNorm: ln1 + ln2 + final, and with qk-norm the norms of q and k, and
-    in prefill the k-norm again (attention_prefill_kv recomputes k, as the JAX
-    package does).  Flash attention: once per layer in prefill, all on the
-    tensor cores (bf16, head dim 128); decode has none."""
+    """RMSNorm (none where ``cfg.norm`` is LayerNorm, plain PyTorch): ln1 +
+    ln2 + final, and with qk-norm the norms of q and k, and in prefill the
+    k-norm again (attention_prefill_kv recomputes k, as the JAX package does).
+    Flash attention: once per layer in prefill, on the route that
+    ``flash_attention.route`` names for the config's type and head dim;
+    decode has none."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
     L = cfg.num_layers
-    per_decode = 2 * L + 1 + (2 * L if cfg.qk_norm else 0)
-    prefill = per_decode + (L if cfg.qk_norm else 0)
-    return {"rmsnorm": prefill + decode_steps * per_decode, "flash_attention_tc": L,
-            "flash_attention_cores": 0, "chunk_reduce": 0, "dequant_add": 0}
+    qk = 2 * L if cfg.qk_norm else 0
+    per_decode = (2 * L + 1 if cfg.norm == "rmsnorm" else 0) + qk
+    prefill = per_decode + qk // 2
+    counts = {"rmsnorm": prefill + decode_steps * per_decode, "flash_attention_tc": 0,
+              "flash_attention_cores": 0, "chunk_reduce": 0, "dequant_add": 0}
+    counts[f"flash_attention_{fa.route(getattr(torch, cfg.dtype), cfg.head_dim)}"] = L
+    return counts
 
 
 def route_margin(logits, k: int):
@@ -662,7 +691,8 @@ def serve_model(torch, card: str, cfg, batch: int, prompt: int, new_tokens: int,
     log(f"[{tag}] {cfg.name} generate: {out.shape} tokens in {gen_s:.3f} s; launches {counts} (expected {want})")
     if counts != want:
         raise AssertionError(f"kernel launches {counts} != expected {want}")
-    log(f"[{tag}] flash launches that wrote the lse: {fa.lse_launches} of {counts['flash_attention_tc']}")
+    flash = counts["flash_attention_tc"] + counts["flash_attention_cores"]
+    log(f"[{tag}] flash launches that wrote the lse: {fa.lse_launches} of {flash}")
     if fa.lse_launches:
         raise AssertionError("the serve path's flash launches wrote the lse, which only gradients need")
     if out.shape != (batch, new_tokens) or out.min() < 0 or out.max() >= cfg.vocab_size:
@@ -689,9 +719,9 @@ def serve_model(torch, card: str, cfg, batch: int, prompt: int, new_tokens: int,
         torch.cuda.synchronize()
         dec_ms = (time.perf_counter() - t0) * 1e3 / (new_tokens - 1)
         prefill_ms = statistics.median(pre)
-        prefill_busy = device_profile(
+        prefill_busy, prefill_kinds = device_profile(
             torch, lambda: T.prefill(cfg, eng.params, {"tokens": toks}, max_seq), f"{cfg.name} prefill", prefill_ms)
-        decode_busy = device_profile(
+        decode_busy, decode_kinds = device_profile(
             torch, lambda: T.decode_step(cfg, eng.params, tok, prompt + new_tokens - 1, caches),
             f"{cfg.name} decode step", dec_ms)
     log(f"[{tag}] {card}: {cfg.name} prefill {batch}x{prompt} {prefill_ms:.2f} ms (median of 3: "
@@ -699,6 +729,7 @@ def serve_model(torch, card: str, cfg, batch: int, prompt: int, new_tokens: int,
         f"{batch * new_tokens / gen_s:.1f} tok/s (prefill included), peak memory {peak_gb:.2f} GB")
     return counts, {"prefill_ms": prefill_ms, "prefill_runs_ms": pre, "decode_ms_per_step": dec_ms,
                     "prefill_kernel_busy_ms": prefill_busy, "decode_kernel_busy_ms": decode_busy,
+                    "prefill_device_ms_by_kind": prefill_kinds, "decode_device_ms_by_kind": decode_kinds,
                     "generate_tok_s": batch * new_tokens / gen_s, "generate_s": gen_s, "peak_gb": peak_gb,
                     "cache_rel_l2": rel, "cache_max_abs": max_abs, "cache_rows_routed_apart": parted,
                     "weight_gb": weight_gb}
@@ -760,6 +791,65 @@ def check_flash_window(torch, fa, ref, gen):
             "window_bound_by": b_by}
 
 
+
+def check_flash_dense(torch, fa, ref, gen):
+    """The flash forward at the prefill shapes of serve_dense's archs
+    (FLASH_DENSE_ARCHS; every head, bf16): on the route ``fa.route`` names,
+    against the plain version and the wrong-Q.K^T checks (and, windowed, a
+    check that full causal attention is told apart), then timed against its
+    bound, the plain version and SDPA (with the window as a boolean mask).
+    Returns a record per arch."""
+    from repro_torch.configs import get_config
+
+    out = {}
+    for arch in FLASH_DENSE_ARCHS:
+        cfg, (_, B, S, _, _) = get_config(arch), DENSE_RUNS[arch]
+        spec = cfg.pattern[0]  # gemma3's first layer is a local one
+        H, Kh, D, causal = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, True
+        win = spec.window if spec.attention == "window" else 0
+        case = (B, H, Kh, S, S, D, causal, win)
+        q, k, v = flash_inputs(torch, gen, B, H, Kh, S, S, D, torch.bfloat16)
+        route = fa.route(torch.bfloat16, D)
+        before = (fa.launches_tc, fa.launches_cores)
+        got = fa.flash_attention_fwd(q, k, v, causal=causal, window=win)
+        if (fa.launches_tc - before[0], fa.launches_cores - before[1]) != ((1, 0) if route == "tc" else (0, 1)):
+            raise AssertionError(f"flash {case}: launched off its route {route}")
+        what = f"flash {case} bf16 ({route}, {arch}'s prefill shape)"
+        err = compare(torch, what, got, ref.flash_attention_ref(q, k, v, causal, win, 0), "bfloat16")
+        check_sensitive(torch, ref, what, got, q, k, v, causal, win, 0)
+        if win and torch.allclose(got.float(), ref.flash_attention_ref(q, k, v, causal, 0, 0).float(),
+                                  rtol=TOL["bfloat16"], atol=TOL["bfloat16"]):
+            raise AssertionError(f"{what}: the check cannot tell the window from full causal attention")
+        if win:
+            pos = torch.arange(S, device="cuda")
+            mask = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < win)
+            sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                                            enable_gqa=H != Kh)
+        else:
+            sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                                            enable_gqa=H != Kh)
+        compare(torch, f"SDPA at {case} (against the plain version)", sdpa(),
+                ref.flash_attention_ref(q, k, v, causal, win, 0), "bfloat16")
+        del got
+        torch.cuda.synchronize()
+        ms = time_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, causal=True, window=win))
+        plain = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, True, win, 0), reps=5, warmup=1)
+        lib = time_ms(torch, sdpa)
+        backend = sdpa_kernels(torch, sdpa)
+        pairs = flash_pairs(torch, S, S, True, win, 0)
+        ops = 4 * B * H * D * pairs
+        b_ms, b_by = bound((2 * q.numel() + k.numel() + v.numel()) * 2, ops, "bfloat16")
+        log(f"[kernels] flash {tuple(q.shape)}x{tuple(k.shape)} causal{f' window {win}' if win else ''} bf16 "
+            f"({'tensor cores' if route == 'tc' else 'CUDA cores'}, {arch}'s prefill shape, {pairs} visible pairs "
+            f"per head): kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA {lib:.4f} ms ({ms / lib:.3f}x; its kernels "
+            f"{backend}), bound {b_ms:.4f} ms ({b_by}, {ops / 1e9:.1f} GFLOP), {ops / ms / 1e9:.2f} TFLOP/s")
+        out[arch] = {"shape": f"q {tuple(q.shape)} kv {tuple(k.shape)} causal{f' window {win}' if win else ''} bf16",
+                     "kernel_route": route, "max_abs_err": err, "ms": ms, "plain_ms": plain, "library_ms": lib,
+                     "library_kernels": backend, "bound_ms": b_ms, "bound_by": b_by}
+        del q, k, v
+    return out
+
+
 def check_moe_dispatch(torch):
     """One full-width mixtral MoE layer (bf16 weights drawn on the card from
     SEED: the router and 8 experts of 6144 x 16384) on MOE_LAYER_TOKENS
@@ -819,6 +909,42 @@ def serve_moe(torch, card: str):
         m["phase_s"] = time.perf_counter() - t0
         metrics[arch] = m
         log(f"[serve_moe] {arch}: {m['phase_s']:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return counts, metrics
+
+
+def serve_dense(torch, card: str):
+    """The rest of the dense-attention family at full width (DENSE_RUNS):
+    gemma3-27b, starcoder2-3b, stablelm-3b, then qwen2-vl-72b with its depth
+    cut by ``dataclasses.replace``.  Each engine is freed before the next.
+    Returns the launches of the runs' generate, summed, and each run's
+    metrics."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+
+    counts, metrics = {}, {}
+    for arch, (layers, batch, prompt, new_tokens, max_seq) in DENSE_RUNS.items():
+        t0 = time.perf_counter()
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, num_layers=layers)
+        windows = sorted({s.window for s in cfg.pattern + cfg.tail_pattern if s.attention == "window"})
+        log(f"[serve_dense] {arch} at full width (d={cfg.d_model}, {cfg.num_heads} q / {cfg.num_kv_heads} kv heads, "
+            f"head dim {cfg.head_dim} (flash on the {fa.route(torch.bfloat16, cfg.head_dim)} route), d_ff "
+            f"{cfg.d_ff} {cfg.act}, {cfg.norm}{' with qk-norm' if cfg.qk_norm else ''}, {cfg.rope}"
+            f"{f' sections {cfg.mrope_sections}' if cfg.mrope_sections else ''}, "
+            f"{f'windows {windows} and ' if windows else ''}{len(cfg.stages())} stage(s), vocab {cfg.vocab_size}), "
+            f"{layers} of {full.num_layers} layers ({full.param_count() / 1e9:.1f} B parameters in all); {batch} "
+            f"prompts of {prompt} tokens, {new_tokens} greedy tokens, max_seq {max_seq}")
+        c, m = serve_model(torch, card, cfg, batch, prompt, new_tokens, max_seq, "serve_dense")
+        for name, n in c.items():
+            counts[name] = counts.get(name, 0) + n
+        m["phase_s"] = time.perf_counter() - t0
+        m["launches"] = c
+        metrics[arch] = m
+        log(f"[serve_dense] {arch}: {m['phase_s']:.1f} s")
         gc.collect()
         torch.cuda.empty_cache()
     return counts, metrics
@@ -1022,7 +1148,7 @@ def train(torch, card: str):
     step_ms = statistics.median(r["ms"] for r in recs[1:])
     batch = pipeline.device_batch(cfg, shape, TRAIN_STEPS, torch.device("cuda"), SEED)
     train_step = TS.make_train_step(cfg, opts)
-    busy = device_profile(torch, lambda: train_step(state, batch), "train step", step_ms, top=10)
+    busy, kinds = device_profile(torch, lambda: train_step(state, batch), "train step", step_ms, top=10)
 
     # The optimizer's share of a step: AdamW over the whole state with f32
     # gradients of every parameter, as the microbatched step hands it.
@@ -1037,6 +1163,7 @@ def train(torch, card: str):
     return counts, {"step_ms": [r["ms"] for r in recs], "tok_s": [tokens / r["ms"] * 1e3 for r in recs],
                     "loss": losses, "grad_norm": [r["grad_norm"] for r in recs], "lr": [r["lr"] for r in recs],
                     "peak_gb": peak_gb, "state_gb": state_gb, "step_kernel_busy_ms": busy,
+                    "step_device_ms_by_kind": kinds,
                     "adamw_ms": opt_ms, "adamw_bound_ms": opt_bound, "gradient_check": grad_check,
                     "layers": TRAIN_LAYERS, "seq": TRAIN_SEQ, "batch": TRAIN_BATCH, "microbatches": TRAIN_MICRO}
 
@@ -1062,7 +1189,8 @@ def device_events(torch, fn):
 def device_profile(torch, fn, label: str, wall_ms: float, top: int = 6):
     """Device busy time of one call of ``fn`` by torch.profiler: the union of
     the intervals of its device-side events (kernels, copies), against the
-    unprofiled wall time, and the device events that took the most time."""
+    unprofiled wall time, and the device events that took the most time.
+    Returns (busy ms, device ms by kind of EVENT_KINDS)."""
     events, per_name = device_events(torch, fn)
     busy_us, end = 0.0, None
     for s, e in sorted((e.time_range.start, e.time_range.end) for e in events):
@@ -1088,7 +1216,7 @@ def device_profile(torch, fn, label: str, wall_ms: float, top: int = 6):
     counts = {k: sum(n for name, (_, n) in per_name.items() if k in name) for k in PORT_KERNELS}
     log(f"[profile] {label}: the port's kernels: " + "; ".join(
         f"{k} {ours[k] / 1e3:.3f} ms x{counts[k]}" for k in PORT_KERNELS))
-    return busy
+    return busy, {k: t / 1e3 for k, t in kinds.items()}
 
 
 def stop_resource_tracker() -> None:
@@ -1171,6 +1299,19 @@ def main() -> int:
     t0 = time.perf_counter()
     records[1].update(check_flash_window(torch, fa, ref, gen))
     log(f"[kernels] the windowed flash at mixtral's prefill shape: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dense_shapes = check_flash_dense(torch, fa, ref, gen)
+    log(f"[kernels] the flash at serve_dense's prefill shapes: {time.perf_counter() - t0:.1f} s")
+    records[1]["serve_dense_shapes"] = {a: r for a, r in dense_shapes.items() if r["kernel_route"] == "tc"}
+    cores = next(r for r in dense_shapes.values() if r["kernel_route"] == "cores")
+    records.insert(2, {
+        "name": "flash_attention_cores", "route": "cuda", "kernel_route": "cores",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:93", "shape": cores["shape"],
+        "max_abs_err": cores["max_abs_err"], "ms": cores["ms"], "kernel_ms": cores["ms"],
+        "plain_ms": cores["plain_ms"], "bound_ms": cores["bound_ms"], "bound_by": cores["bound_by"],
+        "library_ms": cores["library_ms"], "library_kernels": cores["library_kernels"],
+        "f32_serve_shape_ms": records[1]["f32_ms"], "f32_serve_shape_bound_ms": records[1]["f32_bound_ms"]})
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1189,6 +1330,10 @@ def main() -> int:
     moe_counts, moe_metrics = serve_moe(torch, card)
     log(f"[serve_moe] metrics {json.dumps(dict(moe_metrics, dispatch=dispatch))} on {card}")
 
+    # Phase 3c: serve the rest of the dense-attention family at full width.
+    dense_counts, dense_metrics = serve_dense(torch, card)
+    log(f"[serve_dense] metrics {json.dumps(dense_metrics)} on {card}")
+
     # Phase 4: the cross-pod gradient sync on rank processes sharing the card.
     summary = sync(torch, card)
     log(f"[sync] metrics {json.dumps(summary)} on {card}")
@@ -1200,8 +1345,8 @@ def main() -> int:
     stop_resource_tracker()
     check_no_children()
 
-    # launches of each kernel on each main path (flash: the tensor-core route's)
-    by_path = {"serve": counts, "serve_moe": moe_counts,
+    # launches of each kernel on each main path (each flash record: its route's)
+    by_path = {"serve": counts, "serve_moe": moe_counts, "serve_dense": dense_counts,
                "sync": {"chunk_reduce": sum(summary["methods"]["hoplite_chain"]["chunk_reduce"])},
                "train": train_counts}
     for r in records:

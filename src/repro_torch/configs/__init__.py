@@ -1,7 +1,9 @@
 """Architecture registry of the port: the configs whose path it runs.
 
-qwen3-14b (dense), mixtral-8x22b and llama4-scout-17b-a16e (MoE); the other
-architectures of ``repro.configs`` arrive with the slices that run them.
+qwen3-14b, gemma3-27b, starcoder2-3b and stablelm-3b (dense), qwen2-vl-72b
+(the VLM backbone, M-RoPE), mixtral-8x22b and llama4-scout-17b-a16e (MoE);
+the other architectures of ``repro.configs`` (rwkv6, jamba, whisper) arrive
+with the slices that run them.
 """
 
 from __future__ import annotations
@@ -10,11 +12,17 @@ import dataclasses
 from typing import Dict
 
 from repro_torch.configs.base import LayerSpec, ModelConfig, ShapeSpec  # noqa: F401
+from repro_torch.configs.gemma3_27b import CONFIG as GEMMA3
 from repro_torch.configs.llama4_scout_17b_a16e import CONFIG as LLAMA4_SCOUT
 from repro_torch.configs.mixtral_8x22b import CONFIG as MIXTRAL
+from repro_torch.configs.qwen2_vl_72b import CONFIG as QWEN2_VL
 from repro_torch.configs.qwen3_14b import CONFIG as QWEN3
+from repro_torch.configs.stablelm_3b import CONFIG as STABLELM
+from repro_torch.configs.starcoder2_3b import CONFIG as STARCODER2
 
-ARCHS: Dict[str, ModelConfig] = {c.name: c for c in [QWEN3, MIXTRAL, LLAMA4_SCOUT]}
+ARCHS: Dict[str, ModelConfig] = {
+    c.name: c for c in [QWEN3, GEMMA3, STARCODER2, STABLELM, QWEN2_VL, MIXTRAL, LLAMA4_SCOUT]
+}
 
 
 def get_config(name: str) -> ModelConfig:

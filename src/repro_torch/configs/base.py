@@ -3,8 +3,9 @@
 The port keeps its own copy so that it imports nothing of the JAX package;
 ``tests/test_torch_models.py`` holds the two copies equal field by field.
 One ``ModelConfig`` describes any architecture in the assigned pool; the
-port's modules run its attention layers (full or sliding-window, with a
-SwiGLU FFN or experts) and raise ``NotImplementedError`` for the rest.
+port's modules run its decoder-only attention layers (full or sliding-window,
+with a SwiGLU or gelu FFN or experts, RMSNorm or LayerNorm, RoPE or M-RoPE)
+and raise ``NotImplementedError`` for the rest.
 """
 
 from __future__ import annotations

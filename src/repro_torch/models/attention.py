@@ -6,6 +6,8 @@ the kernel's (B, H, S, D) layout, with the layer's window; decode attends one
 query position against the KV cache in plain PyTorch, as the JAX package does
 with plain jnp.  A windowed layer whose cache holds exactly its window uses
 it as a ring (slot ``t % C``); any other cache is linear (slot = position).
+Rotary embedding is RoPE or Qwen2-VL's M-RoPE (``positions_3d``, the three
+position streams; without them every stream is the token's position).
 Cross-attention is a later slice.
 """
 
@@ -17,7 +19,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models.common import Param, apply_rope, dense, rmsnorm
+from repro_torch.models.common import Param, apply_mrope, apply_rope, dense, rmsnorm
 
 NEG_INF = -1e30
 
@@ -36,27 +38,38 @@ def attn_skel(cfg):
     return s
 
 
-def _positions_rope(cfg, p, q, k, q_pos, kv_pos):
+def _rotate(cfg, x, pos, positions_3d):
+    """RoPE or M-RoPE of x (B, S, H, D) at positions pos (S,); M-RoPE without
+    ``positions_3d`` (3, B, S) rotates every stream by pos, as the JAX package."""
+    if cfg.rope == "rope":
+        return apply_rope(x, pos[None, :], cfg.rope_theta)
+    if cfg.rope == "mrope":
+        if positions_3d is None:
+            positions_3d = pos[None, None, :].expand(3, x.shape[0], x.shape[1])
+        return apply_mrope(x, positions_3d, cfg.rope_theta, cfg.mrope_sections)
+    raise NotImplementedError(f"rope {cfg.rope!r}: the port runs RoPE and M-RoPE only so far")
+
+
+def _positions_rope(cfg, p, q, k, q_pos, kv_pos, positions_3d=None):
     """Apply qk-norm then rotary embedding.  q: (B,S,K,G,D), k: (B,S,K,D)."""
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"])
         k = rmsnorm(k, p["k_norm"])
-    if cfg.rope != "rope":
-        raise NotImplementedError(f"rope {cfg.rope!r}: the port runs plain RoPE only so far")
     B, S = q.shape[:2]
-    qf = apply_rope(q.reshape(B, S, -1, cfg.head_dim), q_pos[None, :], cfg.rope_theta)
-    return qf.reshape(q.shape), apply_rope(k, kv_pos[None, :], cfg.rope_theta)
+    qf = _rotate(cfg, q.reshape(B, S, -1, cfg.head_dim), q_pos, positions_3d)
+    return qf.reshape(q.shape), _rotate(cfg, k, kv_pos, positions_3d)
 
 
-def attention_fwd(cfg, p, x: torch.Tensor, spec, q_pos: torch.Tensor) -> torch.Tensor:
-    """Prefill self-attention (no cache).  x: (B, S, d); q_pos: (S,) positions."""
+def attention_fwd(cfg, p, x: torch.Tensor, spec, q_pos: torch.Tensor, positions_3d=None) -> torch.Tensor:
+    """Prefill self-attention (no cache).  x: (B, S, d); q_pos: (S,) positions;
+    positions_3d: M-RoPE's (3, B, S) streams or None."""
     B, S = x.shape[:2]
     K, H, D = cfg.num_kv_heads, cfg.num_heads, cfg.head_dim
     G = H // K
     q = dense(x, p["wq"]).reshape(B, S, K, G, D)
     k = dense(x, p["wk"]).reshape(B, S, K, D)
     v = dense(x, p["wv"]).reshape(B, S, K, D)
-    q, k = _positions_rope(cfg, p, q, k, q_pos, q_pos)
+    q, k = _positions_rope(cfg, p, q, k, q_pos, q_pos, positions_3d)
     # kernel layout: head h = k*G + g, so the kernel's h // G finds kv head k
     qh = q.permute(0, 2, 3, 1, 4).reshape(B, H, S, D).contiguous()
     kh = k.permute(0, 2, 1, 3).contiguous()
@@ -70,16 +83,14 @@ def attention_fwd(cfg, p, x: torch.Tensor, spec, q_pos: torch.Tensor) -> torch.T
     return dense(out, p["wo"])
 
 
-def attention_prefill_kv(cfg, p, x: torch.Tensor, q_pos: torch.Tensor):
+def attention_prefill_kv(cfg, p, x: torch.Tensor, q_pos: torch.Tensor, positions_3d=None):
     """The K/V tensors that seed a decode cache: a (B,S,K,D) pair."""
     B, S = x.shape[:2]
     K, D = cfg.num_kv_heads, cfg.head_dim
     k = dense(x, p["wk"]).reshape(B, S, K, D)
     if cfg.qk_norm:
         k = rmsnorm(k, p["k_norm"])
-    if cfg.rope != "rope":
-        raise NotImplementedError(f"rope {cfg.rope!r}: the port runs plain RoPE only so far")
-    k = apply_rope(k, q_pos[None, :], cfg.rope_theta)
+    k = _rotate(cfg, k, q_pos, positions_3d)
     return k, dense(x, p["wv"]).reshape(B, S, K, D)
 
 

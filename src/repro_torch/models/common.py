@@ -22,7 +22,7 @@ from repro_torch.kernels import ops
 class Param:
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]
-    init: str = "normal"  # normal | zeros
+    init: str = "normal"  # normal | zeros | ones
     scale: float = 1.0
     dtype: str = "bfloat16"
 
@@ -48,10 +48,11 @@ def tree_map_params(fn: Callable[[Param], Any], skel):
 def init_params(skel, generator: torch.Generator, device=None, dtype_override=None):
     """Draw every parameter on ``device`` (the card unless ``"cpu"`` is asked for).
 
-    The std rule is the JAX package's: ``scale / sqrt(shape[-2])`` (the fan-in),
-    norm weights zero.  ``generator`` must live on the same device; its
-    stream is not ``jax.random``'s, so the values differ from the JAX package's
-    for the same seed (``convert.params_from_jax`` carries those across).
+    The std rule is the JAX package's: ``scale / sqrt(shape[-2])`` (the fan-in);
+    RMSNorm weights and LayerNorm biases zero, LayerNorm scales one.
+    ``generator`` must live on the same device; its stream is not
+    ``jax.random``'s, so the values differ from the JAX package's for the same
+    seed (``convert.params_from_jax`` carries those across).
     """
     dev = resolve_device(device)
 
@@ -59,6 +60,8 @@ def init_params(skel, generator: torch.Generator, device=None, dtype_override=No
         dtype = getattr(torch, dtype_override or p.dtype)
         if p.init == "zeros":
             return torch.zeros(p.shape, dtype=dtype, device=dev)
+        if p.init == "ones":
+            return torch.ones(p.shape, dtype=dtype, device=dev)
         fan_in = p.shape[-2] if len(p.shape) >= 2 else p.shape[-1]
         std = p.scale / math.sqrt(max(1, fan_in))
         # drawn in place in the target type: no f32 copy of a stacked leaf
@@ -77,16 +80,25 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor
     return ops.rmsnorm(x, w, eps)
 
 
+def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """``(x - mean) * rsqrt(var + eps) * w + b`` in f32 (the population
+    variance, as ``jnp.var``), rounded once to x's type: ``F.layer_norm`` of
+    the f32 upcast, on either device (the JAX package has no LayerNorm kernel)."""
+    d = x.shape[-1]
+    return torch.nn.functional.layer_norm(x.float(), (d,), w.float(), b.float(), eps).to(x.dtype)
+
+
 def norm_skel(cfg):
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(f"norm {cfg.norm!r}: the port runs rmsnorm only so far")
-    return {"w": Param((cfg.d_model,), ("embed",), init="zeros")}
+    d = cfg.d_model
+    if cfg.norm == "rmsnorm":
+        return {"w": Param((d,), ("embed",), init="zeros")}
+    return {"w": Param((d,), ("embed",), init="ones"), "b": Param((d,), ("embed",), init="zeros")}
 
 
 def apply_norm(cfg, p, x):
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(f"norm {cfg.norm!r}: the port runs rmsnorm only so far")
-    return rmsnorm(x, p["w"])
+    if cfg.norm == "rmsnorm":
+        return rmsnorm(x, p["w"])
+    return layernorm(x, p["w"], p["b"])
 
 
 def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -132,8 +144,13 @@ def f32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.mm(a.float(), b.float())
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """GELU, tanh approximation (``jax.nn.gelu(approximate=True)``)."""
+    return torch.nn.functional.gelu(x, approximate="tanh")
+
+
 # ---------------------------------------------------------------------------
-# rotary embeddings
+# rotary embeddings (RoPE and Qwen2-VL M-RoPE)
 # ---------------------------------------------------------------------------
 
 
@@ -148,6 +165,25 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     freqs = rope_freqs(d, theta, device=x.device)  # (D/2,)
     angles = positions[..., None].float() * freqs  # (..., S, D/2)
     cos = torch.cos(angles)[..., None, :]  # (..., S, 1, D/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor, theta: float, sections) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE.  x: (..., S, H, D); positions_3d: (3, ..., S),
+    the temporal / height / width position ids (equal for text).  The D/2
+    frequency bands split into ``sections``, band group i rotated by stream i."""
+    d = x.shape[-1]
+    half = d // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to head_dim / 2 = {half}")
+    freqs = rope_freqs(d, theta, device=x.device)  # (half,)
+    sec_id = torch.tensor([i for i, n in enumerate(sections) for _ in range(n)], device=x.device)  # (half,)
+    pos = torch.movedim(positions_3d[sec_id], 0, -1)  # (..., S, half)
+    angles = pos.float() * freqs
+    cos = torch.cos(angles)[..., None, :]
     sin = torch.sin(angles)[..., None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)

@@ -1,14 +1,19 @@
-"""Feed-forward blocks (port of ``repro.models.moe``): the SwiGLU FFN and the
-mixture of experts, top-k routing with the Switch auxiliary loss, and its two
-dispatch modes under ``MOE_MODE``: "dense" (every expert computes every token
-and the router's weights combine them) and "dropping" (each expert gathers at
-most a capacity of tokens; the rest drop to the residual stream).
+"""Feed-forward blocks (port of ``repro.models.moe``): the SwiGLU or tanh-GELU
+FFN and the mixture of experts, top-k routing with the Switch auxiliary loss,
+and its two dispatch modes under ``MOE_MODE``: "dense" (every expert computes
+every token and the router's weights combine them) and "dropping" (each
+expert gathers at most a capacity of tokens; the rest drop to the residual
+stream).
 
 The experts' products ask for an f32 result as the JAX package's einsums do
 (``preferred_element_type=float32``): ``common.f32_product`` of 2-D operands,
 one expert at a time.  An expert's products involve no other expert, so the
 loop adds nothing in another order, and it keeps one expert's f32 (tokens,
-d_ff) pair live instead of all of them.  The gelu FFN is a later slice.
+d_ff) pair live instead of all of them.
+
+The two activations round in different places, as the JAX package's do: the
+plain gelu FFN takes gelu of ``dense``'s result (rounded to x's type) and
+rounds again, while an expert's gelu runs on the f32 product.
 """
 
 from __future__ import annotations
@@ -18,30 +23,27 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import Param, dense, f32_product
-
-
-def _check_swiglu(cfg) -> None:
-    if cfg.act != "swiglu":
-        raise NotImplementedError(f"act {cfg.act!r}: the port runs the SwiGLU FFN only so far")
+from repro_torch.models.common import Param, dense, f32_product, gelu
 
 
 def ffn_skel(cfg, expert_dim: int = 0):
-    """The SwiGLU FFN; with ``expert_dim`` > 0 each weight gets a leading expert axis."""
-    _check_swiglu(cfg)
+    """The FFN, SwiGLU (wi, wg, wo) or gelu (wi, wo); with ``expert_dim`` > 0
+    each weight gets a leading expert axis."""
     d, f = cfg.d_model, cfg.d_ff
     e = (expert_dim,) if expert_dim else ()
     ax = ("expert",) if expert_dim else ()
-    return {
-        "wi": Param(e + (d, f), ax + ("embed", "mlp")),
-        "wg": Param(e + (d, f), ax + ("embed", "mlp")),
-        "wo": Param(e + (f, d), ax + ("mlp", "embed")),
-    }
+    s = {"wi": Param(e + (d, f), ax + ("embed", "mlp"))}
+    if cfg.act == "swiglu":
+        s["wg"] = Param(e + (d, f), ax + ("embed", "mlp"))
+    s["wo"] = Param(e + (f, d), ax + ("mlp", "embed"))
+    return s
 
 
 def ffn_fwd(cfg, p, x: torch.Tensor) -> torch.Tensor:
-    _check_swiglu(cfg)
-    h = F.silu(dense(x, p["wg"]).float()).to(x.dtype) * dense(x, p["wi"])
+    if cfg.act == "swiglu":
+        h = F.silu(dense(x, p["wg"]).float()).to(x.dtype) * dense(x, p["wi"])
+    else:
+        h = gelu(dense(x, p["wi"]).float()).to(x.dtype)
     return dense(h, p["wo"])
 
 
@@ -85,12 +87,14 @@ def _route(cfg, p, x) -> Tuple[torch.Tensor, torch.Tensor]:
     return weights, aux
 
 
-def _expert_h(ex, e: int, xt: torch.Tensor) -> torch.Tensor:
-    """``silu(g) * h`` of expert ``e`` on tokens xt (n, d): f32 products,
-    rounded to xt's type after the product, as the JAX package does."""
-    g = f32_product(xt, ex["wg"][e])
+def _expert_h(ex, e: int, xt: torch.Tensor, act: str = "swiglu") -> torch.Tensor:
+    """``silu(g) * h`` (or ``gelu(h)``) of expert ``e`` on tokens xt (n, d):
+    f32 products, rounded to xt's type after the activation, as the JAX
+    package does."""
     h = f32_product(xt, ex["wi"][e])
-    return (F.silu(g) * h).to(xt.dtype)
+    if act == "swiglu":
+        return (F.silu(f32_product(xt, ex["wg"][e])) * h).to(xt.dtype)
+    return gelu(h).to(xt.dtype)
 
 
 def moe_fwd(cfg, p, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -99,7 +103,6 @@ def moe_fwd(cfg, p, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     Combine before reduce, as the JAX package does: each expert's h is
     weighted by the router first (the weights rounded to h's type), and the
     sum over experts and d_ff is one f32 contraction, (T, E*f) @ (E*f, d)."""
-    _check_swiglu(cfg)
     weights, aux = _route(cfg, p, x)
     B, S, d = x.shape
     E, f = cfg.num_experts, cfg.d_ff
@@ -108,7 +111,7 @@ def moe_fwd(cfg, p, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     wt = weights.reshape(B * S, E).to(x.dtype)
     hw = x.new_empty((B * S, E, f))
     for e in range(E):
-        hw[:, e] = _expert_h(ex, e, xt) * wt[:, e : e + 1]
+        hw[:, e] = _expert_h(ex, e, xt, cfg.act) * wt[:, e : e + 1]
     out = f32_product(hw.reshape(B * S, E * f), ex["wo"].reshape(E * f, d))
     out = out.reshape(B, S, d).to(x.dtype)
     if cfg.shared_expert:
@@ -120,7 +123,6 @@ def moe_fwd_dropping(cfg, p, x: torch.Tensor, capacity_factor: float = 1.25):
     """Gather-based dispatch with a capacity per expert: FLOPs proportional
     to the active parameters; tokens over capacity drop to the residual
     stream.  Queue positions follow the flattened (B*S) token order."""
-    _check_swiglu(cfg)
     B, S, d = x.shape
     E, k = cfg.num_experts, cfg.top_k
     T = B * S
@@ -143,7 +145,7 @@ def moe_fwd_dropping(cfg, p, x: torch.Tensor, capacity_factor: float = 1.25):
     ex = p["experts"]
     y_pad = torch.zeros((E, cap + 1, d), dtype=torch.float32, device=x.device)
     for e in range(E):
-        h = _expert_h(ex, e, xt[token_for_slot[e]])  # (cap, f)
+        h = _expert_h(ex, e, xt[token_for_slot[e]], cfg.act)  # (cap, f)
         y_pad[e, :cap] = f32_product(h, ex["wo"][e])
     gathered = y_pad.reshape(E * (cap + 1), d)[flat_slot].reshape(T, E, d)
     w_slot = torch.where(keep, flat_w, torch.zeros_like(flat_w))

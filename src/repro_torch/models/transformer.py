@@ -12,9 +12,13 @@ GSPMD sharding hints have no counterpart on one device.  ``layer_fwd``,
 ``stage_fwd`` and ``forward`` carry the MoE auxiliary loss (0 for a plain
 FFN), as the JAX package's do.
 
-The port runs attention layers, full or sliding-window, with a SwiGLU FFN or
-a mixture of SwiGLU experts, RMSNorm and RoPE; any other configuration raises
-``NotImplementedError`` (:func:`check_supported`).
+The port runs decoder-only stacks of attention layers, full or
+sliding-window, with a SwiGLU or gelu FFN or a mixture of experts, RMSNorm or
+LayerNorm, and RoPE or M-RoPE (``batch["positions_3d"]``, the three position
+streams, read by ``forward`` and ``prefill`` when ``cfg.rope == "mrope"``;
+decode rotates every stream by the token's position, as the JAX package
+does).  Mamba and RWKV layers, encoders and cross-attention, and
+``rope="none"`` raise ``NotImplementedError`` (:func:`check_supported`).
 """
 
 from __future__ import annotations
@@ -39,16 +43,12 @@ def check_supported(cfg: ModelConfig) -> None:
             missing.append(f"{spec.attention} attention")
     if cfg.is_encoder_decoder:
         missing.append("encoder and cross-attention")
-    if cfg.rope != "rope":
+    if cfg.rope not in ("rope", "mrope"):
         missing.append(f"rope={cfg.rope!r}")
-    if cfg.norm != "rmsnorm":
-        missing.append(f"norm={cfg.norm!r}")
-    if cfg.act != "swiglu":
-        missing.append(f"act={cfg.act!r}")
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs attention layers (full or windowed) with SwiGLU "
-            f"FFNs or experts, RMSNorm and RoPE only so far; missing: {', '.join(sorted(set(missing)))}"
+            f"{cfg.name}: the port runs decoder-only attention layers (full or windowed) with "
+            f"RoPE or M-RoPE only so far; missing: {', '.join(sorted(set(missing)))}"
         )
 
 
@@ -117,10 +117,10 @@ def _ffn_part(cfg, lp, spec, x):
     return x + out, aux
 
 
-def layer_fwd(cfg, spec, lp, x, q_pos):
+def layer_fwd(cfg, spec, lp, x, q_pos, positions_3d=None):
     """Full-sequence forward of one layer (training): (x, aux)."""
     h = apply_norm(cfg, lp["ln1"], x)
-    x = x + attn.attention_fwd(cfg, lp["attn"], h, spec, q_pos)
+    x = x + attn.attention_fwd(cfg, lp["attn"], h, spec, q_pos, positions_3d)
     return _ffn_part(cfg, lp, spec, x)
 
 
@@ -131,15 +131,15 @@ def cache_len_for(cfg, spec: LayerSpec, seq_len: int) -> int:
     return seq_len
 
 
-def layer_prefill(cfg, spec, lp, x, q_pos, cache):
+def layer_prefill(cfg, spec, lp, x, q_pos, cache, positions_3d=None):
     """Forward one layer over the prompt and write its K/V into ``cache``
     (``{"k", "v"}`` views of shape (B, C, K, D), filled in place): the prompt
     from slot 0 when it fits, else a ring of its last C positions, position
     p at slot p % C.  Returns (x, aux)."""
     h = apply_norm(cfg, lp["ln1"], x)
-    x = x + attn.attention_fwd(cfg, lp["attn"], h, spec, q_pos)
+    x = x + attn.attention_fwd(cfg, lp["attn"], h, spec, q_pos, positions_3d)
     # recomputes k and v as the JAX package does (attention_prefill_kv)
-    k, v = attn.attention_prefill_kv(cfg, lp["attn"], h, q_pos)
+    k, v = attn.attention_prefill_kv(cfg, lp["attn"], h, q_pos, positions_3d)
     S, C = k.shape[1], cache["k"].shape[1]
     if C >= S:
         cache["k"][:, :S] = k
@@ -167,7 +167,7 @@ def _num_blocks(stage_params) -> int:
     return stage_params["pos0"]["ln1"]["w"].shape[0]
 
 
-def stage_fwd(cfg, pattern, stage_params, x, q_pos, wrap: Optional[Callable] = None):
+def stage_fwd(cfg, pattern, stage_params, x, q_pos, wrap: Optional[Callable] = None, positions_3d=None):
     """Every block of the stage in turn: (x, the f32 sum of the layers' aux).
     ``wrap`` (the train step's remat) maps the block function
     ``(h, block_params) -> (h, aux)`` to the one that runs, as the JAX train
@@ -176,7 +176,7 @@ def stage_fwd(cfg, pattern, stage_params, x, q_pos, wrap: Optional[Callable] = N
     def block(h, bp):
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for i, spec in enumerate(pattern):
-            h, a = layer_fwd(cfg, spec, bp[f"pos{i}"], h, q_pos)
+            h, a = layer_fwd(cfg, spec, bp[f"pos{i}"], h, q_pos, positions_3d)
             aux = aux + a
         return h, aux
 
@@ -188,7 +188,7 @@ def stage_fwd(cfg, pattern, stage_params, x, q_pos, wrap: Optional[Callable] = N
     return x, aux
 
 
-def stage_prefill(cfg, pattern, stage_params, x, q_pos, cache_seq: int):
+def stage_prefill(cfg, pattern, stage_params, x, q_pos, cache_seq: int, positions_3d=None):
     B, S = x.shape[:2]
     if S > cache_seq:
         raise ValueError(f"prompt of {S} tokens does not fit a cache of {cache_seq}")
@@ -201,7 +201,8 @@ def stage_prefill(cfg, pattern, stage_params, x, q_pos, cache_seq: int):
         bp = _layer(stage_params, blk)
         for i, spec in enumerate(pattern):
             # prefill's aux is dropped, as the JAX package drops it
-            x, _ = layer_prefill(cfg, spec, bp[f"pos{i}"], x, q_pos, _layer(caches[f"pos{i}"], blk))
+            x, _ = layer_prefill(cfg, spec, bp[f"pos{i}"], x, q_pos, _layer(caches[f"pos{i}"], blk),
+                                 positions_3d)
     return x, caches
 
 
@@ -238,16 +239,19 @@ def forward(cfg: ModelConfig, params, batch, wrap: Optional[Callable] = None):
     ``batch["x_embed"]`` (embeddings gathered already) takes precedence over
     ``batch["tokens"]``: the microbatched train step hoists the embedding
     gather out of its loop, as the JAX package's does.  ``wrap`` is the
-    remat of each layer block (``stage_fwd``)."""
+    remat of each layer block (``stage_fwd``).  With M-RoPE,
+    ``batch["positions_3d"]`` (3, B, S) holds the position streams; without
+    it every stream is the token's position."""
     check_supported(cfg)
     if "x_embed" in batch:
         x = batch["x_embed"].to(getattr(torch, cfg.dtype))
     else:
         x = _embed(cfg, params, batch["tokens"])
     q_pos = torch.arange(x.shape[1], device=x.device)
+    positions_3d = batch.get("positions_3d") if cfg.rope == "mrope" else None
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for (pattern, _n), sp in zip(cfg.stages(), params["stages"]):
-        x, aux = stage_fwd(cfg, pattern, sp, x, q_pos, wrap)
+        x, aux = stage_fwd(cfg, pattern, sp, x, q_pos, wrap, positions_3d)
         aux_total = aux_total + aux
     x = apply_norm(cfg, params["final_norm"], x)
     return _unembed(cfg, params, x), aux_total
@@ -272,7 +276,8 @@ def train_loss(cfg: ModelConfig, params, batch, wrap: Optional[Callable] = None)
 
 
 def prefill(cfg: ModelConfig, params, batch, cache_seq: int):
-    """Process the prompt ``batch["tokens"]`` (B, S); return (last-token
+    """Process the prompt ``batch["tokens"]`` (B, S) (with M-RoPE, and
+    ``batch["positions_3d"]`` (3, B, S) where given); return (last-token
     logits (B, V_padded) in f32, caches of ``cache_len_for(.., cache_seq)``
     slots per position)."""
     check_supported(cfg)
@@ -280,9 +285,10 @@ def prefill(cfg: ModelConfig, params, batch, cache_seq: int):
     S = tokens.shape[1]
     x = _embed(cfg, params, tokens)
     q_pos = torch.arange(S, device=x.device)
+    positions_3d = batch.get("positions_3d") if cfg.rope == "mrope" else None
     all_caches: List[Dict[str, Any]] = []
     for (pattern, _n), sp in zip(cfg.stages(), params["stages"]):
-        x, caches = stage_prefill(cfg, pattern, sp, x, q_pos, cache_seq)
+        x, caches = stage_prefill(cfg, pattern, sp, x, q_pos, cache_seq, positions_3d)
         all_caches.append(caches)
     x = apply_norm(cfg, params["final_norm"], x)
     return _unembed(cfg, params, x[:, -1:])[:, 0], all_caches

@@ -436,6 +436,142 @@ def test_reduced_mixtral_ring_decode_on_the_card_matches_the_cpu(cuda):
     np.testing.assert_array_equal(got, want)
 
 
+# The bf16 flash on the CUDA cores at stablelm's head dim of 80 (MHA, G = 1):
+# its prefill shape, ragged lengths, a window, and rows with no key.
+CORES_BF16_CASES = [
+    # (B, H, Kh, Sq, Skv, D, causal, window, q_offset)
+    (4, 32, 32, 512, 512, 80, True, 0, 0),   # stablelm's serve prefill
+    (4, 32, 32, 513, 513, 80, True, 0, 0),   # prefill of prompt + one token
+    (2, 4, 4, 100, 300, 80, True, 0, 200),   # ragged, Sq != Skv
+    (1, 4, 4, 200, 200, 80, True, 16, -20),  # window, the first 20 rows see no key
+]
+
+
+@pytest.mark.parametrize("case", CORES_BF16_CASES)
+def test_flash_bf16_cuda_cores_at_head_dim_80(cuda, case):
+    """bf16 at D = 80 is not a tensor-core head dim: it runs the CUDA-core
+    kernel (its 3-column instance), within 2e-2 of the plain version, and
+    the check fails K with rolled columns and S = 0."""
+    B, H, Kh, Sq, Skv, D, causal, window, off = case
+    assert tfa.route(torch.bfloat16, D) == "cores"
+    q, k, v = _qkv(cuda, B, H, Kh, Sq, Skv, D, torch.bfloat16)
+    got = ops.flash_attention(q, k, v, causal, window, off)
+    torch.cuda.synchronize()
+    want = ref.flash_attention_ref(q, k, v, causal, window, off)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), **tol(torch.bfloat16))
+    assert ops.launch_counts() == dict(NO_LAUNCHES, flash_attention_cores=1)
+    for kk in (k.roll(8, dims=-1), torch.zeros_like(k)):
+        bad = ref.flash_attention_ref(q, kk, v, causal, window, off)
+        assert not torch.allclose(got.float(), bad.float(), **tol(torch.bfloat16))
+
+
+def _perturbed_norms(params, seed: int):
+    """Random non-zero norm weights (and LayerNorm biases): zeros would hide the 1 + w."""
+    rng = np.random.RandomState(seed)
+
+    def walk(node, in_norm=False):
+        items = node.items() if isinstance(node, dict) else enumerate(node)
+        for name, v in items:
+            norm = in_norm or name in ("ln1", "ln2", "final_norm", "q_norm", "k_norm")
+            if isinstance(v, (dict, list)):
+                walk(v, norm)
+            elif norm:
+                v.copy_(torch.from_numpy(rng.randn(*v.shape).astype(np.float32) * 0.3))
+
+    walk(params)
+
+
+def _max_err(got, want) -> float:
+    g, w = got.cpu().float(), want.float()
+    return float((g - w).abs().max() / w.abs().max())
+
+
+def test_reduced_gemma3_bf16_on_the_card_matches_the_cpu(cuda):
+    """reduced gemma3 in bf16 at its own head dim of 128 (so flash takes the
+    tensor cores, as at full width): two stages, rings of 8 beside linear
+    caches of 24; a prompt of 12 takes the roll path and eight decode steps
+    wrap the rings.  Each step's logits within 2e-2 of their largest
+    magnitude of the CPU's, and the launches the path makes."""
+    cfg = dataclasses.replace(reduced_config(get_config("gemma3-27b")), head_dim=128, dtype="bfloat16",
+                              param_dtype="bfloat16")
+    params = init_params(T.model_skel(cfg), torch.Generator().manual_seed(1), "cpu")
+    _perturbed_norms(params, 1)
+    gparams = _to_cuda(params)
+    toks = torch.from_numpy(serve.random_prompts(cfg, 2, 20, 1))
+    cl, cc = T.prefill(cfg, params, {"tokens": toks[:, :12]}, 24)
+    gl, gc = T.prefill(cfg, gparams, {"tokens": toks[:, :12].cuda()}, 24)
+    assert [g["pos0"]["k"].shape[2] for g in gc] == [8, 8] and gc[0]["pos5"]["k"].shape[2] == 24
+    assert _max_err(gl, cl) <= 2e-2
+    for t in range(12, 20):
+        cl, cc = T.decode_step(cfg, params, toks[:, t : t + 1], t, cc)
+        gl, gc = T.decode_step(cfg, gparams, toks[:, t : t + 1].cuda(), t, gc)
+        assert _max_err(gl, cl) <= 2e-2, t
+    L = cfg.num_layers
+    assert ops.launch_counts() == dict(NO_LAUNCHES, flash_attention_tc=L, rmsnorm=(5 * L + 1) + 8 * (4 * L + 1))
+
+
+def _mrope_positions(B: int, S: int) -> torch.Tensor:
+    """Three distinct position streams: row b has b text tokens, an image block
+    of grid (2, 1, 2) (temporal, height, width ids offset by the text before
+    it), then text resuming past the largest id."""
+    out = torch.zeros(3, B, S, dtype=torch.long)
+    grid = torch.stack(torch.meshgrid(torch.arange(2), torch.arange(1), torch.arange(2), indexing="ij")).reshape(3, -1)
+    for b in range(B):
+        out[:, b, :b] = torch.arange(b)
+        out[:, b, b : b + 4] = b + grid
+        out[:, b, b + 4:] = b + 2 + torch.arange(S - b - 4)
+    return out
+
+
+def test_reduced_qwen2_vl_with_position_streams_on_the_card_matches_the_cpu(cuda):
+    """reduced qwen2-vl in f32 with three distinct position streams: forward
+    and prefill on the card (CUDA-core flash at head dim 16, cuBLAS) against
+    the CPU's plain path at 1e-4, then decode steps; the streams are seen
+    (broadcast ones give other logits)."""
+    cfg = reduced_config(get_config("qwen2-vl-72b"))
+    params = init_params(T.model_skel(cfg), torch.Generator().manual_seed(2), "cpu", "float32")
+    _perturbed_norms(params, 2)
+    gparams = _to_cuda(params)
+    toks = torch.from_numpy(serve.random_prompts(cfg, 2, 16, 2))
+    pos = _mrope_positions(2, 12)
+    full, _ = T.forward(cfg, params, {"tokens": toks[:, :12], "positions_3d": pos})
+    gfull, _ = T.forward(cfg, gparams, {"tokens": toks[:, :12].cuda(), "positions_3d": pos.cuda()})
+    torch.testing.assert_close(gfull.cpu(), full, rtol=1e-4, atol=1e-4)
+    flat, _ = T.forward(cfg, params, {"tokens": toks[:, :12]})
+    assert not torch.allclose(flat, full, rtol=1e-2, atol=1e-2)
+    cl, cc = T.prefill(cfg, params, {"tokens": toks[:, :12], "positions_3d": pos}, 16)
+    gl, gc = T.prefill(cfg, gparams, {"tokens": toks[:, :12].cuda(), "positions_3d": pos.cuda()}, 16)
+    torch.testing.assert_close(gl.cpu(), cl, rtol=1e-4, atol=1e-4)
+    for t in range(12, 16):
+        cl, cc = T.decode_step(cfg, params, toks[:, t : t + 1], t, cc)
+        gl, gc = T.decode_step(cfg, gparams, toks[:, t : t + 1].cuda(), t, gc)
+        torch.testing.assert_close(gl.cpu(), cl, rtol=1e-4, atol=1e-4)
+    L = cfg.num_layers
+    assert ops.launch_counts() == dict(NO_LAUNCHES, flash_attention_cores=2 * L, rmsnorm=2 * (2 * L + 1) + 4 * (2 * L + 1))
+
+
+def test_full_width_starcoder2_layer_on_the_card_matches_the_cpu(cuda):
+    """One full-width starcoder2 layer (LayerNorm, the gelu FFN of 3072 x
+    12288, 24 q / 2 kv heads at head dim 128), bf16 weights drawn on the CPU
+    from a seed, on 2 x 64 tokens: the card (tensor-core flash, cuBLAS,
+    F.layer_norm) against the CPU, within 2e-2 of the largest magnitude; no
+    RMSNorm launch."""
+    cfg = dataclasses.replace(get_config("starcoder2-3b"), num_layers=1)
+    spec = cfg.pattern[0]
+    lp = init_params(T.layer_skel(cfg, spec), torch.Generator().manual_seed(3), "cpu", "bfloat16")
+    _perturbed_norms(lp, 3)
+    lp["ln1"]["w"] += 1  # LayerNorm's scale near one
+    lp["ln2"]["w"] += 1
+    x = torch.randn(2, 64, cfg.d_model, generator=torch.Generator().manual_seed(4)).bfloat16()
+    q_pos = torch.arange(64)
+    want, _ = T.layer_fwd(cfg, spec, lp, x, q_pos)
+    got, _ = T.layer_fwd(cfg, spec, _to_cuda(lp), x.cuda(), q_pos.cuda())
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert _max_err(got - x.cuda(), want - x) <= 2e-2
+    assert ops.launch_counts() == dict(NO_LAUNCHES, flash_attention_tc=1)
+
+
 @pytest.mark.parametrize("tied", [False, True])
 def test_unembed_on_the_card_is_an_f32_product(cuda, tied):
     """The card's branch of ``_unembed`` (cuBLAS with an f32 output) against

@@ -44,6 +44,7 @@ from repro_torch import configs as tconfigs
 from repro_torch import convert
 from repro_torch.configs.base import ShapeSpec
 from repro_torch.data import pipeline as tpipeline
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
 from repro_torch.launch import serve as tserve
 from repro_torch.models import attention as tattn
@@ -740,28 +741,34 @@ def test_train_step_matches_jax_on_reduced_mixtral():
 
 @pytest.mark.parametrize("arch", ["qwen3-14b"] + ARCHS)
 def test_chip_smoke_expects_the_calls_the_serve_path_makes(arch, monkeypatch):
-    """The card counts one launch per call of ``ops.rmsnorm`` and
-    ``ops.flash_attention``: on the CPU the engine's calls, counted, must be
-    what ``chip_smoke.expected_launches`` asks of the card (qk-norm or not),
-    for a prompt that takes mixtral's ring roll."""
-    cfg = tconfigs.reduced_config(tconfigs.get_config(arch))
-    params = tcommon.init_params(TT.model_skel(cfg), torch.Generator().manual_seed(0), "cpu", "float32")
-    calls = {"rmsnorm": 0, "flash_attention_tc": 0}
+    """The card counts one launch per call of ``ops.rmsnorm`` and per call of
+    ``ops.flash_attention`` on the route ``flash_attention.route`` names: on
+    the CPU the engine's calls, counted, must be what
+    ``chip_smoke.expected_launches`` asks of the card (qk-norm or not), for a
+    prompt that takes mixtral's ring roll.  The reduced config in bf16 at the
+    arch's own head dim of 128, so flash takes the card's tensor-core route."""
+    full = tconfigs.get_config(arch)
+    cfg = dataclasses.replace(tconfigs.reduced_config(full), head_dim=full.head_dim, **BF16)
+    params = tcommon.init_params(TT.model_skel(cfg), torch.Generator().manual_seed(0), "cpu")
+    calls = {"rmsnorm": 0, "flash_attention_tc": 0, "flash_attention_cores": 0}
     rms, flash = tops.rmsnorm, tops.flash_attention
 
-    def count(name, fn):
-        def counted(*a, **k):
-            calls[name] += 1
-            return fn(*a, **k)
-        return counted
+    def counted_rms(*a, **k):
+        calls["rmsnorm"] += 1
+        return rms(*a, **k)
 
-    monkeypatch.setattr(tops, "rmsnorm", count("rmsnorm", rms))
-    monkeypatch.setattr(tops, "flash_attention", count("flash_attention_tc", flash))
+    def counted_flash(q, *a, **k):
+        calls[f"flash_attention_{tfa.route(q.dtype, q.shape[-1])}"] += 1
+        return flash(q, *a, **k)
+
+    monkeypatch.setattr(tops, "rmsnorm", counted_rms)
+    monkeypatch.setattr(tops, "flash_attention", counted_flash)
     steps = 5
     tengine.Engine(cfg, params, tengine.ServeOptions(max_seq=16, batch_size=2)).generate(
         {"tokens": prompts(cfg, 2, 12, 0)}, steps)
     want = CS.expected_launches(cfg, steps - 1)
     assert calls == {k: want[k] for k in calls}
+    assert want["flash_attention_tc"] == cfg.num_layers
     assert want["flash_attention_cores"] == want["chunk_reduce"] == want["dequant_add"] == 0
 
 
