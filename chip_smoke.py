@@ -104,16 +104,16 @@ ARCH, BATCH, PROMPT, NEW_TOKENS, MAX_SEQ, SEED = "qwen3-14b", 4, 512, 32, 1024, 
 
 # The serve_moe phase, per arch: (layers kept, batch, prompt, greedy tokens, max_seq).
 MOE_RUNS = {"mixtral-8x22b": (8, 2, 4608, 32, 8192), "llama4-scout-17b-a16e": (2, 4, 512, 8, 1024)}
-# The windowed flash at mixtral's prefill shape: its batch, every head.
-FLASH_MOE = (MOE_RUNS["mixtral-8x22b"][1], 48, 8, 4608, 4608, 128, True, 4096)
 
 # The serve_dense phase, per arch: (layers kept, batch, prompt, greedy tokens,
 # max_seq).  qwen2-vl-72b's 80 layers are 145 GB of bf16 weights.
 DENSE_RUNS = {"gemma3-27b": (62, 2, 1536, 16, 2048), "starcoder2-3b": (30, 4, 512, 32, 1024),
               "stablelm-3b": (32, 4, 512, 32, 1024), "qwen2-vl-72b": (16, 4, 512, 8, 1024)}
-# The archs whose prefill shape the kernel phase holds the flash forward at
-# (stablelm's on the CUDA cores, the others' on the tensor cores).
-FLASH_DENSE_ARCHS = ("stablelm-3b", "gemma3-27b", "starcoder2-3b")
+# The flash forward at the prefill shapes of serve_moe and serve_dense (the
+# run's batch and prompt, every head, bf16), per (arch, the layers' attention):
+# stablelm's on the CUDA cores (head dim 80), the others on the tensor cores.
+FLASH_PREFILL = (("mixtral-8x22b", "window"), ("stablelm-3b", "full"), ("gemma3-27b", "window"),
+                 ("gemma3-27b", "full"), ("starcoder2-3b", "full"), ("qwen2-vl-72b", "full"))
 # One full-width mixtral MoE layer's two dispatches on this many tokens (B, S).
 MOE_LAYER_TOKENS = (2, 512)
 # The dropping dispatch with room for every token against the dense one, bf16:
@@ -206,16 +206,32 @@ def compare(torch, what: str, got, want, dtype: str) -> float:
     return err
 
 
+def serve_rmsnorm_rows(cfg, batch: int, prompt: int):
+    """The (rows, d) shapes that serving ``cfg`` gives RMSNorm, in prefill and
+    in a decode step: ln1, ln2 and the final norm at d_model (none where
+    ``cfg.norm`` is LayerNorm), and with qk-norm q's and k's heads."""
+    shapes = []
+    for tokens in (batch * prompt, batch):
+        if cfg.norm == "rmsnorm":
+            shapes.append((tokens, cfg.d_model))
+        if cfg.qk_norm:
+            shapes += [(tokens * cfg.num_heads, cfg.head_dim), (tokens * cfg.num_kv_heads, cfg.head_dim)]
+    return shapes
+
+
 def check_rmsnorm(torch, rn, ref, gen):
-    """Kernel against plain version at the serve and train paths' shapes (a
-    microbatch of the train path is one row of TRAIN_SEQ tokens: ln1, ln2 and
-    the final norm, the qk-norm of q's 40 heads and k's 8) and serve_moe's
-    (mixtral's prefill and decode rows of 6144; llama4's are qwen3's);
-    returns the record at the serve path's shape."""
-    rows = BATCH * PROMPT
-    _, mb, mp, _, _ = MOE_RUNS["mixtral-8x22b"]
-    shapes = [(rows, 5120), (rows * 40, 128), (BATCH, 5120), (5, 16383),
-              (TRAIN_SEQ, 5120), (TRAIN_SEQ * 40, 128), (TRAIN_SEQ * 8, 128), (mb * mp, 6144), (mb, 6144)]
+    """Kernel against plain version at every shape the serve paths give it
+    (``serve_rmsnorm_rows`` of qwen3 and of each MOE_RUNS and DENSE_RUNS run)
+    and the train path's (a microbatch is one row of TRAIN_SEQ tokens: ln1,
+    ln2 and the final norm, the qk-norm of q's 40 heads and k's 8); returns
+    the record at the serve path's shape."""
+    from repro_torch.configs import get_config
+
+    shapes = serve_rmsnorm_rows(get_config(ARCH), BATCH, PROMPT) + [
+        (5, 16383), (TRAIN_SEQ, 5120), (TRAIN_SEQ * 40, 128), (TRAIN_SEQ * 8, 128)]
+    for arch, (_, batch, prompt, _, _) in {**MOE_RUNS, **DENSE_RUNS}.items():
+        shapes += serve_rmsnorm_rows(get_config(arch), batch, prompt)
+    shapes = list(dict.fromkeys(shapes))
     path_err = None
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
@@ -748,29 +764,41 @@ def sdpa_kernels(torch, fn, top: int = 2):
     return [n[:80] for n, _ in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:top]]
 
 
-def check_flash_window(torch, fa, ref, gen):
-    """The tensor-core flash at mixtral's prefill shape (FLASH_MOE: 2 rows,
-    48 q / 8 kv heads, 4608 tokens, causal, window 4096): output
-    and lse against the plain version, the wrong-Q.K^T checks, a check that
-    full causal attention is told apart, and its time against its bound, the
-    plain version's and SDPA's with the window as an explicit boolean mask."""
-    B, H, Kh, S, _, D, causal, win = FLASH_MOE
+def check_flash_at(torch, fa, ref, gen, arch: str, attention: str):
+    """The flash forward at ``arch``'s prefill shape (its serve run's batch
+    and prompt, every head, bf16) for its layers of ``attention``: on the
+    route ``fa.route`` names; output and lse against the plain version, the
+    wrong-Q.K^T checks and, windowed, a check that full causal attention is
+    told apart; then its time against its bound, the plain version's and
+    SDPA's (with the window as a boolean mask)."""
+    from repro_torch.configs import get_config
+
+    cfg, (_, B, S, _, _) = get_config(arch), {**MOE_RUNS, **DENSE_RUNS}[arch]
+    spec = next(s for s in cfg.pattern + cfg.tail_pattern if s.attention == attention)
+    H, Kh, D, causal, win = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, True, spec.window
+    case = (B, H, Kh, S, S, D, causal, win)
     q, k, v = flash_inputs(torch, gen, B, H, Kh, S, S, D, torch.bfloat16)
-    before = fa.launches_tc
+    route = fa.route(torch.bfloat16, D)
+    before = (fa.launches_tc, fa.launches_cores)
     got = fa.flash_attention_fwd(q, k, v, causal=causal, window=win)
-    if fa.launches_tc != before + 1:
-        raise AssertionError(f"flash {FLASH_MOE}: launched off the tensor-core route")
-    what = f"flash {FLASH_MOE} bf16 (tc, mixtral's prefill shape)"
+    if (fa.launches_tc - before[0], fa.launches_cores - before[1]) != ((1, 0) if route == "tc" else (0, 1)):
+        raise AssertionError(f"flash {case}: launched off its route {route}")
+    what = f"flash {case} bf16 ({route}, {arch}'s prefill shape)"
     err = compare(torch, what, got, ref.flash_attention_ref(q, k, v, causal, win, 0), "bfloat16")
     check_sensitive(torch, ref, what, got, q, k, v, causal, win, 0)
     lse_err = check_lse(torch, fa, ref, what, got, q, k, v, causal, win, 0, "bfloat16")
-    if torch.allclose(got.float(), ref.flash_attention_ref(q, k, v, causal, 0, 0).float(),
-                      rtol=TOL["bfloat16"], atol=TOL["bfloat16"]):
+    if win and torch.allclose(got.float(), ref.flash_attention_ref(q, k, v, causal, 0, 0).float(),
+                              rtol=TOL["bfloat16"], atol=TOL["bfloat16"]):
         raise AssertionError(f"{what}: the check cannot tell the window from full causal attention")
-    pos = torch.arange(S, device="cuda")
-    mask = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < win)
-    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
-    compare(torch, f"SDPA with the boolean window mask at {FLASH_MOE} (against the plain version)", sdpa(),
+    if win:
+        pos = torch.arange(S, device="cuda")
+        mask = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < win)
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                                        enable_gqa=H != Kh)
+    else:
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                                        enable_gqa=H != Kh)
+    compare(torch, f"SDPA at {case} (against the plain version)", sdpa(),
             ref.flash_attention_ref(q, k, v, causal, win, 0), "bfloat16")
     del got
     torch.cuda.synchronize()
@@ -781,73 +809,14 @@ def check_flash_window(torch, fa, ref, gen):
     pairs = flash_pairs(torch, S, S, True, win, 0)
     ops = 4 * B * H * D * pairs
     b_ms, b_by = bound((2 * q.numel() + k.numel() + v.numel()) * 2, ops, "bfloat16")
-    log(f"[kernels] flash {tuple(q.shape)}x{tuple(k.shape)} causal window {win} bf16 (tensor cores, mixtral's "
-        f"prefill shape, {pairs} visible pairs per head): kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA with the "
-        f"boolean mask {lib:.4f} ms ({ms / lib:.3f}x; its kernels {backend}), bound {b_ms:.4f} ms ({b_by}, "
-        f"{ops / 1e9:.1f} GFLOP), {ops / ms / 1e9:.2f} TFLOP/s")
-    return {"window_shape": f"q {tuple(q.shape)} kv {tuple(k.shape)} causal window {win} bf16",
-            "window_max_abs_err": err, "window_lse_max_abs_err": lse_err, "window_ms": ms, "window_plain_ms": plain,
-            "window_library_ms": lib, "window_library_kernels": backend, "window_bound_ms": b_ms,
-            "window_bound_by": b_by}
-
-
-
-def check_flash_dense(torch, fa, ref, gen):
-    """The flash forward at the prefill shapes of serve_dense's archs
-    (FLASH_DENSE_ARCHS; every head, bf16): on the route ``fa.route`` names,
-    against the plain version and the wrong-Q.K^T checks (and, windowed, a
-    check that full causal attention is told apart), then timed against its
-    bound, the plain version and SDPA (with the window as a boolean mask).
-    Returns a record per arch."""
-    from repro_torch.configs import get_config
-
-    out = {}
-    for arch in FLASH_DENSE_ARCHS:
-        cfg, (_, B, S, _, _) = get_config(arch), DENSE_RUNS[arch]
-        spec = cfg.pattern[0]  # gemma3's first layer is a local one
-        H, Kh, D, causal = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, True
-        win = spec.window if spec.attention == "window" else 0
-        case = (B, H, Kh, S, S, D, causal, win)
-        q, k, v = flash_inputs(torch, gen, B, H, Kh, S, S, D, torch.bfloat16)
-        route = fa.route(torch.bfloat16, D)
-        before = (fa.launches_tc, fa.launches_cores)
-        got = fa.flash_attention_fwd(q, k, v, causal=causal, window=win)
-        if (fa.launches_tc - before[0], fa.launches_cores - before[1]) != ((1, 0) if route == "tc" else (0, 1)):
-            raise AssertionError(f"flash {case}: launched off its route {route}")
-        what = f"flash {case} bf16 ({route}, {arch}'s prefill shape)"
-        err = compare(torch, what, got, ref.flash_attention_ref(q, k, v, causal, win, 0), "bfloat16")
-        check_sensitive(torch, ref, what, got, q, k, v, causal, win, 0)
-        if win and torch.allclose(got.float(), ref.flash_attention_ref(q, k, v, causal, 0, 0).float(),
-                                  rtol=TOL["bfloat16"], atol=TOL["bfloat16"]):
-            raise AssertionError(f"{what}: the check cannot tell the window from full causal attention")
-        if win:
-            pos = torch.arange(S, device="cuda")
-            mask = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < win)
-            sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                                                            enable_gqa=H != Kh)
-        else:
-            sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                                            enable_gqa=H != Kh)
-        compare(torch, f"SDPA at {case} (against the plain version)", sdpa(),
-                ref.flash_attention_ref(q, k, v, causal, win, 0), "bfloat16")
-        del got
-        torch.cuda.synchronize()
-        ms = time_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, causal=True, window=win))
-        plain = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, True, win, 0), reps=5, warmup=1)
-        lib = time_ms(torch, sdpa)
-        backend = sdpa_kernels(torch, sdpa)
-        pairs = flash_pairs(torch, S, S, True, win, 0)
-        ops = 4 * B * H * D * pairs
-        b_ms, b_by = bound((2 * q.numel() + k.numel() + v.numel()) * 2, ops, "bfloat16")
-        log(f"[kernels] flash {tuple(q.shape)}x{tuple(k.shape)} causal{f' window {win}' if win else ''} bf16 "
-            f"({'tensor cores' if route == 'tc' else 'CUDA cores'}, {arch}'s prefill shape, {pairs} visible pairs "
-            f"per head): kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA {lib:.4f} ms ({ms / lib:.3f}x; its kernels "
-            f"{backend}), bound {b_ms:.4f} ms ({b_by}, {ops / 1e9:.1f} GFLOP), {ops / ms / 1e9:.2f} TFLOP/s")
-        out[arch] = {"shape": f"q {tuple(q.shape)} kv {tuple(k.shape)} causal{f' window {win}' if win else ''} bf16",
-                     "kernel_route": route, "max_abs_err": err, "ms": ms, "plain_ms": plain, "library_ms": lib,
-                     "library_kernels": backend, "bound_ms": b_ms, "bound_by": b_by}
-        del q, k, v
-    return out
+    shape = f"q {tuple(q.shape)} kv {tuple(k.shape)} causal{f' window {win}' if win else ''} bf16"
+    log(f"[kernels] flash {shape} ({'tensor cores' if route == 'tc' else 'CUDA cores'}, {arch}'s prefill shape, "
+        f"{pairs} visible pairs per head): kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA {lib:.4f} ms "
+        f"({ms / lib:.3f}x; its kernels {backend}), bound {b_ms:.4f} ms ({b_by}, {ops / 1e9:.1f} GFLOP), "
+        f"{ops / ms / 1e9:.2f} TFLOP/s")
+    del q, k, v
+    return {"shape": shape, "kernel_route": route, "max_abs_err": err, "lse_max_abs_err": lse_err, "ms": ms,
+            "plain_ms": plain, "library_ms": lib, "library_kernels": backend, "bound_ms": b_ms, "bound_by": b_by}
 
 
 def check_moe_dispatch(torch):
@@ -1297,13 +1266,13 @@ def main() -> int:
                check_dequant_add(torch, cr, ref, compression, gen, cfg.d_model * cfg.d_ff)]
     check_flash_backward(torch, ops, gen)
     t0 = time.perf_counter()
-    records[1].update(check_flash_window(torch, fa, ref, gen))
-    log(f"[kernels] the windowed flash at mixtral's prefill shape: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    dense_shapes = check_flash_dense(torch, fa, ref, gen)
-    log(f"[kernels] the flash at serve_dense's prefill shapes: {time.perf_counter() - t0:.1f} s")
-    records[1]["serve_dense_shapes"] = {a: r for a, r in dense_shapes.items() if r["kernel_route"] == "tc"}
-    cores = next(r for r in dense_shapes.values() if r["kernel_route"] == "cores")
+    prefill_shapes = {f"{arch} {attention}": check_flash_at(torch, fa, ref, gen, arch, attention)
+                      for arch, attention in FLASH_PREFILL}
+    log(f"[kernels] the flash at the serve_moe and serve_dense prefill shapes: {time.perf_counter() - t0:.1f} s")
+    records[1].update({f"window_{key}": val for key, val in prefill_shapes.pop("mixtral-8x22b window").items()
+                       if key != "kernel_route"})
+    records[1]["serve_dense_shapes"] = {a: r for a, r in prefill_shapes.items() if r["kernel_route"] == "tc"}
+    cores = next(r for r in prefill_shapes.values() if r["kernel_route"] == "cores")
     records.insert(2, {
         "name": "flash_attention_cores", "route": "cuda", "kernel_route": "cores",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1311,6 +1280,7 @@ def main() -> int:
         "max_abs_err": cores["max_abs_err"], "ms": cores["ms"], "kernel_ms": cores["ms"],
         "plain_ms": cores["plain_ms"], "bound_ms": cores["bound_ms"], "bound_by": cores["bound_by"],
         "library_ms": cores["library_ms"], "library_kernels": cores["library_kernels"],
+        "lse_max_abs_err": cores["lse_max_abs_err"],
         "f32_serve_shape_ms": records[1]["f32_ms"], "f32_serve_shape_bound_ms": records[1]["f32_bound_ms"]})
     gc.collect()
     torch.cuda.empty_cache()

@@ -159,16 +159,20 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta ** exps)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """x: (..., S, H, D); positions: broadcastable to (..., S)."""
-    d = x.shape[-1]
-    freqs = rope_freqs(d, theta, device=x.device)  # (D/2,)
-    angles = positions[..., None].float() * freqs  # (..., S, D/2)
+def _rotate_by(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """x: (..., S, H, D) with its halves rotated by ``angles`` (..., S, D/2),
+    in f32, rounded once to x's type."""
     cos = torch.cos(angles)[..., None, :]  # (..., S, 1, D/2)
     sin = torch.sin(angles)[..., None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, D); positions: broadcastable to (..., S)."""
+    freqs = rope_freqs(x.shape[-1], theta, device=x.device)  # (D/2,)
+    return _rotate_by(x, positions[..., None].float() * freqs)
 
 
 def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor, theta: float, sections) -> torch.Tensor:
@@ -182,9 +186,4 @@ def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor, theta: float, secti
     freqs = rope_freqs(d, theta, device=x.device)  # (half,)
     sec_id = torch.tensor([i for i, n in enumerate(sections) for _ in range(n)], device=x.device)  # (half,)
     pos = torch.movedim(positions_3d[sec_id], 0, -1)  # (..., S, half)
-    angles = pos.float() * freqs
-    cos = torch.cos(angles)[..., None, :]
-    sin = torch.sin(angles)[..., None, :]
-    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-    return out.to(x.dtype)
+    return _rotate_by(x, pos.float() * freqs)

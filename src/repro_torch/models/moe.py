@@ -87,7 +87,7 @@ def _route(cfg, p, x) -> Tuple[torch.Tensor, torch.Tensor]:
     return weights, aux
 
 
-def _expert_h(ex, e: int, xt: torch.Tensor, act: str = "swiglu") -> torch.Tensor:
+def _expert_h(ex, e: int, xt: torch.Tensor, act: str) -> torch.Tensor:
     """``silu(g) * h`` (or ``gelu(h)``) of expert ``e`` on tokens xt (n, d):
     f32 products, rounded to xt's type after the activation, as the JAX
     package does."""

@@ -34,7 +34,6 @@ from repro.serving import engine as jengine
 from repro_torch import configs as tconfigs
 from repro_torch import convert
 from repro_torch.configs.base import ShapeSpec
-from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
 from repro_torch.launch import serve as tserve
 from repro_torch.models import common as tcommon
@@ -42,7 +41,7 @@ from repro_torch.models import moe as tmoe
 from repro_torch.models import transformer as TT
 from repro_torch.serving import engine as tengine
 from repro_torch.tree import leaves, unflatten_like
-from test_torch_moe import CS, jax_router_logits, paired, routed_alike, router_margin  # CS: chip_smoke.py
+from test_torch_moe import jax_router_logits, paired, routed_alike, router_margin
 from test_torch_train import rounded_as_written
 
 
@@ -487,45 +486,3 @@ def test_serve_main_runs_the_dense_archs_on_cpu(arch, capsys):
     a, b = tserve.main(argv), tserve.main(argv)
     assert a.shape == (2, 6) and np.array_equal(a, b)
     assert f"{arch}-smoke on cpu" in capsys.readouterr().out
-
-
-# ---------------------------------------------------------------------------
-# chip_smoke.py's launch counts, rehearsed on the CPU
-# ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_chip_smoke_expects_the_calls_the_serve_path_makes(arch, monkeypatch):
-    """The card counts one launch per call of ``ops.rmsnorm`` and per call of
-    ``ops.flash_attention`` on the route ``flash_attention.route`` names: on
-    the CPU the engine's calls, counted, must be what
-    ``chip_smoke.expected_launches`` asks of the card.  The reduced config in
-    bf16 at the arch's own head dim (and M-RoPE sections), so the routes are
-    the card's: the CUDA cores for stablelm's 80, the tensor cores for 128.
-    RMSNorm: none for LayerNorm models, with qk-norm the norms of q and k."""
-    full = tconfigs.get_config(arch)
-    cfg = dataclasses.replace(tconfigs.reduced_config(full), head_dim=full.head_dim,
-                              mrope_sections=full.mrope_sections, **BF16)
-    params = tcommon.init_params(TT.model_skel(cfg), torch.Generator().manual_seed(0), "cpu")
-    calls = {"rmsnorm": 0, "flash_attention_tc": 0, "flash_attention_cores": 0}
-    rms, flash = tops.rmsnorm, tops.flash_attention
-
-    def counted_rms(*a, **k):
-        calls["rmsnorm"] += 1
-        return rms(*a, **k)
-
-    def counted_flash(q, *a, **k):
-        calls[f"flash_attention_{tfa.route(q.dtype, q.shape[-1])}"] += 1
-        return flash(q, *a, **k)
-
-    monkeypatch.setattr(tops, "rmsnorm", counted_rms)
-    monkeypatch.setattr(tops, "flash_attention", counted_flash)
-    steps = 5
-    tengine.Engine(cfg, params, tengine.ServeOptions(max_seq=16, batch_size=2)).generate(
-        {"tokens": prompts(cfg, 2, 12, 0)}, steps)
-    want = CS.expected_launches(cfg, steps - 1)
-    assert calls == {k: want[k] for k in calls}
-    assert want["chunk_reduce"] == want["dequant_add"] == 0
-    assert (want["rmsnorm"] == 0) == (cfg.norm == "layernorm")
-    route = "cores" if arch == "stablelm-3b" else "tc"
-    assert want[f"flash_attention_{route}"] == cfg.num_layers

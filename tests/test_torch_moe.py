@@ -414,7 +414,7 @@ def test_moe_products_are_f32_before_the_rounding():
     moe = layer0(tp, "moe")
     _, tx = hidden(cfg, 2, 8, 9, "bfloat16")
     xt = tx.reshape(-1, cfg.d_model)
-    got = tmoe._expert_h(moe["experts"], 1, xt)
+    got = tmoe._expert_h(moe["experts"], 1, xt, cfg.act)
     g = xt.float() @ moe["experts"]["wg"][1].float()
     h = xt.float() @ moe["experts"]["wi"][1].float()
     want = (torch.nn.functional.silu(g) * h).bfloat16()
@@ -739,16 +739,20 @@ def test_train_step_matches_jax_on_reduced_mixtral():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ["qwen3-14b"] + ARCHS)
+@pytest.mark.parametrize("arch", ["qwen3-14b"] + ARCHS + ["gemma3-27b", "starcoder2-3b", "stablelm-3b",
+                                                           "qwen2-vl-72b"])
 def test_chip_smoke_expects_the_calls_the_serve_path_makes(arch, monkeypatch):
     """The card counts one launch per call of ``ops.rmsnorm`` and per call of
     ``ops.flash_attention`` on the route ``flash_attention.route`` names: on
     the CPU the engine's calls, counted, must be what
-    ``chip_smoke.expected_launches`` asks of the card (qk-norm or not), for a
-    prompt that takes mixtral's ring roll.  The reduced config in bf16 at the
-    arch's own head dim of 128, so flash takes the card's tensor-core route."""
+    ``chip_smoke.expected_launches`` asks of the card, for a prompt that takes
+    the ring roll of the windowed archs.  The reduced config in bf16 at the
+    arch's own head dim (and M-RoPE sections), so the routes are the card's:
+    the CUDA cores for stablelm's 80, the tensor cores for 128.  RMSNorm:
+    none for LayerNorm models, with qk-norm the norms of q and k too."""
     full = tconfigs.get_config(arch)
-    cfg = dataclasses.replace(tconfigs.reduced_config(full), head_dim=full.head_dim, **BF16)
+    cfg = dataclasses.replace(tconfigs.reduced_config(full), head_dim=full.head_dim,
+                              mrope_sections=full.mrope_sections, **BF16)
     params = tcommon.init_params(TT.model_skel(cfg), torch.Generator().manual_seed(0), "cpu")
     calls = {"rmsnorm": 0, "flash_attention_tc": 0, "flash_attention_cores": 0}
     rms, flash = tops.rmsnorm, tops.flash_attention
@@ -768,8 +772,10 @@ def test_chip_smoke_expects_the_calls_the_serve_path_makes(arch, monkeypatch):
         {"tokens": prompts(cfg, 2, 12, 0)}, steps)
     want = CS.expected_launches(cfg, steps - 1)
     assert calls == {k: want[k] for k in calls}
-    assert want["flash_attention_tc"] == cfg.num_layers
-    assert want["flash_attention_cores"] == want["chunk_reduce"] == want["dequant_add"] == 0
+    assert want["chunk_reduce"] == want["dequant_add"] == 0
+    assert (want["rmsnorm"] == 0) == (cfg.norm == "layernorm")
+    route, other = ("cores", "tc") if arch == "stablelm-3b" else ("tc", "cores")
+    assert want[f"flash_attention_{route}"] == cfg.num_layers and want[f"flash_attention_{other}"] == 0
 
 
 def _ring_fault(fault, monkeypatch):
