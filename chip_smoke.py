@@ -6,11 +6,11 @@
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
 ``build/``), holds each against its plain PyTorch version at the main paths'
 shapes and the sweeps of tests/test_kernels.py (flash attention's output and
-log-sum-exp on both routes, its autograd backward against the CPU's, and
-the windowed flash at mixtral's prefill shape), times RMSNorm against
-``F.rms_norm``, the flash forward at the train shape against SDPA and the
-windowed one against SDPA with the window as a boolean mask, then drives
-four paths:
+log-sum-exp on both routes, at every head dim of the tensor-core route, its
+autograd backward against the CPU's, and the flash at every serve run's
+prefill shape), times RMSNorm against ``F.rms_norm``, the flash forward at
+the serve, train and prefill shapes against SDPA (with a window as a boolean
+mask), then drives four paths:
 
 - serve: qwen3-14b at full width (40 layers, d=5120, bf16 weights drawn on
   the card from seed 0), 4 prompts of 512 tokens, 32 greedy tokens each, with
@@ -34,11 +34,11 @@ four paths:
   tokens and 16 greedy tokens with a max_seq of 2048, so that prefill rolls
   the local rings and every decode step wraps them; starcoder2-3b (LayerNorm,
   the gelu FFN, 2 kv heads) and stablelm-3b (LayerNorm, 32 kv heads, head dim
-  80: flash on the CUDA cores), 4 prompts of 512 tokens and 32 greedy tokens;
-  qwen2-vl-72b (M-RoPE) cut to 16 of 80 layers, 4 prompts of 512 tokens and 8
-  greedy tokens.  The kernel phase holds the flash forward at the prefill
-  shapes of stablelm, gemma3 and starcoder2 to the plain version and times
-  it against SDPA.
+  80, padded to 128 in the tensor-core kernel's shared memory), 4 prompts of
+  512 tokens and 32 greedy tokens; qwen2-vl-72b (M-RoPE) cut to 16 of 80
+  layers, 4 prompts of 512 tokens and 8 greedy tokens.  The kernel phase
+  holds the flash forward at each run's prefill shape to the plain version
+  and times it against SDPA.
 - sync: the train step's cross-pod gradient sync (``launch/sync.py``) on 4
   rank processes that share the card, over the bf16 gradient tree of one
   full-width qwen3-14b decoder block per rank, by every method.  Each rank
@@ -111,7 +111,7 @@ DENSE_RUNS = {"gemma3-27b": (62, 2, 1536, 16, 2048), "starcoder2-3b": (30, 4, 51
               "stablelm-3b": (32, 4, 512, 32, 1024), "qwen2-vl-72b": (16, 4, 512, 8, 1024)}
 # The flash forward at the prefill shapes of serve_moe and serve_dense (the
 # run's batch and prompt, every head, bf16), per (arch, the layers' attention):
-# stablelm's on the CUDA cores (head dim 80), the others on the tensor cores.
+# every one on the tensor cores (head dim 128, and stablelm's 80).
 FLASH_PREFILL = (("mixtral-8x22b", "window"), ("stablelm-3b", "full"), ("gemma3-27b", "window"),
                  ("gemma3-27b", "full"), ("starcoder2-3b", "full"), ("qwen2-vl-72b", "full"))
 # One full-width mixtral MoE layer's two dispatches on this many tokens (B, S).
@@ -125,6 +125,9 @@ MOE_DISPATCH_TOL = 2e-2
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_STEPS = 4, 4096, 2, 2, 3
 # The flash forward at the train shape: one row of the batch, every head.
 FLASH_TRAIN = (1, 40, 8, TRAIN_SEQ, TRAIN_SEQ, 128, True, 0)
+# bf16 at a head dim past the tensor-core route's 128, which no config has:
+# the CUDA-core kernel's bf16 case, held and timed in the kernel phase.
+CORES_BF16 = (BATCH, 16, 8, PROMPT, PROMPT, 256, True, 0)
 
 # The sync phase: rank processes on the one card (each with one decoder
 # block of gradients)
@@ -318,19 +321,24 @@ def check_sensitive(torch, ref, what, got, q, k, v, causal, window, q_offset):
 
 
 def check_flash(torch, fa, ref, gen, spills: int):
-    """Both routes against the plain version: bf16 with D 64 or 128 on the
-    tensor cores, f32 and bf16 of the other head dims on the CUDA cores.  On
-    the tensor-core cases whose rows see a key, the check is also shown to
-    fail a wrong Q.K^T.  Times the tensor-core route at the serve shape and
-    the CUDA-core route on the same inputs in f32."""
+    """Both routes against the plain version: bf16 at the tensor-core head
+    dims (``fa.TC_HEAD_DIMS``: every multiple of 16 up to 128) on the tensor
+    cores, f32 at every head dim and bf16 at CORES_BF16's 256 on the CUDA
+    cores; and every tensor-core head dim in bf16 at a ragged shape with Sq !=
+    Skv, output and lse.  On every bf16 case whose rows see a key, the check
+    is also shown to fail a wrong Q.K^T.  Times the tensor-core route at the
+    serve shape, and the CUDA-core route on the same inputs in f32 and at
+    CORES_BF16.  Returns the records of the two routes."""
     cfg_case = (BATCH, 40, 8, PROMPT, PROMPT, 128, True, 0)
     ragged = (BATCH, 40, 8, PROMPT + 1, PROMPT + 1, 128, True, 0)  # prefill of prompt + token
     window = (1, 2, 1, 200, 200, 64, True, 16)  # with q_offset -20: the first rows see no key
-    path_err = None
+    sweep = [(2, 4, 2, 200, 300, D, True, 0) for D in fa.TC_HEAD_DIMS]  # q_offset 100
+    errs = {}
 
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
-        for case in [cfg_case, ragged, window] + FLASH_CASES:
+        extra = sweep + [CORES_BF16] if dtype == "bfloat16" else []
+        for case in [cfg_case, ragged, window] + FLASH_CASES + extra:
             B, H, Kh, Sq, Skv, D, causal, win = case
             q, k, v = flash_inputs(torch, gen, B, H, Kh, Sq, Skv, D, dt)
             off = -20 if case == window else Skv - Sq
@@ -340,14 +348,13 @@ def check_flash(torch, fa, ref, gen, spills: int):
             if (fa.launches_tc > before) != (route == "tc"):
                 raise AssertionError(f"flash {case} {dtype}: launched off its route {route}")
             what = f"flash {case} q_offset={off} {dtype} ({route})"
-            err = compare(torch, what, got, ref.flash_attention_ref(q, k, v, causal, win, off), dtype)
-            if route == "tc":
+            errs[case, dtype] = compare(torch, what, got, ref.flash_attention_ref(q, k, v, causal, win, off), dtype)
+            if dtype == "bfloat16":
                 check_sensitive(torch, ref, what, got, q, k, v, causal, win, off)
-            if case == cfg_case and dtype == "bfloat16":
-                path_err = err
-            if case in FLASH_CASES or case == window:  # the window case has rows with no key
+            if case in FLASH_CASES or case == window or case in sweep:  # the window case has rows with no key
                 check_lse(torch, fa, ref, what, got, q, k, v, causal, win, off, dtype)
-    log("[kernels] flash: on every tensor-core case the bf16 check fails K with rolled columns and S = 0")
+    log(f"[kernels] flash: tensor-core head dims {fa.TC_HEAD_DIMS} held in bf16, output and lse; on every bf16 "
+        "case the check fails K with rolled columns and S = 0")
     B, H, Kh, S, _, D, causal, win = FLASH_TRAIN
     q, k, v = flash_inputs(torch, gen, B, H, Kh, S, S, D, torch.bfloat16)
     got = fa.flash_attention_fwd(q, k, v, causal=causal, window=win)
@@ -365,27 +372,55 @@ def check_flash(torch, fa, ref, gen, spills: int):
     plain = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, True, 0, 0))
     lib = time_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True))
-    qf, kf, vf = q.float(), k.float(), v.float()
-    f32_ms = time_ms(torch, lambda: fa.flash_attention_fwd(qf, kf, vf, causal=True))
     ops = 4 * B * H * D * flash_pairs(torch, S, S, True, 0, 0)  # QK^T and PV, 2 ops per MAC
     b_ms, b_by = bound((2 * q.numel() + k.numel() + v.numel()) * 2, ops, "bfloat16")  # q, o, k, v
-    f32_bound, f32_by = bound((2 * q.numel() + k.numel() + v.numel()) * 4, ops, "float32")
     log(f"[kernels] flash {tuple(q.shape)}x{tuple(k.shape)} causal bf16 (tensor cores, {spills} spill "
         f"bytes): kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA {lib:.4f} ms ({ms / lib:.3f}x), "
         f"bound {b_ms:.4f} ms ({b_by}), {ops / ms / 1e9:.2f} TFLOP/s")
-    log(f"[kernels] flash same shape f32 (CUDA cores): kernel {f32_ms:.4f} ms, bound {f32_bound:.4f} ms "
-        f"({f32_by}), {ops / f32_ms / 1e9:.2f} TFLOP/s")
-    return dict({
+    tc = dict({
         "name": "flash_attention", "route": "cuda", "kernel_route": "tc",
         "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention.py:93",
-        "shape": f"q {tuple(q.shape)} kv {tuple(k.shape)} causal bf16",
-        "max_abs_err": path_err, "ms": ms, "kernel_ms": ms, "plain_ms": plain,
+        "shape": f"q {tuple(q.shape)} kv {tuple(k.shape)} causal bf16", "head_dims": list(fa.TC_HEAD_DIMS),
+        "max_abs_err": errs[cfg_case, "bfloat16"], "ms": ms, "kernel_ms": ms, "plain_ms": plain,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib, "spill_bytes": spills,
-        "f32_route": "cores", "f32_source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "f32_ms": f32_ms, "f32_bound_ms": f32_bound, "train_shape_max_abs_err": train_err,
-        "train_shape_lse_max_abs_err": lse_err,
+        "head_dim_sweep_max_abs_err": {c[5]: errs[c, "bfloat16"] for c in sweep},
+        "train_shape_max_abs_err": train_err, "train_shape_lse_max_abs_err": lse_err,
     }, **time_flash_train_shape(torch, fa, ref, gen))
+
+    qf, kf, vf = q.float(), k.float(), v.float()
+    del q, k, v
+    f32_ms = time_ms(torch, lambda: fa.flash_attention_fwd(qf, kf, vf, causal=True))
+    f32_plain = time_ms(torch, lambda: ref.flash_attention_ref(qf, kf, vf, True, 0, 0), reps=5, warmup=1)
+    f32_lib = time_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+        qf, kf, vf, is_causal=True, enable_gqa=True))
+    f32_bound, f32_by = bound((2 * qf.numel() + kf.numel() + vf.numel()) * 4, ops, "float32")
+    log(f"[kernels] flash same shape f32 (CUDA cores): kernel {f32_ms:.4f} ms, plain {f32_plain:.4f} ms, SDPA "
+        f"{f32_lib:.4f} ms, bound {f32_bound:.4f} ms ({f32_by}), {ops / f32_ms / 1e9:.2f} TFLOP/s")
+    del qf, kf, vf
+    B, H, Kh, S, _, D, causal, _ = CORES_BF16
+    q, k, v = flash_inputs(torch, gen, B, H, Kh, S, S, D, torch.bfloat16)
+    bf_ms = time_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, causal=True))
+    bf_plain = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, True, 0, 0), reps=5, warmup=1)
+    bf_lib = time_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True))
+    bf_ops = 4 * B * H * D * flash_pairs(torch, S, S, True, 0, 0)
+    bf_bound, bf_by = bound((2 * q.numel() + k.numel() + v.numel()) * 2, bf_ops, "bfloat16")
+    log(f"[kernels] flash {tuple(q.shape)}x{tuple(k.shape)} causal bf16 (CUDA cores, D = {D}): kernel "
+        f"{bf_ms:.4f} ms, plain {bf_plain:.4f} ms, SDPA {bf_lib:.4f} ms ({bf_ms / bf_lib:.3f}x), bound "
+        f"{bf_bound:.4f} ms ({bf_by}), {bf_ops / bf_ms / 1e9:.2f} TFLOP/s")
+    cores = {
+        "name": "flash_attention_cores", "route": "cuda", "kernel_route": "cores",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:93",
+        "shape": f"q {(BATCH, 40, PROMPT, 128)} kv {(BATCH, 8, PROMPT, 128)} causal f32",
+        "max_abs_err": errs[cfg_case, "float32"], "ms": f32_ms, "kernel_ms": f32_ms, "plain_ms": f32_plain,
+        "bound_ms": f32_bound, "bound_by": f32_by, "library_ms": f32_lib,
+        "bf16_shape": f"q {tuple(q.shape)} kv {tuple(k.shape)} causal bf16",
+        "bf16_max_abs_err": errs[CORES_BF16, "bfloat16"], "bf16_ms": bf_ms, "bf16_plain_ms": bf_plain,
+        "bf16_bound_ms": bf_bound, "bf16_bound_by": bf_by, "bf16_library_ms": bf_lib,
+    }
+    return tc, cores
 
 
 def check_lse(torch, fa, ref, what, out, q, k, v, causal, window, q_offset, dtype: str) -> float:
@@ -1261,7 +1296,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     cfg = get_config(ARCH)
-    records = [check_rmsnorm(torch, rn, ref, gen), check_flash(torch, fa, ref, gen, spills),
+    records = [check_rmsnorm(torch, rn, ref, gen), *check_flash(torch, fa, ref, gen, spills),
                check_chunk_reduce(torch, cr, ref, gen, *hop_chunks(cfg, C)),
                check_dequant_add(torch, cr, ref, compression, gen, cfg.d_model * cfg.d_ff)]
     check_flash_backward(torch, ops, gen)
@@ -1271,17 +1306,7 @@ def main() -> int:
     log(f"[kernels] the flash at the serve_moe and serve_dense prefill shapes: {time.perf_counter() - t0:.1f} s")
     records[1].update({f"window_{key}": val for key, val in prefill_shapes.pop("mixtral-8x22b window").items()
                        if key != "kernel_route"})
-    records[1]["serve_dense_shapes"] = {a: r for a, r in prefill_shapes.items() if r["kernel_route"] == "tc"}
-    cores = next(r for r in prefill_shapes.values() if r["kernel_route"] == "cores")
-    records.insert(2, {
-        "name": "flash_attention_cores", "route": "cuda", "kernel_route": "cores",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:93", "shape": cores["shape"],
-        "max_abs_err": cores["max_abs_err"], "ms": cores["ms"], "kernel_ms": cores["ms"],
-        "plain_ms": cores["plain_ms"], "bound_ms": cores["bound_ms"], "bound_by": cores["bound_by"],
-        "library_ms": cores["library_ms"], "library_kernels": cores["library_kernels"],
-        "lse_max_abs_err": cores["lse_max_abs_err"],
-        "f32_serve_shape_ms": records[1]["f32_ms"], "f32_serve_shape_bound_ms": records[1]["f32_bound_ms"]})
+    records[1]["serve_dense_shapes"] = prefill_shapes
     gc.collect()
     torch.cuda.empty_cache()
 

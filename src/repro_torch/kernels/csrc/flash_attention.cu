@@ -2,7 +2,10 @@
 // causal and sliding-window masks.
 //
 // Replaces: repro/kernels/flash_attention.py, flash_attention_fwd (the Pallas
-// kernel _flash_kernel).
+// kernel _flash_kernel), for the inputs the tensor-core kernel
+// (flash_attention_sm90.cu) does not take: f32 at every head dim, held to
+// 2e-5, which no bf16 or TF32 product meets, and bf16 at a head dim in
+// (128, 256].  kernels/flash_attention.py, route(), chooses before the launch.
 //
 // Bound on the H100: at the serve path's prefill shape (B=4, H=40, Kh=8,
 // S=512, D=128, causal, bf16) the bytes (q, k, v read once, o written once,

@@ -1,19 +1,34 @@
 // Flash-attention forward on Hopper's tensor cores (sm_90a): bf16 q, k, v with
-// a head dim of 64 or 128.
+// a head dim D that is a multiple of 16 from 16 to 128.
 //
 // Replaces: repro/kernels/flash_attention.py, flash_attention_fwd (the Pallas
-// kernel _flash_kernel), for bf16 inputs with D in {64, 128}.  Every other
-// input (f32, which must meet 2e-5 and so cannot go through bf16 or TF32
-// products, and the other head dims) takes the exact CUDA-core kernel in
-// flash_attention.cu.  The wrapper (kernels/flash_attention.py, route())
-// chooses from the dtype and D before the launch.
+// kernel _flash_kernel), for bf16 inputs with D in {16, 32, ..., 128}.  Every
+// other input (f32, which must meet 2e-5 and so cannot go through bf16 or
+// TF32 products, and bf16 with D in (128, 256]) takes the exact CUDA-core
+// kernel in flash_attention.cu.  The wrapper (kernels/flash_attention.py,
+// route()) chooses from the dtype and D before the launch.
 //
-// Bound on the H100: at the serve path's prefill shape (B=4, H=40, Kh=8,
-// S=512, D=128, causal, bf16) the bytes (q, k, v read once, o written once,
-// about 50 MB) take longer at 3.35 TB/s than the causal product (about
-// 10.8 GFLOP) at the 989 TFLOP/s bf16 tensor-core peak.  The previous kernel
-// did its products on the CUDA cores and was 66x that bound; the products go
-// to the tensor cores here, through wgmma, fed by TMA.
+// Bound on the H100: at the serve path's prefill shapes (qwen3: B=4, H=40,
+// Kh=8, S=512, D=128; stablelm: B=4, H=Kh=32, S=512, D=80; causal, bf16) the
+// bytes (q, k, v read once, o written once: about 50 and 42 MB) take longer
+// at 3.35 TB/s than the causal products (about 10.8 and 5.4 GFLOP) at the
+// 989 TFLOP/s bf16 tensor-core peak.  The previous kernel did its products on
+// the CUDA cores and was 66x (D = 128) and 44.5x (D = 80) that bound; the
+// products go to the tensor cores here, through wgmma, fed by TMA.
+//
+// Head dims (design (a): pad in shared memory only).  Every tile is built of
+// 64-column boxes in the 128-byte swizzle, so a head dim D is held in shared
+// memory as DP = D rounded up to a multiple of 64 (64 for D <= 64, 128 for
+// D in (64, 128]).  The tensor maps have the global dim D and a 64-column box,
+// so TMA reads only D columns from device memory and fills the columns past D
+// with zeros (the mbarrier still counts the whole box); the store of O drops
+// them.  S = Q K^T runs D / 16 k-steps, never DP / 16, and O += P V runs at
+// N = DP, whose columns past D are P times zeros and are never stored: at
+// D = 80 that is 128 columns of PV work for 80.  D stays a template argument,
+// one instance per head dim.  The other design, a 64-column box beside a
+// narrower one with a 32- or 64-byte swizzle and exact-width products, was not
+// built: the route is bound by bytes at the serve shapes, and the padding
+// costs no device-memory traffic, only tensor-core time and shared memory.
 //
 // Design (no clusters; no ping-pong scheduling between the warpgroups and no
 // overlap of one tile's softmax with the next tile's products: both were
@@ -27,13 +42,13 @@
 //  * The producer's one thread loads by TMA each item's Q into one of two Q
 //    buffers, so the next item's Q lands while this one's O is stored from
 //    the other, and K and V tiles of kBKV = 128 rows through a ring of
-//    stages (2 at D = 128: 2 x 32 KB of Q + 2 x 64 KB of K/V of the 227 KB;
-//    3 at D = 64), across items.  Each buffer and stage has a "full" mbarrier
+//    stages (2 at DP = 128: 2 x 32 KB of Q + 2 x 64 KB of K/V of the 227 KB;
+//    3 at DP = 64), across items.  Each buffer and stage has a "full" mbarrier
 //    (the TMA's bytes have landed) and an "empty" one (the consumers are done
 //    with it), so nothing waits on a block-wide barrier.  The tensor maps are
 //    3-D, (batch*heads, S, D), so rows past S come back as zeros and never as
 //    the next head's rows.
-//  * Shared tiles use the 128-byte swizzle, whose rows are 64 bf16: a D = 128
+//  * Shared tiles use the 128-byte swizzle, whose rows are 64 bf16: a DP = 128
 //    tile is two 64-column boxes, and the wgmma descriptors say so.
 //  * S = Q K^T is wgmma m64n128k16, bf16 in, f32 out, both operands K-major
 //    in shared memory.
@@ -52,8 +67,8 @@
 //    Skv.  Masked scores are -inf, so p = 0 exactly, and a row with no visible
 //    key keeps l = 0 and is written as zeros, as repro/kernels/ref.py defines.
 //  * O is staged, in the swizzled layout, in the warpgroup's own rows of the
-//    item's Q buffer and written by a TMA store per box (rows past Sq are
-//    dropped by the store).
+//    item's Q buffer and written by a TMA store per box (rows past Sq and
+//    columns past D are dropped by the store).
 //  * Optionally the row's log-sum-exp, f32 (B, H, Sq), for the backward
 //    (_flash_fwd in repro/models/attention.py saves m + log(l)): in natural
 //    log units of the scaled scores, m * scale + log(l), with m in raw units
@@ -85,15 +100,18 @@ constexpr int kBoxCols = 64;   // bf16 columns in one 128-byte swizzled row
 constexpr int kRowBytes = 128;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// Shared memory, from a base aligned to 1024 bytes (the swizzle's period):
+// Shared memory for head dim D, held as kPad columns (D rounded up to whole
+// 64-column boxes), from a base aligned to 1024 bytes (the swizzle's period):
 // two Q tiles (the next work item's Q loads while this one's O is stored
 // from the other), then the K/V ring.
 template <int D>
 struct Layout {
-  static constexpr int kStages = D == 128 ? 2 : 3;  // what fits the 227 KB
-  static constexpr int kBoxes = D / kBoxCols;
-  static constexpr int kQBytes = kBQ * D * 2;
-  static constexpr int kTileBytes = kBKV * D * 2;  // one K or one V tile
+  static_assert(D % 16 == 0 && D >= 16 && D <= 128, "head dims 16, 32, ..., 128");
+  static constexpr int kPad = (D + kBoxCols - 1) / kBoxCols * kBoxCols;
+  static constexpr int kStages = kPad == 128 ? 2 : 3;  // what fits the 227 KB
+  static constexpr int kBoxes = kPad / kBoxCols;
+  static constexpr int kQBytes = kBQ * kPad * 2;
+  static constexpr int kTileBytes = kBKV * kPad * 2;  // one K or one V tile
   static constexpr int kQ = 0;                     // 2 Q tiles
   static constexpr int kK = kQ + 2 * kQBytes;      // kStages K tiles
   static constexpr int kV = kK + kStages * kTileBytes;
@@ -259,8 +277,8 @@ __device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32], const uint32_t (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4], uint64_t b);
+template <int N>
+__device__ __forceinline__ void wgmma_pv(float (&o)[N / 2], const uint32_t (&a)[4], uint64_t b);
 template <>
 __device__ __forceinline__ void wgmma_pv<64>(float (&o)[32], const uint32_t (&a)[4], uint64_t b) {
   wgmma_rs_m64n64(o, a, b);
@@ -284,7 +302,7 @@ __device__ __forceinline__ void attend(const Item& item, const CUtensorMap* o_ma
                                        int causal, int window, long long q_offset,
                                        float scale_log2) {
   using L = Layout<D>;
-  constexpr int kStages = L::kStages;
+  constexpr int kStages = L::kStages, DP = L::kPad;
   const int tid = threadIdx.x;
   const int q0 = item.q0;
   const long long q_first = item.q_first, q_last = item.q_last, kv_begin = item.kv_begin;
@@ -295,9 +313,9 @@ __device__ __forceinline__ void attend(const Item& item, const CUtensorMap* o_ma
   const long long qpos[2] = {q_offset + q0 + r0, q_offset + q0 + r0 + 8};
   const int col0 = 2 * (lane & 3);
 
-  float acc[D / 2];
+  float acc[DP / 2];  // O's DP columns; those past D stay P x 0
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // m in raw score units
 
   for (int it = 0; it < n_tiles; ++it, ++tile) {
@@ -305,9 +323,10 @@ __device__ __forceinline__ void attend(const Item& item, const CUtensorMap* o_ma
     const long long j0 = kv_begin + (long long)it * kBKV;
     mbar_wait(bar_full + 8 * stage, (tile / kStages) & 1);
 
-    // S = Q K^T for this warpgroup's 64 rows: D / 16 steps of k16.  Within a
-    // 128-byte swizzled row a k16 step is 32 bytes further on; the next
-    // 64 columns are the next box.
+    // S = Q K^T for this warpgroup's 64 rows: D / 16 steps of k16 (the
+    // zero-filled columns past D are not read).  Within a 128-byte swizzled
+    // row a k16 step is 32 bytes further on; the next 64 columns are the
+    // next box.
     float s[kBKV / 2];
     wgmma_fence();
 #pragma unroll
@@ -363,7 +382,7 @@ __device__ __forceinline__ void attend(const Item& item, const CUtensorMap* o_ma
 #pragma unroll
     for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + rs[r];  // this thread's columns
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+    for (int i = 0; i < DP / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
 
     // P as bf16 A fragments: k16 step t covers S columns 16t..16t+15, which
     // are the thread's elements 8t..8t+7.
@@ -375,14 +394,14 @@ __device__ __forceinline__ void attend(const Item& item, const CUtensorMap* o_ma
       pa[t][2] = pack_bf16(s[8 * t + 4], s[8 * t + 5]);
       pa[t][3] = pack_bf16(s[8 * t + 6], s[8 * t + 7]);
     }
-    // O += P V: V is MN-major; a k16 step is 16 kv rows (2048 bytes) on, the
-    // second 64 columns of D the next box (the leading byte offset).
+    // O += P V at N = DP: V is MN-major; a k16 step is 16 kv rows (2048
+    // bytes) on, the second 64 columns the next box (the leading byte offset).
     fence_regs(acc);
     wgmma_fence();
 #pragma unroll
     for (int t = 0; t < kBKV / 16; ++t) {
       const uint32_t bv = sV + stage * L::kTileBytes + t * 16 * kRowBytes;
-      wgmma_pv<D>(acc, pa[t], sw128_desc(bv, kBKV * kRowBytes, 1024));
+      wgmma_pv<DP>(acc, pa[t], sw128_desc(bv, kBKV * kRowBytes, 1024));
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -400,9 +419,9 @@ __device__ __forceinline__ void attend(const Item& item, const CUtensorMap* o_ma
     if (lse != nullptr && (lane & 3) == 0 && row < Sq)
       lse[(size_t)item.bh * Sq + row] = l[r] > 0.f ? fmaf(m[r], scale_log2, log2f(l[r])) * kLn2 : INFINITY;
   }
-  // Stage this warpgroup's 64 rows of O in its own rows of the Q tile (its
-  // products are done), in the 128-byte swizzle, then a TMA store per box
-  // (rows past Sq are not written).
+  // Stage this warpgroup's 64 rows of O (its first D columns) in its own rows
+  // of the Q tile (its products are done), in the 128-byte swizzle, then a
+  // TMA store per box (rows past Sq and columns past D are not written).
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = wg * 64 + warp * 16 + (lane >> 2) + 8 * r;
@@ -536,7 +555,8 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A (heads, S, D) bf16 tensor, read in boxes of 64 columns x `rows` rows of one head.
+// A (heads, S, D) bf16 tensor, read in boxes of 64 columns x `rows` rows of one
+// head; a box's columns past D (and rows past S) load as zeros and are not stored.
 int make_map(CUtensorMap* map, const void* ptr, int heads, int S, int D, int rows) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return -1;
@@ -587,7 +607,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
 }  // namespace
 
 // q (B, H, Sq, D), k and v (B, Kh, Skv, D), o (B, H, Sq, D): contiguous bf16,
-// base addresses 16-byte aligned (TMA), D 64 or 128; lse null or f32
+// base addresses 16-byte aligned (TMA), D a multiple of 16 up to 128; lse null or f32
 // (B, H, Sq).  The wrapper has checked shapes, types, alignment, H % Kh == 0
 // and grid limits.
 extern "C" int flash_attention_fwd_sm90(const void* q, const void* k, const void* v, void* o,
@@ -605,7 +625,13 @@ extern "C" int flash_attention_fwd_sm90(const void* q, const void* k, const void
     }
     return (int)e;
   }
-  if (D == 64) return launch<64>(q, k, v, o, l, B, H, Kh, Sq, Skv, causal, window, q_offset, scale, s);
-  if (D == 128) return launch<128>(q, k, v, o, l, B, H, Kh, Sq, Skv, causal, window, q_offset, scale, s);
+  switch (D) {
+#define FLASH_SM90_CASE(d) \
+  case d:                  \
+    return launch<d>(q, k, v, o, l, B, H, Kh, Sq, Skv, causal, window, q_offset, scale, s);
+    FLASH_SM90_CASE(16) FLASH_SM90_CASE(32) FLASH_SM90_CASE(48) FLASH_SM90_CASE(64)
+    FLASH_SM90_CASE(80) FLASH_SM90_CASE(96) FLASH_SM90_CASE(112) FLASH_SM90_CASE(128)
+#undef FLASH_SM90_CASE
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -3,15 +3,19 @@
 Counterpart of ``repro.kernels.flash_attention.flash_attention_fwd``.  Takes
 CUDA tensors only; the plain version for CPU tensors is
 ``ref.flash_attention_ref`` (see ``ops``).  Unlike the Pallas kernel it needs
-no tile divisibility and pads no head dim.
+no tile divisibility and pads no head dim in device memory.
 
 Two kernels, one route each, chosen by ``route(dtype, D)`` before the launch:
 
-- ``"tc"``: bf16 with a head dim of 64 or 128 runs on the tensor cores
-  (``csrc/flash_attention_sm90.cu``: wgmma, TMA, P rounded to bf16 for the PV
-  product as the JAX model's ``flash_ref`` does).
-- ``"cores"``: everything else, f32 and the other head dims (multiples of 16
-  up to 256), runs the exact f32 kernel on the CUDA cores
+- ``"tc"``: bf16 with a head dim that is a multiple of 16 from 16 to 128
+  (``TC_HEAD_DIMS``) runs on the tensor cores (``csrc/flash_attention_sm90.cu``:
+  wgmma, TMA, P rounded to bf16 for the PV product as the JAX model's
+  ``flash_ref`` does).  A head dim that is not a multiple of 64 is padded to
+  one in shared memory only (design (a) in the source): TMA reads D columns
+  and fills the rest with zeros, Q K^T runs D / 16 k-steps, and the store of O
+  drops the padding.
+- ``"cores"``: everything else, f32 at any head dim and bf16 at a head dim in
+  (128, 256], runs the exact f32 kernel on the CUDA cores
   (``csrc/flash_attention.cu``).  f32 is held to 2e-5, which no bf16 or TF32
   product meets.
 
@@ -36,7 +40,7 @@ from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BQ = 32  # query rows per block of the CUDA-core kernel, as kBQ in its source
-TC_HEAD_DIMS = (64, 128)
+TC_HEAD_DIMS = tuple(range(16, 129, 16))  # the instances of the tensor-core kernel
 
 # Launches of each kernel in this process, and how many of them wrote the
 # lse; ``ops.reset_launch_counts`` zeroes them.

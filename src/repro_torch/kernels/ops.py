@@ -59,7 +59,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0, q_offset: int = 0) -> torch.Tensor:
     """(B,H,Sq,D) x (B,Kh,Skv,D)^2 -> (B,H,Sq,D); GQA via H//Kh groups.  On the
     card the kernel follows ``flash_attention.route(dtype, D)``: bf16 with D
-    64 or 128 on the tensor cores, the rest on the CUDA cores."""
+    a multiple of 16 up to 128 on the tensor cores, the rest on the CUDA cores."""
     if _needs_grad(q, k, v):
         return _FlashAttention.apply(q, k, v, causal, window, q_offset)
     return _flash_fwd(q, k, v, causal, window, q_offset, False)

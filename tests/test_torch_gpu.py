@@ -101,10 +101,12 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
     assert ops.launch_counts() == dict(NO_LAUNCHES, **{f"flash_attention_{tfa.route(dtype, D)}": 1})
 
 
-# The tensor-core route (bf16, D 64 or 128): tests/test_kernels.py's cases of
-# those head dims, the serve prefill shape and its 513-token variant, q_offset
-# = Skv - Sq with Sq != Skv, ragged lengths, and windows whose first rows see
-# no key.
+# The tensor-core route (bf16, D a multiple of 16 up to 128): tests/test_kernels.py's
+# cases of those head dims, the serve prefill shape and its 513-token variant,
+# q_offset = Skv - Sq with Sq != Skv, ragged lengths, and windows whose first
+# rows see no key; every head dim that is not a multiple of 64 (the kernel pads
+# it to one in shared memory), and stablelm-3b's prefill at D = 80 with the
+# same variants.
 TC_CASES = [
     # (B, H, Kh, Sq, Skv, D, causal, window, q_offset)
     (1, 2, 2, 128, 128, 64, True, 0, 0),
@@ -121,6 +123,15 @@ TC_CASES = [
     (1, 2, 2, 16, 16, 128, True, 0, -4),      # rows with no visible key
     (1, 2, 1, 4, 64, 64, True, 0, -10),       # no row sees a key: no kv tile is read
     (1, 2, 1, 40, 0, 128, True, 0, 0),        # no keys at all
+    (1, 4, 2, 128, 128, 16, True, 0, 0),
+    (1, 4, 1, 256, 256, 32, True, 0, 0),      # MQA
+    (1, 5, 1, 33, 70, 48, True, 0, 37),       # ragged, Sq != Skv
+    (4, 32, 32, 512, 512, 80, True, 0, 0),    # stablelm-3b's serve prefill (MHA)
+    (4, 32, 32, 513, 513, 80, True, 0, 0),    # its prefill of prompt + one token
+    (2, 4, 4, 100, 300, 80, True, 0, 200),    # ragged, Sq != Skv
+    (1, 4, 4, 200, 200, 80, True, 16, -20),   # window, the first 20 rows see no key
+    (2, 4, 2, 100, 100, 96, False, 0, 0),     # ragged, bidirectional
+    (1, 2, 2, 300, 300, 112, True, 48, 0),    # narrow window over several tiles
 ]
 
 
@@ -303,6 +314,25 @@ def test_bf16_train_gradients_on_the_card(cuda):
         assert _rel_l2(g, w) <= 2 * _rel_l2(c, w), (_rel_l2(g, w), _rel_l2(c, w))
 
 
+def test_flash_tensor_cores_read_only_their_own_bytes(cuda):
+    """q, k and v at D = 80 are views at the start of larger NaN-filled
+    buffers: a read past column 80 of the last row, or past the last row,
+    would bring a NaN into the output."""
+    B, H, Kh, S, D = 1, 4, 4, 200, 80
+    views = []
+    for t in _qkv(cuda, B, H, Kh, S, S, D, torch.bfloat16):
+        buf = torch.full((t.numel() + 128 * D,), float("nan"), dtype=torch.bfloat16, device="cuda")
+        views.append(buf[: t.numel()].view(t.shape))
+        views[-1].copy_(t)
+    q, k, v = views
+    got = ops.flash_attention(q, k, v, True, 0, 0)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    want = ref.flash_attention_ref(q, k, v, True, 0, 0)
+    torch.testing.assert_close(got.float(), want.float(), **tol(torch.bfloat16))
+    assert ops.launch_counts() == dict(NO_LAUNCHES, flash_attention_tc=1)
+
+
 def test_flash_tensor_cores_refuse_a_misaligned_start(cuda):
     """TMA reads from 16-byte aligned addresses; the route does not change."""
     q, k, v = _qkv(cuda, 1, 2, 2, 33, 33, 64, torch.bfloat16)
@@ -436,22 +466,23 @@ def test_reduced_mixtral_ring_decode_on_the_card_matches_the_cpu(cuda):
     np.testing.assert_array_equal(got, want)
 
 
-# The bf16 flash on the CUDA cores at stablelm's head dim of 80 (MHA, G = 1):
-# its prefill shape, ragged lengths, a window, and rows with no key.
+# The bf16 flash on the CUDA cores, at the head dims past the tensor-core
+# route's 128: a prefill-sized MHA case, the 513-token variant, ragged
+# lengths, and a window whose first rows see no key.
 CORES_BF16_CASES = [
     # (B, H, Kh, Sq, Skv, D, causal, window, q_offset)
-    (4, 32, 32, 512, 512, 80, True, 0, 0),   # stablelm's serve prefill
-    (4, 32, 32, 513, 513, 80, True, 0, 0),   # prefill of prompt + one token
-    (2, 4, 4, 100, 300, 80, True, 0, 200),   # ragged, Sq != Skv
-    (1, 4, 4, 200, 200, 80, True, 16, -20),  # window, the first 20 rows see no key
+    (2, 8, 8, 512, 512, 160, True, 0, 0),
+    (1, 8, 2, 513, 513, 256, True, 0, 0),    # prefill of prompt + one token
+    (2, 4, 4, 100, 300, 160, True, 0, 200),  # ragged, Sq != Skv
+    (1, 4, 4, 200, 200, 256, True, 16, -20), # window, the first 20 rows see no key
 ]
 
 
 @pytest.mark.parametrize("case", CORES_BF16_CASES)
-def test_flash_bf16_cuda_cores_at_head_dim_80(cuda, case):
-    """bf16 at D = 80 is not a tensor-core head dim: it runs the CUDA-core
-    kernel (its 3-column instance), within 2e-2 of the plain version, and
-    the check fails K with rolled columns and S = 0."""
+def test_flash_bf16_cuda_cores_past_head_dim_128(cuda, case):
+    """bf16 at D = 160 or 256 is not a tensor-core head dim: it runs the
+    CUDA-core kernel, within 2e-2 of the plain version, and the check fails
+    K with rolled columns and S = 0."""
     B, H, Kh, Sq, Skv, D, causal, window, off = case
     assert tfa.route(torch.bfloat16, D) == "cores"
     q, k, v = _qkv(cuda, B, H, Kh, Sq, Skv, D, torch.bfloat16)

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.optim.compression import quantize_int8
+from repro_torch.configs import ARCHS, get_config, reduced_config
 from repro_torch.kernels import _build
 from repro_torch.kernels import chunk_reduce as tcr
 from repro_torch.kernels import flash_attention as tfa
@@ -34,6 +35,20 @@ FLASH_CASES = [
     (1, 2, 2, 128, 128, 64, False, 0),    # bidirectional (encoder)
     (1, 2, 2, 256, 256, 64, True, 64),    # sliding window
     (1, 2, 1, 64, 512, 64, True, 0),      # Sq != Skv
+]
+
+# The tensor-core route's head dims that FLASH_CASES does not reach (it takes
+# every multiple of 16 up to 128; the kernel pads D to a multiple of 64 in
+# shared memory): the plain version, the card's yardstick for those
+# instances, against the Pallas kernel in interpret mode.
+HEAD_DIM_CASES = [
+    # (B, H, Kh, Sq, Skv, D, causal, window)
+    (1, 4, 2, 128, 128, 16, True, 0),
+    (1, 4, 2, 128, 128, 48, True, 0),
+    (1, 4, 2, 128, 128, 80, True, 0),
+    (1, 4, 2, 128, 128, 96, True, 0),
+    (1, 4, 2, 128, 128, 112, True, 0),
+    (1, 4, 4, 128, 128, 80, True, 0),     # MHA at D = 80, as stablelm-3b's heads
 ]
 
 # Shapes the Pallas kernel cannot take (it asserts tile divisibility), held
@@ -88,7 +103,7 @@ def _zero_counts():
     tops.reset_launch_counts()
 
 
-@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("case", FLASH_CASES + HEAD_DIM_CASES)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_ref_matches_jax_kernel(case, dtype):
     B, H, Kh, Sq, Skv, D, causal, window = case
@@ -291,18 +306,19 @@ def test_build_key_covers_every_source(monkeypatch, tmp_path):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16])
 @pytest.mark.parametrize("D", [16, 32, 48, 64, 80, 96, 128, 256])
 def test_flash_route_is_a_function_of_dtype_and_head_dim(dtype, D):
-    """bf16 with D 64 or 128 takes the tensor cores; f32 (held to 2e-5) and
-    every other head dim take the exact CUDA-core kernel."""
-    want = "tc" if dtype == torch.bfloat16 and D in (64, 128) else "cores"
+    """bf16 with D a multiple of 16 up to 128 takes the tensor cores; f32
+    (held to 2e-5) at every D, and bf16 past 128, take the exact CUDA-core
+    kernel."""
+    want = "tc" if dtype == torch.bfloat16 and D <= 128 else "cores"
     assert tfa.route(dtype, D) == want
 
 
-def test_flash_routes_of_the_configs():
-    """The serve config (qwen3-14b, head dim 128, bf16) takes the tensor cores;
-    its reduced config (f32, head dim 16) the CUDA cores."""
-    from repro_torch.configs import get_config, reduced_config
-
-    cfg = get_config("qwen3-14b")
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_flash_routes_of_the_configs(arch):
+    """Every registered config (bf16, head dim 80 to 128) takes the tensor
+    cores; its reduced config (f32, head dim 16) the CUDA cores."""
+    cfg = get_config(arch)
+    assert cfg.dtype == "bfloat16" and cfg.head_dim % 16 == 0 and cfg.head_dim <= 128
     assert tfa.route(getattr(torch, cfg.dtype), cfg.head_dim) == "tc"
     small = reduced_config(cfg)
     assert tfa.route(getattr(torch, small.dtype), small.head_dim) == "cores"

@@ -748,8 +748,8 @@ def test_chip_smoke_expects_the_calls_the_serve_path_makes(arch, monkeypatch):
     ``chip_smoke.expected_launches`` asks of the card, for a prompt that takes
     the ring roll of the windowed archs.  The reduced config in bf16 at the
     arch's own head dim (and M-RoPE sections), so the routes are the card's:
-    the CUDA cores for stablelm's 80, the tensor cores for 128.  RMSNorm:
-    none for LayerNorm models, with qk-norm the norms of q and k too."""
+    the tensor cores for stablelm's 80 and for 128, none on the CUDA cores.
+    RMSNorm: none for LayerNorm models, with qk-norm the norms of q and k too."""
     full = tconfigs.get_config(arch)
     cfg = dataclasses.replace(tconfigs.reduced_config(full), head_dim=full.head_dim,
                               mrope_sections=full.mrope_sections, **BF16)
@@ -774,8 +774,7 @@ def test_chip_smoke_expects_the_calls_the_serve_path_makes(arch, monkeypatch):
     assert calls == {k: want[k] for k in calls}
     assert want["chunk_reduce"] == want["dequant_add"] == 0
     assert (want["rmsnorm"] == 0) == (cfg.norm == "layernorm")
-    route, other = ("cores", "tc") if arch == "stablelm-3b" else ("tc", "cores")
-    assert want[f"flash_attention_{route}"] == cfg.num_layers and want[f"flash_attention_{other}"] == 0
+    assert want["flash_attention_tc"] == cfg.num_layers and want["flash_attention_cores"] == 0
 
 
 def _ring_fault(fault, monkeypatch):
