@@ -39,6 +39,17 @@ mask), then drives four paths:
   layers, 4 prompts of 512 tokens and 8 greedy tokens.  The kernel phase
   holds the flash forward at each run's prefill shape to the plain version
   and times it against SDPA.
+- serve_ssm: the SSM families at full width, with the same checks and times
+  as serve: rwkv6-1.6b at all 24 layers (RWKV-6 blocks, LayerNorm: no kernel
+  of the port), and jamba-v0.1-52b cut to one period of 8 of its 32 layers
+  (one attention layer without rotary embedding, seven Mamba layers, the
+  16-expert MoE on four), 4 prompts of 512 tokens, 32 and 16 greedy tokens.
+  The cache check holds the state caches (conv, SSM, shift, wkv).  Then the
+  scans, which are plain PyTorch loops over time: one layer's scan alone at
+  the prefill shape (time, device busy time, device events), and the share
+  of a prefill and of a decode step that the scans take.  The kernel phase
+  holds the flash at jamba's prefill shape (G = 4, no RoPE) and RMSNorm at
+  its rows.
 - sync: the train step's cross-pod gradient sync (``launch/sync.py``) on 4
   rank processes that share the card, over the bf16 gradient tree of one
   full-width qwen3-14b decoder block per rank, by every method.  Each rank
@@ -109,11 +120,18 @@ MOE_RUNS = {"mixtral-8x22b": (8, 2, 4608, 32, 8192), "llama4-scout-17b-a16e": (2
 # max_seq).  qwen2-vl-72b's 80 layers are 145 GB of bf16 weights.
 DENSE_RUNS = {"gemma3-27b": (62, 2, 1536, 16, 2048), "starcoder2-3b": (30, 4, 512, 32, 1024),
               "stablelm-3b": (32, 4, 512, 32, 1024), "qwen2-vl-72b": (16, 4, 512, 8, 1024)}
-# The flash forward at the prefill shapes of serve_moe and serve_dense (the
-# run's batch and prompt, every head, bf16), per (arch, the layers' attention):
-# every one on the tensor cores (head dim 128, and stablelm's 80).
+# The serve_ssm phase, per arch: (layers kept, batch, prompt, greedy tokens,
+# max_seq).  jamba's 32 layers are 99 GB of bf16 weights; 8 are one period of
+# its pattern (attention, seven Mamba layers, MoE on every second).
+SSM_RUNS = {"rwkv6-1.6b": (24, 4, 512, 32, 1024), "jamba-v0.1-52b": (8, 4, 512, 16, 1024)}
+SERVE_RUNS = {**MOE_RUNS, **DENSE_RUNS, **SSM_RUNS}
+# The flash forward at the prefill shapes of serve_moe, serve_dense and
+# serve_ssm (the run's batch and prompt, every head, bf16), per (arch, the
+# layers' attention): every one on the tensor cores (head dim 128, and
+# stablelm's 80).
 FLASH_PREFILL = (("mixtral-8x22b", "window"), ("stablelm-3b", "full"), ("gemma3-27b", "window"),
-                 ("gemma3-27b", "full"), ("starcoder2-3b", "full"), ("qwen2-vl-72b", "full"))
+                 ("gemma3-27b", "full"), ("starcoder2-3b", "full"), ("qwen2-vl-72b", "full"),
+                 ("jamba-v0.1-52b", "full"))
 # One full-width mixtral MoE layer's two dispatches on this many tokens (B, S).
 MOE_LAYER_TOKENS = (2, 512)
 # The dropping dispatch with room for every token against the dense one, bf16:
@@ -224,7 +242,7 @@ def serve_rmsnorm_rows(cfg, batch: int, prompt: int):
 
 def check_rmsnorm(torch, rn, ref, gen):
     """Kernel against plain version at every shape the serve paths give it
-    (``serve_rmsnorm_rows`` of qwen3 and of each MOE_RUNS and DENSE_RUNS run)
+    (``serve_rmsnorm_rows`` of qwen3 and of each run of SERVE_RUNS)
     and the train path's (a microbatch is one row of TRAIN_SEQ tokens: ln1,
     ln2 and the final norm, the qk-norm of q's 40 heads and k's 8); returns
     the record at the serve path's shape."""
@@ -232,7 +250,7 @@ def check_rmsnorm(torch, rn, ref, gen):
 
     shapes = serve_rmsnorm_rows(get_config(ARCH), BATCH, PROMPT) + [
         (5, 16383), (TRAIN_SEQ, 5120), (TRAIN_SEQ * 40, 128), (TRAIN_SEQ * 8, 128)]
-    for arch, (_, batch, prompt, _, _) in {**MOE_RUNS, **DENSE_RUNS}.items():
+    for arch, (_, batch, prompt, _, _) in SERVE_RUNS.items():
         shapes += serve_rmsnorm_rows(get_config(arch), batch, prompt)
     shapes = list(dict.fromkeys(shapes))
     path_err = None
@@ -598,24 +616,31 @@ def check_dequant_add(torch, cr, ref, compression, gen, leaf: int):
     }
 
 
+def layer_kinds(cfg):
+    """The kind of each layer ("attn", "mamba", "rwkv"), stage by stage."""
+    return [spec.kind for pattern, nblocks in cfg.stages() for _ in range(nblocks) for spec in pattern]
+
+
 def expected_launches(cfg, decode_steps: int):
-    """RMSNorm (none where ``cfg.norm`` is LayerNorm, plain PyTorch): ln1 +
-    ln2 + final, and with qk-norm the norms of q and k, and in prefill the
-    k-norm again (attention_prefill_kv recomputes k, as the JAX package does).
-    Flash attention: once per layer in prefill, on the route that
+    """RMSNorm (none where ``cfg.norm`` is LayerNorm, plain PyTorch): ln1 and
+    ln2 of every layer (an attention or Mamba layer's mixer and FFN, an RWKV
+    block's two mixes) and the final norm; with qk-norm the norms of q and k
+    of every attention layer, and in prefill its k-norm again
+    (attention_prefill_kv recomputes k, as the JAX package does).  Flash
+    attention: once per attention layer in prefill, on the route that
     ``flash_attention.route`` names for the config's type and head dim;
-    decode has none."""
+    decode has none.  Mamba and RWKV layers launch no kernel of the port."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
 
-    L = cfg.num_layers
-    qk = 2 * L if cfg.qk_norm else 0
+    L, n_attn = cfg.num_layers, layer_kinds(cfg).count("attn")
+    qk = 2 * n_attn if cfg.qk_norm else 0
     per_decode = (2 * L + 1 if cfg.norm == "rmsnorm" else 0) + qk
     prefill = per_decode + qk // 2
     counts = {"rmsnorm": prefill + decode_steps * per_decode, "flash_attention_tc": 0,
               "flash_attention_cores": 0, "chunk_reduce": 0, "dequant_add": 0}
-    counts[f"flash_attention_{fa.route(getattr(torch, cfg.dtype), cfg.head_dim)}"] = L
+    counts[f"flash_attention_{fa.route(getattr(torch, cfg.dtype), cfg.head_dim)}"] = n_attn
     return counts
 
 
@@ -707,13 +732,15 @@ def check_cache(torch, T, eng, toks, tag: str):
     return rel, max_abs, parted
 
 
-def serve_model(torch, card: str, cfg, batch: int, prompt: int, new_tokens: int, max_seq: int, tag: str):
+def serve_model(torch, card: str, cfg, batch: int, prompt: int, new_tokens: int, max_seq: int, tag: str,
+                extra=None):
     """Serve ``cfg`` (bf16 weights drawn on the card from SEED) through the
     engine: ``batch`` prompts of ``prompt`` tokens, ``new_tokens`` greedy
     tokens, caches of ``max_seq``.  The launches of that run must be
     ``expected_launches`` exactly, with no flash launch writing the lse; then
     the cache check, prefill (median of 3) and decode times, peak memory, and
-    one profiled prefill and decode step."""
+    one profiled prefill and decode step.  ``extra(torch, eng, toks, metrics)``, if
+    given, measures more with the engine and returns metrics to add."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import build_engine, random_prompts
@@ -778,12 +805,15 @@ def serve_model(torch, card: str, cfg, batch: int, prompt: int, new_tokens: int,
     log(f"[{tag}] {card}: {cfg.name} prefill {batch}x{prompt} {prefill_ms:.2f} ms (median of 3: "
         f"{', '.join(f'{t:.2f}' for t in pre)}), decode {dec_ms:.2f} ms per step of {batch} tokens, generate "
         f"{batch * new_tokens / gen_s:.1f} tok/s (prefill included), peak memory {peak_gb:.2f} GB")
-    return counts, {"prefill_ms": prefill_ms, "prefill_runs_ms": pre, "decode_ms_per_step": dec_ms,
-                    "prefill_kernel_busy_ms": prefill_busy, "decode_kernel_busy_ms": decode_busy,
-                    "prefill_device_ms_by_kind": prefill_kinds, "decode_device_ms_by_kind": decode_kinds,
-                    "generate_tok_s": batch * new_tokens / gen_s, "generate_s": gen_s, "peak_gb": peak_gb,
-                    "cache_rel_l2": rel, "cache_max_abs": max_abs, "cache_rows_routed_apart": parted,
-                    "weight_gb": weight_gb}
+    metrics = {"prefill_ms": prefill_ms, "prefill_runs_ms": pre, "decode_ms_per_step": dec_ms,
+               "prefill_kernel_busy_ms": prefill_busy, "decode_kernel_busy_ms": decode_busy,
+               "prefill_device_ms_by_kind": prefill_kinds, "decode_device_ms_by_kind": decode_kinds,
+               "generate_tok_s": batch * new_tokens / gen_s, "generate_s": gen_s, "peak_gb": peak_gb,
+               "cache_rel_l2": rel, "cache_max_abs": max_abs, "cache_rows_routed_apart": parted,
+               "weight_gb": weight_gb}
+    if extra is not None:
+        metrics.update(extra(torch, eng, toks, metrics))
+    return counts, metrics
 
 
 def serve(torch, card: str):
@@ -808,7 +838,7 @@ def check_flash_at(torch, fa, ref, gen, arch: str, attention: str):
     SDPA's (with the window as a boolean mask)."""
     from repro_torch.configs import get_config
 
-    cfg, (_, B, S, _, _) = get_config(arch), {**MOE_RUNS, **DENSE_RUNS}[arch]
+    cfg, (_, B, S, _, _) = get_config(arch), SERVE_RUNS[arch]
     spec = next(s for s in cfg.pattern + cfg.tail_pattern if s.attention == attention)
     H, Kh, D, causal, win = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, True, spec.window
     case = (B, H, Kh, S, S, D, causal, win)
@@ -886,72 +916,172 @@ def check_moe_dispatch(torch):
     return {"max_err_over_max": err, "rel_l2": rel}
 
 
-def serve_moe(torch, card: str):
-    """The MoE family at full width, depth cut by ``dataclasses.replace``
-    (MOE_RUNS): mixtral-8x22b, then llama4-scout-17b-a16e.  Returns the
-    launches of both runs' generate, summed, and each run's metrics."""
-    import dataclasses
-
-    from repro_torch.configs import get_config
-
-    counts, metrics = {}, {}
-    for arch, (layers, batch, prompt, new_tokens, max_seq) in MOE_RUNS.items():
-        t0 = time.perf_counter()
-        full = get_config(arch)
-        cfg = dataclasses.replace(full, num_layers=layers)
-        spec = cfg.pattern[0]
-        log(f"[serve_moe] {arch} at full width (d={cfg.d_model}, {cfg.num_heads} q / {cfg.num_kv_heads} kv heads, "
-            f"head dim {cfg.head_dim}, d_ff {cfg.d_ff}, {cfg.num_experts} experts top-{cfg.top_k}"
-            f"{' and a shared expert' if cfg.shared_expert else ''}, {spec.attention} attention"
-            f"{f' of window {spec.window}' if spec.window else ''}, vocab {cfg.vocab_size}), cut: {layers} of "
-            f"{full.num_layers} layers ({full.param_count() / 1e9:.1f} B parameters in all, "
-            f"{full.param_count() * 2 / 1e9:.0f} GB in bf16); {batch} prompts of {prompt} tokens, {new_tokens} "
-            f"greedy tokens, max_seq {max_seq}")
-        c, m = serve_model(torch, card, cfg, batch, prompt, new_tokens, max_seq, "serve_moe")
-        for name, n in c.items():
-            counts[name] = counts.get(name, 0) + n
-        m["phase_s"] = time.perf_counter() - t0
-        metrics[arch] = m
-        log(f"[serve_moe] {arch}: {m['phase_s']:.1f} s")
-        gc.collect()
-        torch.cuda.empty_cache()
-    return counts, metrics
-
-
-def serve_dense(torch, card: str):
-    """The rest of the dense-attention family at full width (DENSE_RUNS):
-    gemma3-27b, starcoder2-3b, stablelm-3b, then qwen2-vl-72b with its depth
-    cut by ``dataclasses.replace``.  Each engine is freed before the next.
+def serve_runs(torch, card: str, runs, tag: str, describe, extra=None):
+    """Serve each arch of ``runs`` ({arch: (layers kept, batch, prompt, greedy
+    tokens, max_seq)}) at full width, its depth cut to the layers kept by
+    ``dataclasses.replace``, through ``serve_model``; each engine is freed
+    before the next.  ``describe(cfg, full)`` names what the run holds.
     Returns the launches of the runs' generate, summed, and each run's
     metrics."""
     import dataclasses
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as fa
 
     counts, metrics = {}, {}
-    for arch, (layers, batch, prompt, new_tokens, max_seq) in DENSE_RUNS.items():
+    for arch, (layers, batch, prompt, new_tokens, max_seq) in runs.items():
         t0 = time.perf_counter()
         full = get_config(arch)
         cfg = dataclasses.replace(full, num_layers=layers)
-        windows = sorted({s.window for s in cfg.pattern + cfg.tail_pattern if s.attention == "window"})
-        log(f"[serve_dense] {arch} at full width (d={cfg.d_model}, {cfg.num_heads} q / {cfg.num_kv_heads} kv heads, "
-            f"head dim {cfg.head_dim} (flash on the {fa.route(torch.bfloat16, cfg.head_dim)} route), d_ff "
-            f"{cfg.d_ff} {cfg.act}, {cfg.norm}{' with qk-norm' if cfg.qk_norm else ''}, {cfg.rope}"
-            f"{f' sections {cfg.mrope_sections}' if cfg.mrope_sections else ''}, "
-            f"{f'windows {windows} and ' if windows else ''}{len(cfg.stages())} stage(s), vocab {cfg.vocab_size}), "
-            f"{layers} of {full.num_layers} layers ({full.param_count() / 1e9:.1f} B parameters in all); {batch} "
-            f"prompts of {prompt} tokens, {new_tokens} greedy tokens, max_seq {max_seq}")
-        c, m = serve_model(torch, card, cfg, batch, prompt, new_tokens, max_seq, "serve_dense")
+        log(f"[{tag}] {arch} at full width ({describe(cfg, full)}), {layers} of {full.num_layers} layers "
+            f"({full.param_count() / 1e9:.1f} B parameters in all); {batch} prompts of {prompt} tokens, "
+            f"{new_tokens} greedy tokens, max_seq {max_seq}")
+        c, m = serve_model(torch, card, cfg, batch, prompt, new_tokens, max_seq, tag, extra)
         for name, n in c.items():
             counts[name] = counts.get(name, 0) + n
         m["phase_s"] = time.perf_counter() - t0
         m["launches"] = c
         metrics[arch] = m
-        log(f"[serve_dense] {arch}: {m['phase_s']:.1f} s")
+        log(f"[{tag}] {arch}: {m['phase_s']:.1f} s")
         gc.collect()
         torch.cuda.empty_cache()
     return counts, metrics
+
+
+def serve_moe(torch, card: str):
+    """The MoE family (MOE_RUNS): mixtral-8x22b, then llama4-scout-17b-a16e."""
+
+    def describe(cfg, full):
+        spec = cfg.pattern[0]
+        return (f"d={cfg.d_model}, {cfg.num_heads} q / {cfg.num_kv_heads} kv heads, head dim {cfg.head_dim}, d_ff "
+                f"{cfg.d_ff}, {cfg.num_experts} experts top-{cfg.top_k}"
+                f"{' and a shared expert' if cfg.shared_expert else ''}, {spec.attention} attention"
+                f"{f' of window {spec.window}' if spec.window else ''}, vocab {cfg.vocab_size}; "
+                f"{full.param_count() * 2 / 1e9:.0f} GB in bf16 in all")
+
+    return serve_runs(torch, card, MOE_RUNS, "serve_moe", describe)
+
+
+def serve_dense(torch, card: str):
+    """The rest of the dense-attention family (DENSE_RUNS): gemma3-27b,
+    starcoder2-3b, stablelm-3b, then qwen2-vl-72b."""
+    from repro_torch.kernels import flash_attention as fa
+
+    def describe(cfg, full):
+        windows = sorted({s.window for s in cfg.pattern + cfg.tail_pattern if s.attention == "window"})
+        return (f"d={cfg.d_model}, {cfg.num_heads} q / {cfg.num_kv_heads} kv heads, head dim {cfg.head_dim} "
+                f"(flash on the {fa.route(torch.bfloat16, cfg.head_dim)} route), d_ff {cfg.d_ff} {cfg.act}, "
+                f"{cfg.norm}{' with qk-norm' if cfg.qk_norm else ''}, {cfg.rope}"
+                f"{f' sections {cfg.mrope_sections}' if cfg.mrope_sections else ''}, "
+                f"{f'windows {windows} and ' if windows else ''}{len(cfg.stages())} stage(s), vocab {cfg.vocab_size}")
+
+    return serve_runs(torch, card, DENSE_RUNS, "serve_dense", describe)
+
+
+def scan_inputs(torch, cfg, B: int, S: int):
+    """Inputs of one layer's scan at (B, S), f32 on the card, from SEED: for
+    RWKV (r, k, v, w, u, state) of ``ssm._wkv6_scan``, decays in (0, 1); for
+    Mamba (delta, B, C, x, A, h) of ``ssm._selective_scan``, steps > 0 and
+    A < 0.  The states start at zero, as in prefill."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    randn = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    if cfg.pattern[0].kind == "rwkv":
+        H, hs = cfg.d_model // cfg.rwkv_head_size, cfg.rwkv_head_size
+        r, k, v = (randn(B, S, H, hs) for _ in range(3))
+        return r, k, v, torch.sigmoid(randn(B, S, H, hs) + 2), randn(H, hs), torch.zeros(B, H, hs, hs, device="cuda")
+    di, N = cfg.ssm_expand * cfg.d_model, cfg.ssm_state_dim
+    delta = torch.nn.functional.softplus(randn(B, S, di) - 2)
+    return (delta, randn(B, S, N), randn(B, S, N), randn(B, S, di), -torch.exp(randn(di, N) * 0.5),
+            torch.zeros(B, di, N, device="cuda"))
+
+
+def scans_bracketed(torch, fn):
+    """One call of ``fn`` with every scan it makes (``ssm._wkv6_scan`` and
+    ``ssm._selective_scan``) bracketed by CUDA events: (the scans' summed
+    span on the card's stream in ms, the number of scans, the wall ms of the
+    call).  A span runs from the stream reaching the scan to its last step's
+    end, idle gaps included: on a host-bound loop, the wall time it holds."""
+    from repro_torch.models import ssm
+
+    spans, originals = [], (ssm._wkv6_scan, ssm._selective_scan)
+
+    def bracketed(scan):
+        def run(*args):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = scan(*args)
+            end.record()
+            spans.append((start, end))
+            return out
+        return run
+
+    ssm._wkv6_scan, ssm._selective_scan = (bracketed(f) for f in originals)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        ssm._wkv6_scan, ssm._selective_scan = originals
+    return sum(s.elapsed_time(e) for s, e in spans), len(spans), wall
+
+
+def measure_scans(torch, eng, toks, metrics):
+    """The scans of a served SSM model: one layer's scan alone at the prefill
+    shape (``time_ms``, 3 runs; the device busy time and device events of one
+    profiled call), and the share of one prefill and of one decode step that
+    its scans take (``scans_bracketed``)."""
+    from repro_torch.models import ssm
+    from repro_torch.models import transformer as T
+
+    cfg, B, S = eng.cfg, toks.shape[0], toks.shape[1]
+    rwkv = cfg.pattern[0].kind == "rwkv"
+    name = "_wkv6_scan" if rwkv else "_selective_scan"
+    inputs = scan_inputs(torch, cfg, B, S)
+    scan = lambda: getattr(ssm, name)(*inputs, False)
+    with torch.inference_mode():
+        alone_ms = time_ms(torch, scan, reps=3, warmup=1)
+        events, _ = device_events(torch, scan)
+        busy = busy_ms(events)
+        del inputs
+        pre_ms, pre_n, pre_wall = scans_bracketed(torch, lambda: T.prefill(cfg, eng.params, {"tokens": toks},
+                                                                           eng.options.max_seq))
+        _, caches = T.prefill(cfg, eng.params, {"tokens": toks}, eng.options.max_seq)
+        tok = toks[:, -1:]
+        dec_ms, dec_n, dec_wall = scans_bracketed(torch, lambda: T.decode_step(cfg, eng.params, tok, S, caches))
+        del caches
+    shape = (B, S, cfg.d_model // cfg.rwkv_head_size, cfg.rwkv_head_size) if rwkv else \
+        (B, S, cfg.ssm_expand * cfg.d_model, cfg.ssm_state_dim)
+    log(f"[serve_ssm] {cfg.name} {name} alone at {shape} f32: {alone_ms:.2f} ms (time_ms, median of 3), device "
+        f"busy {busy:.2f} ms ({100 * busy / alone_ms:.1f}%), {len(events)} device events ({len(events) / S:.1f} "
+        f"per step)")
+    log(f"[serve_ssm] {cfg.name} scans in one prefill: {pre_n} scans, {pre_ms:.2f} ms of {pre_wall:.2f} ms "
+        f"({100 * pre_ms / pre_wall:.1f}%); in one decode step: {dec_n} scans, {dec_ms:.3f} ms of "
+        f"{dec_wall:.2f} ms ({100 * dec_ms / dec_wall:.1f}%)")
+    if not pre_n == dec_n == layer_kinds(cfg).count("rwkv" if rwkv else "mamba"):
+        raise AssertionError(f"{cfg.name}: {pre_n} scans in prefill, {dec_n} in decode")
+    return {"scan": name, "scan_shape": list(shape), "scan_alone_ms": alone_ms, "scan_alone_busy_ms": busy,
+            "scan_alone_device_events": len(events), "scan_device_events_per_step": len(events) / S,
+            "prefill_scans": pre_n, "prefill_scan_ms": pre_ms, "prefill_scan_wall_ms": pre_wall,
+            "prefill_scan_share": pre_ms / pre_wall, "decode_scans": dec_n, "decode_scan_ms": dec_ms,
+            "decode_scan_wall_ms": dec_wall, "decode_scan_share": dec_ms / dec_wall}
+
+
+def serve_ssm(torch, card: str):
+    """The SSM families (SSM_RUNS): rwkv6-1.6b at full depth, then
+    jamba-v0.1-52b cut to one period; each run's metrics hold its scans'
+    (``measure_scans``)."""
+
+    def describe(cfg, full):
+        kinds = layer_kinds(cfg)
+        mixer = (f"{cfg.d_model // cfg.rwkv_head_size} wkv heads of {cfg.rwkv_head_size}" if "rwkv" in kinds else
+                 f"Mamba di={cfg.ssm_expand * cfg.d_model} N={cfg.ssm_state_dim} conv {cfg.ssm_conv_width} dt_rank "
+                 f"{max(1, cfg.d_model // 16)}, attention {cfg.num_heads} q / {cfg.num_kv_heads} kv heads of "
+                 f"{cfg.head_dim} with rope={cfg.rope}, {cfg.num_experts} experts top-{cfg.top_k}")
+        return (f"d={cfg.d_model}, d_ff {cfg.d_ff}, {cfg.norm}, vocab {cfg.vocab_size}; {mixer}; the layers kept: "
+                + ", ".join(f"{kinds.count(k)} {k}" for k in sorted(set(kinds))))
+
+    return serve_runs(torch, card, SSM_RUNS, "serve_ssm", describe, extra=measure_scans)
 
 
 def sync(torch, card: str):
@@ -1190,12 +1320,8 @@ def device_events(torch, fn):
     return events, per_name
 
 
-def device_profile(torch, fn, label: str, wall_ms: float, top: int = 6):
-    """Device busy time of one call of ``fn`` by torch.profiler: the union of
-    the intervals of its device-side events (kernels, copies), against the
-    unprofiled wall time, and the device events that took the most time.
-    Returns (busy ms, device ms by kind of EVENT_KINDS)."""
-    events, per_name = device_events(torch, fn)
+def busy_ms(events) -> float:
+    """The union of the events' intervals, in ms."""
     busy_us, end = 0.0, None
     for s, e in sorted((e.time_range.start, e.time_range.end) for e in events):
         if end is None or s > end:
@@ -1204,8 +1330,17 @@ def device_profile(torch, fn, label: str, wall_ms: float, top: int = 6):
         elif e > end:
             busy_us += e - end
             end = e
+    return busy_us / 1e3
+
+
+def device_profile(torch, fn, label: str, wall_ms: float, top: int = 6):
+    """Device busy time of one call of ``fn`` by torch.profiler: the union of
+    the intervals of its device-side events (kernels, copies), against the
+    unprofiled wall time, and the device events that took the most time.
+    Returns (busy ms, device ms by kind of EVENT_KINDS)."""
+    events, per_name = device_events(torch, fn)
     top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:top]
-    busy = busy_us / 1e3
+    busy = busy_ms(events)
     log(f"[profile] {label}: device busy {busy:.2f} ms of {wall_ms:.2f} ms wall "
         f"({100 * busy / wall_ms:.1f}%), {len(events)} device events; top: " + "; ".join(
             f"{name[:60]} {t / 1e3:.2f} ms x{n}" for name, (t, n) in top))
@@ -1303,9 +1438,12 @@ def main() -> int:
     t0 = time.perf_counter()
     prefill_shapes = {f"{arch} {attention}": check_flash_at(torch, fa, ref, gen, arch, attention)
                       for arch, attention in FLASH_PREFILL}
-    log(f"[kernels] the flash at the serve_moe and serve_dense prefill shapes: {time.perf_counter() - t0:.1f} s")
+    log(f"[kernels] the flash at the serve_moe, serve_dense and serve_ssm prefill shapes: "
+        f"{time.perf_counter() - t0:.1f} s")
     records[1].update({f"window_{key}": val for key, val in prefill_shapes.pop("mixtral-8x22b window").items()
                        if key != "kernel_route"})
+    records[1]["serve_ssm_shapes"] = {key: prefill_shapes.pop(key) for key in list(prefill_shapes)
+                                      if key.split()[0] in SSM_RUNS}
     records[1]["serve_dense_shapes"] = prefill_shapes
     gc.collect()
     torch.cuda.empty_cache()
@@ -1329,6 +1467,10 @@ def main() -> int:
     dense_counts, dense_metrics = serve_dense(torch, card)
     log(f"[serve_dense] metrics {json.dumps(dense_metrics)} on {card}")
 
+    # Phase 3d: serve the SSM families at full width.
+    ssm_counts, ssm_metrics = serve_ssm(torch, card)
+    log(f"[serve_ssm] metrics {json.dumps(ssm_metrics)} on {card}")
+
     # Phase 4: the cross-pod gradient sync on rank processes sharing the card.
     summary = sync(torch, card)
     log(f"[sync] metrics {json.dumps(summary)} on {card}")
@@ -1341,7 +1483,7 @@ def main() -> int:
     check_no_children()
 
     # launches of each kernel on each main path (each flash record: its route's)
-    by_path = {"serve": counts, "serve_moe": moe_counts, "serve_dense": dense_counts,
+    by_path = {"serve": counts, "serve_moe": moe_counts, "serve_dense": dense_counts, "serve_ssm": ssm_counts,
                "sync": {"chunk_reduce": sum(summary["methods"]["hoplite_chain"]["chunk_reduce"])},
                "train": train_counts}
     for r in records:

@@ -1,9 +1,11 @@
 """Architecture registry of the port: the configs whose path it runs.
 
 qwen3-14b, gemma3-27b, starcoder2-3b and stablelm-3b (dense), qwen2-vl-72b
-(the VLM backbone, M-RoPE), mixtral-8x22b and llama4-scout-17b-a16e (MoE);
-the other architectures of ``repro.configs`` (rwkv6, jamba, whisper) arrive
-with the slices that run them.
+(the VLM backbone, M-RoPE), mixtral-8x22b and llama4-scout-17b-a16e (MoE),
+rwkv6-1.6b (RWKV-6, attention-free) and jamba-v0.1-52b (Mamba with one
+attention layer in eight, MoE on every second layer); whisper-medium, the
+last architecture of ``repro.configs``, arrives with the slice that runs its
+encoder and cross-attention.
 """
 
 from __future__ import annotations
@@ -13,15 +15,17 @@ from typing import Dict
 
 from repro_torch.configs.base import LayerSpec, ModelConfig, ShapeSpec  # noqa: F401
 from repro_torch.configs.gemma3_27b import CONFIG as GEMMA3
+from repro_torch.configs.jamba_v0_1_52b import CONFIG as JAMBA
 from repro_torch.configs.llama4_scout_17b_a16e import CONFIG as LLAMA4_SCOUT
 from repro_torch.configs.mixtral_8x22b import CONFIG as MIXTRAL
 from repro_torch.configs.qwen2_vl_72b import CONFIG as QWEN2_VL
 from repro_torch.configs.qwen3_14b import CONFIG as QWEN3
+from repro_torch.configs.rwkv6_1_6b import CONFIG as RWKV6
 from repro_torch.configs.stablelm_3b import CONFIG as STABLELM
 from repro_torch.configs.starcoder2_3b import CONFIG as STARCODER2
 
 ARCHS: Dict[str, ModelConfig] = {
-    c.name: c for c in [QWEN3, GEMMA3, STARCODER2, STABLELM, QWEN2_VL, MIXTRAL, LLAMA4_SCOUT]
+    c.name: c for c in [QWEN3, GEMMA3, STARCODER2, STABLELM, QWEN2_VL, MIXTRAL, LLAMA4_SCOUT, RWKV6, JAMBA]
 }
 
 

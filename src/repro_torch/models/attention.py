@@ -6,8 +6,9 @@ the kernel's (B, H, S, D) layout, with the layer's window; decode attends one
 query position against the KV cache in plain PyTorch, as the JAX package does
 with plain jnp.  A windowed layer whose cache holds exactly its window uses
 it as a ring (slot ``t % C``); any other cache is linear (slot = position).
-Rotary embedding is RoPE or Qwen2-VL's M-RoPE (``positions_3d``, the three
-position streams; without them every stream is the token's position).
+Rotary embedding is RoPE, Qwen2-VL's M-RoPE (``positions_3d``, the three
+position streams; without them every stream is the token's position) or
+none (``rope="none"``, Jamba's attention layers: q and k as projected).
 Cross-attention is a later slice.
 """
 
@@ -39,15 +40,18 @@ def attn_skel(cfg):
 
 
 def _rotate(cfg, x, pos, positions_3d):
-    """RoPE or M-RoPE of x (B, S, H, D) at positions pos (S,); M-RoPE without
-    ``positions_3d`` (3, B, S) rotates every stream by pos, as the JAX package."""
+    """RoPE or M-RoPE of x (B, S, H, D) at positions pos (S,), or x itself for
+    ``rope="none"``; M-RoPE without ``positions_3d`` (3, B, S) rotates every
+    stream by pos, as the JAX package."""
+    if cfg.rope == "none":
+        return x
     if cfg.rope == "rope":
         return apply_rope(x, pos[None, :], cfg.rope_theta)
     if cfg.rope == "mrope":
         if positions_3d is None:
             positions_3d = pos[None, None, :].expand(3, x.shape[0], x.shape[1])
         return apply_mrope(x, positions_3d, cfg.rope_theta, cfg.mrope_sections)
-    raise NotImplementedError(f"rope {cfg.rope!r}: the port runs RoPE and M-RoPE only so far")
+    raise ValueError(f"unknown rope {cfg.rope!r}")
 
 
 def _positions_rope(cfg, p, q, k, q_pos, kv_pos, positions_3d=None):

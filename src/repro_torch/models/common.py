@@ -12,6 +12,7 @@ import dataclasses
 import math
 from typing import Any, Callable, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
@@ -187,3 +188,13 @@ def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor, theta: float, secti
     sec_id = torch.tensor([i for i, n in enumerate(sections) for _ in range(n)], device=x.device)  # (half,)
     pos = torch.movedim(positions_3d[sec_id], 0, -1)  # (..., S, half)
     return _rotate_by(x, pos.float() * freqs)
+
+
+def sinusoidal_positions(seq_len: int, d_model: int, device=None) -> torch.Tensor:
+    """Whisper-style absolute sinusoidal embeddings (seq_len, d_model), f32:
+    computed in numpy as the JAX package computes them, then rounded once."""
+    pos = np.arange(seq_len)[:, None]
+    dim = np.arange(d_model // 2)[None, :]
+    inv = 1.0 / (10000 ** (dim / max(1, d_model // 2 - 1)))
+    ang = pos * inv
+    return torch.from_numpy(np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)).to(device=device, dtype=torch.float32)

@@ -4,21 +4,25 @@ decode.
 
 Parameters keep the JAX package's tree: each stage stacks its layers on a
 leading "layers" axis, and where JAX scans over that axis the port runs a
-Python loop over it.  Caches mirror the JAX tree too: per stage,
-``{"pos0": {"k": (L,B,C,K,D), "v": (L,B,C,K,D)}}`` with C the position's own
-length (``cache_len_for``: a windowed layer keeps at most its window, as a
-ring); the port fills and updates them in place (JAX returns new arrays).
-GSPMD sharding hints have no counterpart on one device.  ``layer_fwd``,
-``stage_fwd`` and ``forward`` carry the MoE auxiliary loss (0 for a plain
-FFN), as the JAX package's do.
+Python loop over it.  Caches mirror the JAX tree too, per stage and pattern
+position, by the position's kind: attention ``{"k", "v"}`` of (L,B,C,K,D)
+with C the position's own length (``cache_len_for``: a windowed layer keeps
+at most its window, as a ring); Mamba ``{"conv": (L,B,W-1,di), "ssm":
+(L,B,di,N) f32}``; RWKV ``{"shift_t", "shift_c": (L,B,d), "wkv":
+(L,B,H,hs,hs) f32}``.  The port fills and updates them in place (JAX
+returns new arrays).  GSPMD sharding hints have no counterpart on one
+device.  ``layer_fwd``, ``stage_fwd`` and ``forward`` carry the MoE
+auxiliary loss (0 for a plain FFN or an RWKV block), as the JAX package's do.
 
-The port runs decoder-only stacks of attention layers, full or
-sliding-window, with a SwiGLU or gelu FFN or a mixture of experts, RMSNorm or
-LayerNorm, and RoPE or M-RoPE (``batch["positions_3d"]``, the three position
+The port runs decoder-only stacks of attention layers (full or
+sliding-window), Mamba layers (``models/ssm.py``; each with its FFN or MoE
+after it, as Jamba interleaves them) and RWKV-6 blocks (their own channel
+mix, no FFN), with a SwiGLU or gelu FFN or a mixture of experts, RMSNorm or
+LayerNorm, and RoPE, M-RoPE (``batch["positions_3d"]``, the three position
 streams, read by ``forward`` and ``prefill`` when ``cfg.rope == "mrope"``;
 decode rotates every stream by the token's position, as the JAX package
-does).  Mamba and RWKV layers, encoders and cross-attention, and
-``rope="none"`` raise ``NotImplementedError`` (:func:`check_supported`).
+does) or no rotary embedding.  Encoders and cross-attention raise
+``NotImplementedError`` (:func:`check_supported`).
 """
 
 from __future__ import annotations
@@ -30,25 +34,31 @@ import torch
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.common import Param, apply_norm, f32_product, norm_skel, tree_map_params
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.common import (
+    Param,
+    apply_norm,
+    f32_product,
+    norm_skel,
+    sinusoidal_positions,
+    tree_map_params,
+)
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` naming what this slice of the port lacks."""
     missing = []
     for spec in cfg.pattern + cfg.tail_pattern:
-        if spec.kind != "attn":
+        if spec.kind not in ("attn", "mamba", "rwkv"):
             missing.append(f"{spec.kind} layers")
-        elif spec.attention not in ("full", "window"):
+        elif spec.kind == "attn" and spec.attention not in ("full", "window"):
             missing.append(f"{spec.attention} attention")
     if cfg.is_encoder_decoder:
         missing.append("encoder and cross-attention")
-    if cfg.rope not in ("rope", "mrope"):
-        missing.append(f"rope={cfg.rope!r}")
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs decoder-only attention layers (full or windowed) with "
-            f"RoPE or M-RoPE only so far; missing: {', '.join(sorted(set(missing)))}"
+            f"{cfg.name}: the port runs decoder-only stacks (attention, Mamba and RWKV layers) only so far; "
+            f"missing: {', '.join(sorted(set(missing)))}"
         )
 
 
@@ -58,9 +68,18 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def layer_skel(cfg: ModelConfig, spec: LayerSpec):
-    if spec.kind != "attn":
-        raise NotImplementedError(f"{spec}: the port runs attention layers only so far")
-    s: Dict[str, Any] = {"ln1": norm_skel(cfg), "attn": attn.attn_skel(cfg), "ln2": norm_skel(cfg)}
+    s: Dict[str, Any] = {"ln1": norm_skel(cfg)}
+    if spec.kind == "attn":
+        s["attn"] = attn.attn_skel(cfg)
+    elif spec.kind == "mamba":
+        s["mixer"] = ssm_mod.mamba_skel(cfg)
+    elif spec.kind == "rwkv":
+        s["rwkv"] = ssm_mod.rwkv_skel(cfg)
+        s["ln2"] = norm_skel(cfg)
+        return s  # the rwkv block embeds its own channel-mix FFN
+    else:
+        raise ValueError(spec.kind)
+    s["ln2"] = norm_skel(cfg)
     if spec.moe:
         s["moe"] = moe_mod.moe_skel(cfg)
     else:
@@ -117,26 +136,73 @@ def _ffn_part(cfg, lp, spec, x):
     return x + out, aux
 
 
+def _norms(cfg, lp):
+    """The RWKV block's ln1 and ln2, as functions of x."""
+    return (lambda t: apply_norm(cfg, lp["ln1"], t)), (lambda t: apply_norm(cfg, lp["ln2"], t))
+
+
 def layer_fwd(cfg, spec, lp, x, q_pos, positions_3d=None):
     """Full-sequence forward of one layer (training): (x, aux)."""
+    if spec.kind == "rwkv":
+        return ssm_mod.rwkv_fwd(cfg, lp["rwkv"], x, *_norms(cfg, lp)), 0.0
     h = apply_norm(cfg, lp["ln1"], x)
-    x = x + attn.attention_fwd(cfg, lp["attn"], h, spec, q_pos, positions_3d)
+    if spec.kind == "attn":
+        x = x + attn.attention_fwd(cfg, lp["attn"], h, spec, q_pos, positions_3d)
+    else:  # mamba
+        x = x + ssm_mod.mamba_fwd(cfg, lp["mixer"], h)
     return _ffn_part(cfg, lp, spec, x)
 
 
 def cache_len_for(cfg, spec: LayerSpec, seq_len: int) -> int:
-    """Slots of an attention position's cache: a windowed layer keeps at most its window."""
+    """Slots of an attention position's cache: a windowed layer keeps at most
+    its window; 0 for a Mamba or RWKV position, whose state is fixed-size."""
+    if spec.kind != "attn":
+        return 0
     if spec.attention == "window":
         return min(seq_len, spec.window)
     return seq_len
 
 
+def cache_for(cfg, spec: LayerSpec, n: int, batch: int, cache_seq: int, dtype, device):
+    """Zeroed decode caches of one pattern position over its ``n`` blocks, by
+    kind, with the JAX package's shapes and types (``cache_skel``): K/V in
+    the model's type; Mamba's conv state in the model's type and its SSM
+    state in f32; RWKV's shift states in the model's type and its wkv state
+    in f32."""
+    zeros = lambda *shape, dt=dtype: torch.zeros((n, batch) + shape, dtype=dt, device=device)
+    if spec.kind == "attn":
+        shape = (cache_len_for(cfg, spec, cache_seq), cfg.num_kv_heads, cfg.head_dim)
+        return {"k": zeros(*shape), "v": zeros(*shape)}
+    if spec.kind == "mamba":
+        di = cfg.ssm_expand * cfg.d_model
+        return {"conv": zeros(cfg.ssm_conv_width - 1, di), "ssm": zeros(di, cfg.ssm_state_dim, dt=torch.float32)}
+    if spec.kind == "rwkv":
+        d, hs = cfg.d_model, cfg.rwkv_head_size
+        return {"shift_t": zeros(d), "shift_c": zeros(d), "wkv": zeros(d // hs, hs, hs, dt=torch.float32)}
+    raise ValueError(spec.kind)
+
+
+def _store(cache, state) -> None:
+    """Write a layer's new state into its cache views, in place."""
+    for name, t in state.items():
+        cache[name].copy_(t)
+
+
 def layer_prefill(cfg, spec, lp, x, q_pos, cache, positions_3d=None):
-    """Forward one layer over the prompt and write its K/V into ``cache``
-    (``{"k", "v"}`` views of shape (B, C, K, D), filled in place): the prompt
-    from slot 0 when it fits, else a ring of its last C positions, position
-    p at slot p % C.  Returns (x, aux)."""
+    """Forward one layer over the prompt and write its decode cache (views of
+    one block of ``cache_for``'s tensors, filled in place).  Attention: its
+    K/V from slot 0 when the prompt fits, else a ring of its last C
+    positions, position p at slot p % C.  Mamba and RWKV: the state after
+    the prompt.  Returns (x, aux)."""
+    if spec.kind == "rwkv":
+        out, state = ssm_mod.rwkv_prefill(cfg, lp["rwkv"], x, *_norms(cfg, lp))
+        _store(cache, state)
+        return out, 0.0
     h = apply_norm(cfg, lp["ln1"], x)
+    if spec.kind == "mamba":
+        y, state = ssm_mod.mamba_prefill(cfg, lp["mixer"], h)
+        _store(cache, state)
+        return _ffn_part(cfg, lp, spec, x + y)
     x = x + attn.attention_fwd(cfg, lp["attn"], h, spec, q_pos, positions_3d)
     # recomputes k and v as the JAX package does (attention_prefill_kv)
     k, v = attn.attention_prefill_kv(cfg, lp["attn"], h, q_pos, positions_3d)
@@ -152,8 +218,16 @@ def layer_prefill(cfg, spec, lp, x, q_pos, cache, positions_3d=None):
 
 def layer_decode(cfg, spec, lp, x, t: int, cache):
     """One-token forward against the cache (updated in place)."""
+    if spec.kind == "rwkv":
+        out, state = ssm_mod.rwkv_decode(cfg, lp["rwkv"], x, cache, *_norms(cfg, lp))
+        _store(cache, state)
+        return out
     h = apply_norm(cfg, lp["ln1"], x)
-    out, _ = attn.attention_decode(cfg, lp["attn"], h, spec, (cache["k"], cache["v"]), t)
+    if spec.kind == "attn":
+        out, _ = attn.attention_decode(cfg, lp["attn"], h, spec, (cache["k"], cache["v"]), t)
+    else:  # mamba
+        out, state = ssm_mod.mamba_decode(cfg, lp["mixer"], h, cache)
+        _store(cache, state)
     x, _ = _ffn_part(cfg, lp, spec, x + out)
     return x
 
@@ -193,10 +267,7 @@ def stage_prefill(cfg, pattern, stage_params, x, q_pos, cache_seq: int, position
     if S > cache_seq:
         raise ValueError(f"prompt of {S} tokens does not fit a cache of {cache_seq}")
     n = _num_blocks(stage_params)
-    caches = {}
-    for i, spec in enumerate(pattern):
-        shape = (n, B, cache_len_for(cfg, spec, cache_seq), cfg.num_kv_heads, cfg.head_dim)
-        caches[f"pos{i}"] = {"k": x.new_zeros(shape), "v": x.new_zeros(shape)}
+    caches = {f"pos{i}": cache_for(cfg, spec, n, B, cache_seq, x.dtype, x.device) for i, spec in enumerate(pattern)}
     for blk in range(n):
         bp = _layer(stage_params, blk)
         for i, spec in enumerate(pattern):
@@ -247,6 +318,9 @@ def forward(cfg: ModelConfig, params, batch, wrap: Optional[Callable] = None):
         x = batch["x_embed"].to(getattr(torch, cfg.dtype))
     else:
         x = _embed(cfg, params, batch["tokens"])
+    if cfg.rope == "none" and cfg.family not in ("ssm", "hybrid"):
+        # the JAX package's forward adds these (its prefill and decode do not)
+        x = x + sinusoidal_positions(x.shape[1], cfg.d_model, x.device).to(x.dtype)
     q_pos = torch.arange(x.shape[1], device=x.device)
     positions_3d = batch.get("positions_3d") if cfg.rope == "mrope" else None
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)

@@ -106,7 +106,7 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
 # q_offset = Skv - Sq with Sq != Skv, ragged lengths, and windows whose first
 # rows see no key; every head dim that is not a multiple of 64 (the kernel pads
 # it to one in shared memory), and stablelm-3b's prefill at D = 80 with the
-# same variants.
+# same variants; jamba-v0.1-52b's prefill.
 TC_CASES = [
     # (B, H, Kh, Sq, Skv, D, causal, window, q_offset)
     (1, 2, 2, 128, 128, 64, True, 0, 0),
@@ -132,6 +132,8 @@ TC_CASES = [
     (1, 4, 4, 200, 200, 80, True, 16, -20),   # window, the first 20 rows see no key
     (2, 4, 2, 100, 100, 96, False, 0, 0),     # ragged, bidirectional
     (1, 2, 2, 300, 300, 112, True, 48, 0),    # narrow window over several tiles
+    (4, 32, 8, 512, 512, 128, True, 0, 0),    # jamba's serve prefill (G = 4, no RoPE)
+    (4, 32, 8, 513, 513, 128, True, 0, 0),    # its prefill of prompt + one token
 ]
 
 
@@ -498,13 +500,17 @@ def test_flash_bf16_cuda_cores_past_head_dim_128(cuda, case):
 
 
 def _perturbed_norms(params, seed: int):
-    """Random non-zero norm weights (and LayerNorm biases): zeros would hide the 1 + w."""
+    """Random non-zero norm weights (and LayerNorm biases): zeros would hide
+    the 1 + w.  So too the SSM leaves that init_params makes zeros or ones
+    (RWKV's mixes, bonus, decay base and group norm, Mamba's biases, A_log
+    and D), which would hide a wrong term."""
     rng = np.random.RandomState(seed)
 
     def walk(node, in_norm=False):
         items = node.items() if isinstance(node, dict) else enumerate(node)
         for name, v in items:
-            norm = in_norm or name in ("ln1", "ln2", "final_norm", "q_norm", "k_norm")
+            norm = in_norm or name in ("ln1", "ln2", "final_norm", "q_norm", "k_norm", "mu", "u", "w0", "ln_w",
+                                       "ln_b", "conv_b", "dt_b", "A_log", "D")
             if isinstance(v, (dict, list)):
                 walk(v, norm)
             elif norm:
@@ -601,6 +607,35 @@ def test_full_width_starcoder2_layer_on_the_card_matches_the_cpu(cuda):
     assert got.dtype == torch.bfloat16 and got.shape == want.shape
     assert _max_err(got - x.cuda(), want - x) <= 2e-2
     assert ops.launch_counts() == dict(NO_LAUNCHES, flash_attention_tc=1)
+
+
+@pytest.mark.parametrize("arch,position", [("jamba-v0.1-52b", 2), ("rwkv6-1.6b", 0)])
+def test_full_width_ssm_layer_on_the_card_matches_the_cpu(cuda, arch, position):
+    """One full-width layer of each SSM family, bf16 weights drawn on the CPU
+    from a seed with their zero and one leaves drawn anew, on 2 x 64 tokens:
+    the card in bf16 against the port's f32 run on the CPU of the same
+    weights and inputs, upcast, within 2e-2 of the largest magnitude of the
+    layer's update.  jamba's position 2 is a Mamba layer (d 4096, di 8192,
+    N 16, conv 4, dt_rank 256) with its FFN (RMSNorm: two launches);
+    rwkv6's is an RWKV-6 block (d 2048, 32 heads of 64, d_ff 7168;
+    LayerNorm: none)."""
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=len(full.pattern))
+    spec = cfg.pattern[position]
+    assert spec.kind == ("mamba" if arch.startswith("jamba") else "rwkv") and not spec.moe
+    lp = init_params(T.layer_skel(cfg, spec), torch.Generator().manual_seed(5), "cpu", "bfloat16")
+    _perturbed_norms(lp, 5)
+    if cfg.norm == "layernorm":  # LayerNorm's scale near one
+        lp["ln1"]["w"] += 1
+        lp["ln2"]["w"] += 1
+    x = torch.randn(2, 64, cfg.d_model, generator=torch.Generator().manual_seed(6)).bfloat16()
+    q_pos = torch.arange(64)
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    want, _ = T.layer_fwd(cfg32, spec, tree_map(lambda t: t.float(), lp), x.float(), q_pos)
+    got, _ = T.layer_fwd(cfg, spec, _to_cuda(lp), x.cuda(), q_pos.cuda())
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert _max_err(got.float() - x.cuda().float(), want - x.float()) <= 2e-2
+    assert ops.launch_counts() == dict(NO_LAUNCHES, rmsnorm=2 if cfg.norm == "rmsnorm" else 0)
 
 
 @pytest.mark.parametrize("tied", [False, True])

@@ -158,17 +158,21 @@ def test_convert_keeps_bf16_and_checks_the_tree():
         convert.params_from_jax(bad, cfg, device="cpu")
 
 
+# Every family with an encoder and cross-attention (whisper's), over each kind
+# of decoder layer: the port runs Mamba and RWKV layers, so only the encoder
+# is missing.
+ENCODER = dict(encoder_layers=2, encoder_seq=32)
 UNSUPPORTED = {
-    "mamba": dict(pattern=(LayerSpec(kind="mamba"),)),
-    "rwkv": dict(pattern=(LayerSpec(kind="rwkv"),)),
-    "cross": dict(encoder_layers=2, encoder_seq=32),
+    "mamba": dict(pattern=(LayerSpec(kind="mamba"),), **ENCODER),
+    "rwkv": dict(pattern=(LayerSpec(kind="rwkv"),), **ENCODER),
+    "cross": ENCODER,
 }
 
 
 @pytest.mark.parametrize("what", sorted(UNSUPPORTED))
 def test_other_families_raise_not_implemented(what):
     cfg = dataclasses.replace(tconfigs.reduced_config(tconfigs.get_config("qwen3-14b")), **UNSUPPORTED[what])
-    with pytest.raises(NotImplementedError, match="the port runs"):
+    with pytest.raises(NotImplementedError, match="the port runs.*missing: encoder and cross-attention$"):
         TT.model_skel(cfg)
     with pytest.raises(NotImplementedError):
         TT.prefill(cfg, {}, {"tokens": torch.zeros((1, 4), dtype=torch.long)}, 8)

@@ -740,7 +740,7 @@ def test_train_step_matches_jax_on_reduced_mixtral():
 
 
 @pytest.mark.parametrize("arch", ["qwen3-14b"] + ARCHS + ["gemma3-27b", "starcoder2-3b", "stablelm-3b",
-                                                           "qwen2-vl-72b"])
+                                                           "qwen2-vl-72b", "rwkv6-1.6b", "jamba-v0.1-52b"])
 def test_chip_smoke_expects_the_calls_the_serve_path_makes(arch, monkeypatch):
     """The card counts one launch per call of ``ops.rmsnorm`` and per call of
     ``ops.flash_attention`` on the route ``flash_attention.route`` names: on
@@ -749,7 +749,9 @@ def test_chip_smoke_expects_the_calls_the_serve_path_makes(arch, monkeypatch):
     the ring roll of the windowed archs.  The reduced config in bf16 at the
     arch's own head dim (and M-RoPE sections), so the routes are the card's:
     the tensor cores for stablelm's 80 and for 128, none on the CUDA cores.
-    RMSNorm: none for LayerNorm models, with qk-norm the norms of q and k too."""
+    Flash once per attention layer (every layer but jamba's Mamba layers
+    and rwkv6's RWKV blocks); RMSNorm: none for LayerNorm models, ln1 and
+    ln2 of every layer kind, with qk-norm the norms of q and k too."""
     full = tconfigs.get_config(arch)
     cfg = dataclasses.replace(tconfigs.reduced_config(full), head_dim=full.head_dim,
                               mrope_sections=full.mrope_sections, **BF16)
@@ -774,7 +776,9 @@ def test_chip_smoke_expects_the_calls_the_serve_path_makes(arch, monkeypatch):
     assert calls == {k: want[k] for k in calls}
     assert want["chunk_reduce"] == want["dequant_add"] == 0
     assert (want["rmsnorm"] == 0) == (cfg.norm == "layernorm")
-    assert want["flash_attention_tc"] == cfg.num_layers and want["flash_attention_cores"] == 0
+    attn_layers = CS.layer_kinds(cfg).count("attn")
+    assert attn_layers == {"rwkv6-1.6b": 0, "jamba-v0.1-52b": 2}.get(arch, cfg.num_layers)
+    assert want["flash_attention_tc"] == attn_layers and want["flash_attention_cores"] == 0
 
 
 def _ring_fault(fault, monkeypatch):
