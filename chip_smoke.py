@@ -10,7 +10,7 @@ log-sum-exp on both routes, at every head dim of the tensor-core route, its
 autograd backward against the CPU's, and the flash at every serve run's
 prefill shape), times RMSNorm against ``F.rms_norm``, the flash forward at
 the serve, train and prefill shapes against SDPA (with a window as a boolean
-mask), then drives four paths:
+mask), then drives these paths:
 
 - serve: qwen3-14b at full width (40 layers, d=5120, bf16 weights drawn on
   the card from seed 0), 4 prompts of 512 tokens, 32 greedy tokens each, with
@@ -50,6 +50,17 @@ mask), then drives four paths:
   of a prefill and of a decode step that the scans take.  The kernel phase
   holds the flash at jamba's prefill shape (G = 4, no RoPE) and RMSNorm at
   its rows.
+- serve_encdec: the encoder-decoder whisper-medium whole at full width (24
+  encoder layers over 1500 frames a row, 24 decoder layers with
+  cross-attention, d=1024, 16 heads of 64, LayerNorm, the gelu FFN,
+  sinusoidal positions), 4 prompts of 384 tokens with their frames drawn
+  after them from seed 0 (``launch.serve.random_batch``), 32 greedy tokens
+  with a max_seq of 448, whisper's text context.  The same checks and times
+  as serve, the frames given to every prefill; the encoder's time and its
+  share of a prefill, and the cross caches' bytes.  The flash runs
+  bidirectional (the encoder, and cross-attention with Sq != Skv, neither a
+  multiple of the 128-row tile), and the kernel phase holds it at the
+  encoder, decoder and cross shapes of this run.
 - sync: the train step's cross-pod gradient sync (``launch/sync.py``) on 4
   rank processes that share the card, over the bf16 gradient tree of one
   full-width qwen3-14b decoder block per rank, by every method.  Each rank
@@ -109,6 +120,9 @@ FLASH_CASES = [
     (1, 2, 2, 128, 128, 64, False, 0),
     (1, 2, 2, 256, 256, 64, True, 64),
     (1, 2, 1, 64, 512, 64, True, 0),
+    # bidirectional with Sq != Skv, neither a multiple of the 128-row tile: a
+    # cross-attention's shape (whisper's kv edge tile of 1500 = 11 x 128 + 92)
+    (2, 4, 4, 200, 1500, 64, False, 0),
 ]
 
 ARCH, BATCH, PROMPT, NEW_TOKENS, MAX_SEQ, SEED = "qwen3-14b", 4, 512, 32, 1024, 0
@@ -124,14 +138,21 @@ DENSE_RUNS = {"gemma3-27b": (62, 2, 1536, 16, 2048), "starcoder2-3b": (30, 4, 51
 # max_seq).  jamba's 32 layers are 99 GB of bf16 weights; 8 are one period of
 # its pattern (attention, seven Mamba layers, MoE on every second).
 SSM_RUNS = {"rwkv6-1.6b": (24, 4, 512, 32, 1024), "jamba-v0.1-52b": (8, 4, 512, 16, 1024)}
-SERVE_RUNS = {**MOE_RUNS, **DENSE_RUNS, **SSM_RUNS}
-# The flash forward at the prefill shapes of serve_moe, serve_dense and
-# serve_ssm (the run's batch and prompt, every head, bf16), per (arch, the
-# layers' attention): every one on the tensor cores (head dim 128, and
-# stablelm's 80).
+# The serve_encdec phase, per arch: (layers kept, batch, prompt, greedy tokens,
+# max_seq).  whisper-medium whole: 24 encoder and 24 decoder layers over the
+# config's 1500 frames a row; 448 is its published text context.
+ENCDEC_RUNS = {"whisper-medium": (24, 4, 384, 32, 448)}
+SERVE_RUNS = {**MOE_RUNS, **DENSE_RUNS, **SSM_RUNS, **ENCDEC_RUNS}
+# The flash forward at the prefill shapes of serve_moe, serve_dense,
+# serve_ssm and serve_encdec (the run's batch, every head, bf16), per (arch,
+# the layers' attention): "full" and "window" are the decoder's causal
+# self-attention over the prompt, "encoder" the encoder's bidirectional
+# self-attention over the frames, "cross" the prompt against the frames.
+# Every one on the tensor cores (head dim 128, stablelm's 80, whisper's 64).
 FLASH_PREFILL = (("mixtral-8x22b", "window"), ("stablelm-3b", "full"), ("gemma3-27b", "window"),
                  ("gemma3-27b", "full"), ("starcoder2-3b", "full"), ("qwen2-vl-72b", "full"),
-                 ("jamba-v0.1-52b", "full"))
+                 ("jamba-v0.1-52b", "full"), ("whisper-medium", "encoder"), ("whisper-medium", "full"),
+                 ("whisper-medium", "cross"))
 # One full-width mixtral MoE layer's two dispatches on this many tokens (B, S).
 MOE_LAYER_TOKENS = (2, 512)
 # The dropping dispatch with room for every token against the dense one, bf16:
@@ -629,18 +650,27 @@ def expected_launches(cfg, decode_steps: int):
     (attention_prefill_kv recomputes k, as the JAX package does).  Flash
     attention: once per attention layer in prefill, on the route that
     ``flash_attention.route`` names for the config's type and head dim;
-    decode has none.  Mamba and RWKV layers launch no kernel of the port."""
+    decode has none.  Mamba and RWKV layers launch no kernel of the port.
+    An encoder-decoder adds, in prefill, the encoder's layers (flash,
+    bidirectional, and the norms of an attention layer) and its final norm,
+    and in every decoder layer that has cross-attention (each but an RWKV
+    block) a flash launch in prefill and its ln_cross in prefill and decode."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
 
-    L, n_attn = cfg.num_layers, layer_kinds(cfg).count("attn")
+    kinds = layer_kinds(cfg)
+    L, n_attn = cfg.num_layers, kinds.count("attn")
+    E = cfg.encoder_layers
+    n_cross = len(kinds) - kinds.count("rwkv") if E else 0
+    rms = cfg.norm == "rmsnorm"
     qk = 2 * n_attn if cfg.qk_norm else 0
-    per_decode = (2 * L + 1 if cfg.norm == "rmsnorm" else 0) + qk
-    prefill = per_decode + qk // 2
+    per_decode = (2 * L + 1 + n_cross if rms else 0) + qk
+    encoder = (2 * E + 1 if rms else 0) + (2 * E if cfg.qk_norm else 0) if E else 0
+    prefill = per_decode + qk // 2 + encoder
     counts = {"rmsnorm": prefill + decode_steps * per_decode, "flash_attention_tc": 0,
               "flash_attention_cores": 0, "chunk_reduce": 0, "dequant_add": 0}
-    counts[f"flash_attention_{fa.route(getattr(torch, cfg.dtype), cfg.head_dim)}"] = n_attn
+    counts[f"flash_attention_{fa.route(getattr(torch, cfg.dtype), cfg.head_dim)}"] = n_attn + E + n_cross
     return counts
 
 
@@ -673,8 +703,10 @@ class RoutingLog:
         self.moe._route = self.route
 
 
-def check_cache(torch, T, eng, toks, tag: str):
-    """Decode step 1 against the last position of prefill(prompt + token).
+def check_cache(torch, T, eng, toks, tag: str, inputs=None):
+    """Decode step 1 against the last position of prefill(prompt + token);
+    ``inputs`` (an encoder-decoder's frames) go to every prefill with the
+    tokens.
 
     Both sides run bf16 weights and activations: the two paths round in
     different places (the flash kernel against decode's plain attention,
@@ -689,13 +721,15 @@ def check_cache(torch, T, eng, toks, tag: str):
     ROUTE_MARGIN, and only where both paths' MoE inputs still agree within
     CACHE_REL_L2_TOL; such a row is not compared, and at least half the rows
     must be.  tests/test_torch_moe.py shows that this check fails a ring slot
-    off by one on the reduced mixtral."""
+    off by one on the reduced mixtral, tests/test_torch_encdec.py a cross
+    cache with two rows swapped or taken before the encoder's final norm."""
     from repro_torch.models import moe
 
     cfg, params, max_seq = eng.cfg, eng.params, eng.options.max_seq
     B, prompt = toks.shape
+    inputs = inputs or {}
     with torch.inference_mode():
-        logits, caches = T.prefill(cfg, params, {"tokens": toks}, max_seq)
+        logits, caches = T.prefill(cfg, params, dict(inputs, tokens=toks), max_seq)
         if not torch.isfinite(logits).all():
             raise AssertionError("prefill logits are not finite")
         first = logits[:, : cfg.vocab_size].argmax(-1)[:, None]  # greedy, as the engine
@@ -703,7 +737,7 @@ def check_cache(torch, T, eng, toks, tag: str):
             step1, _ = T.decode_step(cfg, params, first, prompt, caches)
         del caches
         with RoutingLog(moe) as pre:
-            longer, _ = T.prefill(cfg, params, {"tokens": torch.cat([toks, first], dim=1)}, max_seq)
+            longer, _ = T.prefill(cfg, params, dict(inputs, tokens=torch.cat([toks, first], dim=1)), max_seq)
     if not torch.isfinite(step1).all():
         raise AssertionError("decode logits are not finite")
     rows, parted = torch.ones(B, dtype=torch.bool, device=toks.device), []
@@ -735,15 +769,17 @@ def check_cache(torch, T, eng, toks, tag: str):
 def serve_model(torch, card: str, cfg, batch: int, prompt: int, new_tokens: int, max_seq: int, tag: str,
                 extra=None):
     """Serve ``cfg`` (bf16 weights drawn on the card from SEED) through the
-    engine: ``batch`` prompts of ``prompt`` tokens, ``new_tokens`` greedy
-    tokens, caches of ``max_seq``.  The launches of that run must be
+    engine: ``batch`` prompts of ``prompt`` tokens (and for an
+    encoder-decoder their frames, ``launch.serve.random_batch``),
+    ``new_tokens`` greedy tokens, caches of ``max_seq``.  The launches of that run must be
     ``expected_launches`` exactly, with no flash launch writing the lse; then
     the cache check, prefill (median of 3) and decode times, peak memory, and
-    one profiled prefill and decode step.  ``extra(torch, eng, toks, metrics)``, if
-    given, measures more with the engine and returns metrics to add."""
+    one profiled prefill and decode step.  ``extra(torch, eng, inputs, metrics)``,
+    if given, measures more with the engine (``inputs``: prefill's batch on
+    the card) and returns metrics to add."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
-    from repro_torch.launch.serve import build_engine, random_prompts
+    from repro_torch.launch.serve import build_engine, random_batch
     from repro_torch.models import transformer as T
     from repro_torch.serving.engine import ServeOptions
     from repro_torch.tree import leaves
@@ -754,14 +790,15 @@ def serve_model(torch, card: str, cfg, batch: int, prompt: int, new_tokens: int,
     weight_gb = sum(t.numel() * t.element_size() for t in leaves(eng.params)) / 1e9
     log(f"[{tag}] {cfg.name}: {cfg.param_count() / 1e9:.2f} B parameters, {weight_gb:.2f} GB of "
         f"{cfg.param_dtype} weights drawn on the card in {time.perf_counter() - t0:.1f} s")
-    tokens = random_prompts(cfg, batch, prompt, SEED)
-    toks = torch.as_tensor(tokens, device="cuda")
+    host = random_batch(cfg, batch, prompt, SEED)
+    inputs = {k: torch.as_tensor(v, device="cuda") for k, v in host.items()}  # prefill's, timed below
+    toks = inputs["tokens"]
 
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    out = eng.generate({"tokens": tokens}, new_tokens)  # the main path
+    out = eng.generate(host, new_tokens)  # the main path
     gen_s = time.perf_counter() - t0
     counts = ops.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -776,16 +813,17 @@ def serve_model(torch, card: str, cfg, batch: int, prompt: int, new_tokens: int,
     if out.shape != (batch, new_tokens) or out.min() < 0 or out.max() >= cfg.vocab_size:
         raise AssertionError(f"tokens out of range or of the wrong shape: {out.shape}, {out.min()}..{out.max()}")
 
-    cache_toks = torch.as_tensor(random_prompts(cfg, max(batch, CACHE_ROWS), prompt, SEED), device="cuda")
-    rel, max_abs, parted = check_cache(torch, T, eng, cache_toks, tag)
-    del cache_toks
+    cache_in = {k: torch.as_tensor(v, device="cuda")
+                for k, v in random_batch(cfg, max(batch, CACHE_ROWS), prompt, SEED).items()}
+    rel, max_abs, parted = check_cache(torch, T, eng, cache_in.pop("tokens"), tag, cache_in)
+    del cache_in
 
     with torch.inference_mode():
         pre = []
         for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            logits, caches = T.prefill(cfg, eng.params, {"tokens": toks}, max_seq)
+            logits, caches = T.prefill(cfg, eng.params, inputs, max_seq)
             torch.cuda.synchronize()
             pre.append((time.perf_counter() - t0) * 1e3)
         tok = logits[:, : cfg.vocab_size].argmax(-1)[:, None]
@@ -798,7 +836,7 @@ def serve_model(torch, card: str, cfg, batch: int, prompt: int, new_tokens: int,
         dec_ms = (time.perf_counter() - t0) * 1e3 / (new_tokens - 1)
         prefill_ms = statistics.median(pre)
         prefill_busy, prefill_kinds = device_profile(
-            torch, lambda: T.prefill(cfg, eng.params, {"tokens": toks}, max_seq), f"{cfg.name} prefill", prefill_ms)
+            torch, lambda: T.prefill(cfg, eng.params, inputs, max_seq), f"{cfg.name} prefill", prefill_ms)
         decode_busy, decode_kinds = device_profile(
             torch, lambda: T.decode_step(cfg, eng.params, tok, prompt + new_tokens - 1, caches),
             f"{cfg.name} decode step", dec_ms)
@@ -812,7 +850,7 @@ def serve_model(torch, card: str, cfg, batch: int, prompt: int, new_tokens: int,
                "cache_rel_l2": rel, "cache_max_abs": max_abs, "cache_rows_routed_apart": parted,
                "weight_gb": weight_gb}
     if extra is not None:
-        metrics.update(extra(torch, eng, toks, metrics))
+        metrics.update(extra(torch, eng, inputs, metrics))
     return counts, metrics
 
 
@@ -830,25 +868,31 @@ def sdpa_kernels(torch, fn, top: int = 2):
 
 
 def check_flash_at(torch, fa, ref, gen, arch: str, attention: str):
-    """The flash forward at ``arch``'s prefill shape (its serve run's batch
-    and prompt, every head, bf16) for its layers of ``attention``: on the
-    route ``fa.route`` names; output and lse against the plain version, the
-    wrong-Q.K^T checks and, windowed, a check that full causal attention is
-    told apart; then its time against its bound, the plain version's and
-    SDPA's (with the window as a boolean mask)."""
+    """The flash forward at ``arch``'s prefill shape (its serve run's batch,
+    every head, bf16) for its layers of ``attention`` (FLASH_PREFILL): the
+    decoder's causal self-attention over the prompt ("full", "window"), the
+    encoder's bidirectional self-attention over the frames ("encoder") or
+    the prompt against the frames ("cross"); on the route ``fa.route``
+    names.  Output and lse against the plain version, the wrong-Q.K^T checks
+    and, windowed, a check that full causal attention is told apart; then
+    its time against its bound, the plain version's and SDPA's (with the
+    window as a boolean mask)."""
     from repro_torch.configs import get_config
 
     cfg, (_, B, S, _, _) = get_config(arch), SERVE_RUNS[arch]
-    spec = next(s for s in cfg.pattern + cfg.tail_pattern if s.attention == attention)
-    H, Kh, D, causal, win = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, True, spec.window
-    case = (B, H, Kh, S, S, D, causal, win)
-    q, k, v = flash_inputs(torch, gen, B, H, Kh, S, S, D, torch.bfloat16)
+    H, Kh, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    E = cfg.encoder_seq
+    Sq, Skv = {"encoder": (E, E), "cross": (S, E)}.get(attention, (S, S))
+    causal = attention not in ("encoder", "cross")
+    win = next(s.window for s in cfg.pattern + cfg.tail_pattern if s.attention == attention) if causal else 0
+    case = (B, H, Kh, Sq, Skv, D, causal, win)
+    q, k, v = flash_inputs(torch, gen, B, H, Kh, Sq, Skv, D, torch.bfloat16)
     route = fa.route(torch.bfloat16, D)
     before = (fa.launches_tc, fa.launches_cores)
     got = fa.flash_attention_fwd(q, k, v, causal=causal, window=win)
     if (fa.launches_tc - before[0], fa.launches_cores - before[1]) != ((1, 0) if route == "tc" else (0, 1)):
         raise AssertionError(f"flash {case}: launched off its route {route}")
-    what = f"flash {case} bf16 ({route}, {arch}'s prefill shape)"
+    what = f"flash {case} bf16 ({route}, {arch}'s {attention} prefill shape)"
     err = compare(torch, what, got, ref.flash_attention_ref(q, k, v, causal, win, 0), "bfloat16")
     check_sensitive(torch, ref, what, got, q, k, v, causal, win, 0)
     lse_err = check_lse(torch, fa, ref, what, got, q, k, v, causal, win, 0, "bfloat16")
@@ -861,23 +905,25 @@ def check_flash_at(torch, fa, ref, gen, arch: str, attention: str):
         sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                                                         enable_gqa=H != Kh)
     else:
-        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True,
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                                                         enable_gqa=H != Kh)
     compare(torch, f"SDPA at {case} (against the plain version)", sdpa(),
             ref.flash_attention_ref(q, k, v, causal, win, 0), "bfloat16")
     del got
     torch.cuda.synchronize()
-    ms = time_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, causal=True, window=win))
-    plain = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, True, win, 0), reps=5, warmup=1)
+    ms = time_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, causal=causal, window=win))
+    plain = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, causal, win, 0), reps=5, warmup=1)
     lib = time_ms(torch, sdpa)
     backend = sdpa_kernels(torch, sdpa)
-    pairs = flash_pairs(torch, S, S, True, win, 0)
+    pairs = flash_pairs(torch, Sq, Skv, causal, win, 0)
     ops = 4 * B * H * D * pairs
     b_ms, b_by = bound((2 * q.numel() + k.numel() + v.numel()) * 2, ops, "bfloat16")
-    shape = f"q {tuple(q.shape)} kv {tuple(k.shape)} causal{f' window {win}' if win else ''} bf16"
-    log(f"[kernels] flash {shape} ({'tensor cores' if route == 'tc' else 'CUDA cores'}, {arch}'s prefill shape, "
-        f"{pairs} visible pairs per head): kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA {lib:.4f} ms "
-        f"({ms / lib:.3f}x; its kernels {backend}), bound {b_ms:.4f} ms ({b_by}, {ops / 1e9:.1f} GFLOP), "
+    shape = (f"q {tuple(q.shape)} kv {tuple(k.shape)} {'causal' if causal else 'bidirectional'}"
+             f"{f' window {win}' if win else ''} bf16")
+    log(f"[kernels] flash {shape} ({'tensor cores' if route == 'tc' else 'CUDA cores'}, {arch}'s {attention} "
+        f"prefill shape, {pairs} visible pairs per head): kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA "
+        f"{lib:.4f} ms ({ms / lib:.3f}x; its kernels {backend}), bound {b_ms:.4f} ms ({b_by}, "
+        f"{ops / 1e9:.1f} GFLOP, {(2 * q.numel() + k.numel() + v.numel()) * 2 / 1e6:.1f} MB), "
         f"{ops / ms / 1e9:.2f} TFLOP/s")
     del q, k, v
     return {"shape": shape, "kernel_route": route, "max_abs_err": err, "lse_max_abs_err": lse_err, "ms": ms,
@@ -1026,7 +1072,7 @@ def scans_bracketed(torch, fn):
     return sum(s.elapsed_time(e) for s, e in spans), len(spans), wall
 
 
-def measure_scans(torch, eng, toks, metrics):
+def measure_scans(torch, eng, batch, metrics):
     """The scans of a served SSM model: one layer's scan alone at the prefill
     shape (``time_ms``, 3 runs; the device busy time and device events of one
     profiled call), and the share of one prefill and of one decode step that
@@ -1034,6 +1080,7 @@ def measure_scans(torch, eng, toks, metrics):
     from repro_torch.models import ssm
     from repro_torch.models import transformer as T
 
+    toks = batch["tokens"]
     cfg, B, S = eng.cfg, toks.shape[0], toks.shape[1]
     rwkv = cfg.pattern[0].kind == "rwkv"
     name = "_wkv6_scan" if rwkv else "_selective_scan"
@@ -1082,6 +1129,58 @@ def serve_ssm(torch, card: str):
                 + ", ".join(f"{kinds.count(k)} {k}" for k in sorted(set(kinds))))
 
     return serve_runs(torch, card, SSM_RUNS, "serve_ssm", describe, extra=measure_scans)
+
+
+def measure_encoder(torch, eng, batch, metrics):
+    """The encoder of a served encoder-decoder: its time alone on prefill's
+    frames (``T._run_encoder``, host clock around a synchronised call,
+    median of 3), its share of the prefill's median, and its device busy
+    time and time by kind in one profiled call; the cross caches of one
+    prefill, (L, B, E, K, D) in the model's type, and their bytes."""
+    from repro_torch.models import transformer as T
+
+    cfg, frames = eng.cfg, batch["encoder_frames"]
+    runs = []
+    with torch.inference_mode():
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            enc = T._run_encoder(cfg, eng.params, frames)
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        if enc.shape != frames.shape or enc.dtype != getattr(torch, cfg.dtype) or not torch.isfinite(enc).all():
+            raise AssertionError(f"encoder output {tuple(enc.shape)} {enc.dtype}, not finite or of the wrong shape")
+        del enc
+        enc_ms = statistics.median(runs)
+        busy, kinds = device_profile(torch, lambda: T._run_encoder(cfg, eng.params, frames), f"{cfg.name} encoder",
+                                     enc_ms)
+        _, caches = T.prefill(cfg, eng.params, batch, eng.options.max_seq)
+    B, E = frames.shape[:2]
+    want = (B, E, cfg.num_kv_heads, cfg.head_dim)
+    cross = [t for stage in caches for c in stage.values() for name, t in c.items() if name.startswith("cross_")]
+    if len(cross) != 2 * len(caches) or any(tuple(t.shape[1:]) != want or t.dtype != getattr(torch, cfg.dtype)
+                                            for t in cross):
+        raise AssertionError(f"cross caches {[tuple(t.shape) for t in cross]}, expected (L,) + {want}")
+    cross_gb = sum(t.numel() * t.element_size() for t in cross) / 1e9
+    del caches, cross
+    log(f"[serve_encdec] {cfg.name} encoder ({cfg.encoder_layers} layers, {B} x {E} frames): {enc_ms:.2f} ms "
+        f"(median of 3: {', '.join(f'{t:.2f}' for t in runs)}), {100 * enc_ms / metrics['prefill_ms']:.1f}% of "
+        f"the {metrics['prefill_ms']:.2f} ms prefill; cross caches {cross_gb:.3f} GB")
+    return {"encoder_ms": enc_ms, "encoder_runs_ms": runs, "encoder_share_of_prefill": enc_ms / metrics["prefill_ms"],
+            "encoder_kernel_busy_ms": busy, "encoder_device_ms_by_kind": kinds, "cross_cache_gb": cross_gb}
+
+
+def serve_encdec(torch, card: str):
+    """The encoder-decoder (ENCDEC_RUNS): whisper-medium whole; each run's
+    metrics hold its encoder's (``measure_encoder``)."""
+
+    def describe(cfg, full):
+        return (f"d={cfg.d_model}, {cfg.num_heads} heads of {cfg.head_dim} (MHA), d_ff {cfg.d_ff} {cfg.act}, "
+                f"{cfg.norm}, rope={cfg.rope} with sinusoidal positions, vocab {cfg.vocab_size}; "
+                f"{cfg.encoder_layers} encoder layers over {cfg.encoder_seq} frames a row, cross-attention in "
+                f"every decoder layer; {full.param_count() * 2 / 1e9:.2f} GB in bf16 in all")
+
+    return serve_runs(torch, card, ENCDEC_RUNS, "serve_encdec", describe, extra=measure_encoder)
 
 
 def sync(torch, card: str):
@@ -1438,12 +1537,14 @@ def main() -> int:
     t0 = time.perf_counter()
     prefill_shapes = {f"{arch} {attention}": check_flash_at(torch, fa, ref, gen, arch, attention)
                       for arch, attention in FLASH_PREFILL}
-    log(f"[kernels] the flash at the serve_moe, serve_dense and serve_ssm prefill shapes: "
+    log(f"[kernels] the flash at the serve_moe, serve_dense, serve_ssm and serve_encdec prefill shapes: "
         f"{time.perf_counter() - t0:.1f} s")
     records[1].update({f"window_{key}": val for key, val in prefill_shapes.pop("mixtral-8x22b window").items()
                        if key != "kernel_route"})
     records[1]["serve_ssm_shapes"] = {key: prefill_shapes.pop(key) for key in list(prefill_shapes)
                                       if key.split()[0] in SSM_RUNS}
+    records[1]["serve_encdec_shapes"] = {key: prefill_shapes.pop(key) for key in list(prefill_shapes)
+                                         if key.split()[0] in ENCDEC_RUNS}
     records[1]["serve_dense_shapes"] = prefill_shapes
     gc.collect()
     torch.cuda.empty_cache()
@@ -1471,6 +1572,10 @@ def main() -> int:
     ssm_counts, ssm_metrics = serve_ssm(torch, card)
     log(f"[serve_ssm] metrics {json.dumps(ssm_metrics)} on {card}")
 
+    # Phase 3e: serve the encoder-decoder at full width and depth.
+    encdec_counts, encdec_metrics = serve_encdec(torch, card)
+    log(f"[serve_encdec] metrics {json.dumps(encdec_metrics)} on {card}")
+
     # Phase 4: the cross-pod gradient sync on rank processes sharing the card.
     summary = sync(torch, card)
     log(f"[sync] metrics {json.dumps(summary)} on {card}")
@@ -1484,7 +1589,7 @@ def main() -> int:
 
     # launches of each kernel on each main path (each flash record: its route's)
     by_path = {"serve": counts, "serve_moe": moe_counts, "serve_dense": dense_counts, "serve_ssm": ssm_counts,
-               "sync": {"chunk_reduce": sum(summary["methods"]["hoplite_chain"]["chunk_reduce"])},
+               "serve_encdec": encdec_counts, "sync": {"chunk_reduce": sum(summary["methods"]["hoplite_chain"]["chunk_reduce"])},
                "train": train_counts}
     for r in records:
         name = "flash_attention_tc" if r["name"] == "flash_attention" else r["name"]

@@ -2,10 +2,11 @@
 
 qwen3-14b, gemma3-27b, starcoder2-3b and stablelm-3b (dense), qwen2-vl-72b
 (the VLM backbone, M-RoPE), mixtral-8x22b and llama4-scout-17b-a16e (MoE),
-rwkv6-1.6b (RWKV-6, attention-free) and jamba-v0.1-52b (Mamba with one
-attention layer in eight, MoE on every second layer); whisper-medium, the
-last architecture of ``repro.configs``, arrives with the slice that runs its
-encoder and cross-attention.
+rwkv6-1.6b (RWKV-6, attention-free), jamba-v0.1-52b (Mamba with one
+attention layer in eight, MoE on every second layer) and whisper-medium (the
+encoder-decoder: a bidirectional encoder over precomputed frames, decoder
+layers with cross-attention into its output).  These are every architecture
+of ``repro.configs``.
 """
 
 from __future__ import annotations
@@ -23,9 +24,11 @@ from repro_torch.configs.qwen3_14b import CONFIG as QWEN3
 from repro_torch.configs.rwkv6_1_6b import CONFIG as RWKV6
 from repro_torch.configs.stablelm_3b import CONFIG as STABLELM
 from repro_torch.configs.starcoder2_3b import CONFIG as STARCODER2
+from repro_torch.configs.whisper_medium import CONFIG as WHISPER
 
 ARCHS: Dict[str, ModelConfig] = {
-    c.name: c for c in [QWEN3, GEMMA3, STARCODER2, STABLELM, QWEN2_VL, MIXTRAL, LLAMA4_SCOUT, RWKV6, JAMBA]
+    c.name: c
+    for c in [QWEN3, GEMMA3, STARCODER2, STABLELM, QWEN2_VL, MIXTRAL, LLAMA4_SCOUT, RWKV6, JAMBA, WHISPER]
 }
 
 

@@ -2,11 +2,10 @@
 
 The port keeps its own copy so that it imports nothing of the JAX package;
 ``tests/test_torch_models.py`` holds the two copies equal field by field.
-One ``ModelConfig`` describes any architecture in the assigned pool; the
-port's modules run its decoder-only stacks (attention, full or
-sliding-window, Mamba and RWKV-6 layers, with a SwiGLU or gelu FFN or
-experts, RMSNorm or LayerNorm, RoPE, M-RoPE or no rotary embedding) and
-raise ``NotImplementedError`` for an encoder and cross-attention.
+One ``ModelConfig`` describes any architecture in the assigned pool, and
+the port's modules run each: attention (full or sliding-window), Mamba and
+RWKV-6 layers, with a SwiGLU or gelu FFN or experts, RMSNorm or LayerNorm,
+RoPE, M-RoPE or no rotary embedding, and an encoder with cross-attention.
 """
 
 from __future__ import annotations

@@ -5,7 +5,9 @@
 
 runs on the card; ``--reduced --device cpu`` runs the small variant on the
 CPU.  Weights are drawn from ``--seed`` on the device (a checkpoint loader
-is a later slice), prompts from the same seed with numpy.
+is a later slice), prompts from the same seed with numpy, and for an
+encoder-decoder (``--arch whisper-medium``) the encoder's frames after them
+from the same stream, as the JAX launcher draws them.
 """
 
 from __future__ import annotations
@@ -31,8 +33,15 @@ def build_engine(cfg, device, seed: int, options: ServeOptions) -> Engine:
     return Engine(cfg, params, options)
 
 
-def random_prompts(cfg, batch: int, prompt_len: int, seed: int) -> np.ndarray:
-    return np.random.RandomState(seed).randint(0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32)
+def random_batch(cfg, batch: int, prompt_len: int, seed: int):
+    """Prompts (batch, prompt_len) int32 from ``RandomState(seed)``; for an
+    encoder-decoder also ``encoder_frames`` (batch, encoder_seq, d_model)
+    f32, drawn right after the prompts from the same stream."""
+    rng = np.random.RandomState(seed)
+    out = {"tokens": rng.randint(0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32)}
+    if cfg.is_encoder_decoder:
+        out["encoder_frames"] = rng.randn(batch, cfg.encoder_seq, cfg.d_model).astype(np.float32)
+    return out
 
 
 def main(argv=None) -> np.ndarray:
@@ -52,11 +61,11 @@ def main(argv=None) -> np.ndarray:
     if args.reduced:
         cfg = reduced_config(cfg)
     eng = build_engine(cfg, dev, args.seed, ServeOptions(max_seq=args.max_seq, batch_size=args.batch))
-    tokens = random_prompts(cfg, args.batch, args.prompt_len, args.seed)
+    batch = random_batch(cfg, args.batch, args.prompt_len, args.seed)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    out = eng.generate({"tokens": tokens}, args.new_tokens)  # ends in a copy to the host
+    out = eng.generate(batch, args.new_tokens)  # ends in a copy to the host
     dt = time.perf_counter() - t0
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"[serve] {cfg.name} on {where}: generated {out.shape} tokens in {dt:.3f}s "

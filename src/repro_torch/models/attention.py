@@ -1,5 +1,5 @@
-"""Attention: GQA, full causal or sliding-window, prefill and decode (port
-of ``repro.models.attention``).
+"""Attention: GQA, full causal or sliding-window, bidirectional and cross,
+prefill and decode (port of ``repro.models.attention``).
 
 Prefill runs the flash-attention kernel through ``ops.flash_attention`` in
 the kernel's (B, H, S, D) layout, with the layer's window; decode attends one
@@ -8,14 +8,17 @@ with plain jnp.  A windowed layer whose cache holds exactly its window uses
 it as a ring (slot ``t % C``); any other cache is linear (slot = position).
 Rotary embedding is RoPE, Qwen2-VL's M-RoPE (``positions_3d``, the three
 position streams; without them every stream is the token's position) or
-none (``rope="none"``, Jamba's attention layers: q and k as projected).
-Cross-attention is a later slice.
+none (``rope="none"``, Jamba's and Whisper's attention layers: q and k as
+projected).  ``causal=False`` is an encoder's bidirectional self-attention.
+Cross-attention (``kv_x``, the encoder's output) takes K and V from it with
+neither rotary embedding nor qk-norm and sees every frame; in decode it
+reads the static cross cache that prefill wrote (``cross=True``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -25,7 +28,8 @@ from repro_torch.models.common import Param, apply_mrope, apply_rope, dense, rms
 NEG_INF = -1e30
 
 
-def attn_skel(cfg):
+def attn_skel(cfg, cross: bool = False):
+    """A cross-attention block (``cross``) has no qk-norm."""
     d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
     s = {
         "wq": Param((d, qd), ("embed", "heads")),
@@ -33,7 +37,7 @@ def attn_skel(cfg):
         "wv": Param((d, kvd), ("embed", "kv")),
         "wo": Param((qd, d), ("heads", "embed")),
     }
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         s["q_norm"] = Param((cfg.head_dim,), (None,), init="zeros")
         s["k_norm"] = Param((cfg.head_dim,), (None,), init="zeros")
     return s
@@ -64,25 +68,34 @@ def _positions_rope(cfg, p, q, k, q_pos, kv_pos, positions_3d=None):
     return qf.reshape(q.shape), _rotate(cfg, k, kv_pos, positions_3d)
 
 
-def attention_fwd(cfg, p, x: torch.Tensor, spec, q_pos: torch.Tensor, positions_3d=None) -> torch.Tensor:
-    """Prefill self-attention (no cache).  x: (B, S, d); q_pos: (S,) positions;
-    positions_3d: M-RoPE's (3, B, S) streams or None."""
+def attention_fwd(cfg, p, x: torch.Tensor, spec, q_pos: torch.Tensor, positions_3d=None,
+                  kv_x: Optional[torch.Tensor] = None, causal: bool = True) -> torch.Tensor:
+    """Prefill attention (no cache).  x: (B, S, d); q_pos: (S,) positions;
+    positions_3d: M-RoPE's (3, B, S) streams or None.  ``kv_x`` (B, Skv, d),
+    the encoder's output, makes it cross-attention: K and V projected from
+    it, no rotary embedding or qk-norm, every frame visible.  Without it,
+    ``causal=False`` is bidirectional self-attention."""
+    cross = kv_x is not None
+    src = kv_x if cross else x
     B, S = x.shape[:2]
+    Skv = src.shape[1]
     K, H, D = cfg.num_kv_heads, cfg.num_heads, cfg.head_dim
     G = H // K
     q = dense(x, p["wq"]).reshape(B, S, K, G, D)
-    k = dense(x, p["wk"]).reshape(B, S, K, D)
-    v = dense(x, p["wv"]).reshape(B, S, K, D)
-    q, k = _positions_rope(cfg, p, q, k, q_pos, q_pos, positions_3d)
+    k = dense(src, p["wk"]).reshape(B, Skv, K, D)
+    v = dense(src, p["wv"]).reshape(B, Skv, K, D)
+    if not cross:
+        q, k = _positions_rope(cfg, p, q, k, q_pos, q_pos, positions_3d)
     # kernel layout: head h = k*G + g, so the kernel's h // G finds kv head k
     qh = q.permute(0, 2, 3, 1, 4).reshape(B, H, S, D).contiguous()
     kh = k.permute(0, 2, 1, 3).contiguous()
     vh = v.permute(0, 2, 1, 3).contiguous()
-    # q and kv share positions, so the masks q_pos[i] >= kv_pos[j] and
-    # q_pos[i] - kv_pos[j] < window are i >= j and i - j < window whatever
-    # q_pos starts at: the kernel's q_offset is 0
+    # self-attention: q and kv share positions, so the masks q_pos[i] >=
+    # kv_pos[j] and q_pos[i] - kv_pos[j] < window are i >= j and i - j <
+    # window whatever q_pos starts at, and the kernel's q_offset is 0; cross:
+    # kv positions are arange(Skv) and no causal mask applies
     window = spec.window if spec.attention == "window" else 0
-    out = ops.flash_attention(qh, kh, vh, causal=True, window=window, q_offset=0)
+    out = ops.flash_attention(qh, kh, vh, causal=causal and not cross, window=window, q_offset=0)
     out = out.reshape(B, K, G, S, D).permute(0, 3, 1, 2, 4).reshape(B, S, H * D)
     return dense(out, p["wo"])
 
@@ -125,6 +138,7 @@ def attention_decode(
     spec,
     cache: Tuple[torch.Tensor, torch.Tensor],  # k, v: (B, C, K, D); C = S or window
     t: int,
+    cross: bool = False,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """One decode step: returns (output, cache).
 
@@ -133,25 +147,32 @@ def attention_decode(
     token goes to slot ``t % C``.  Any other cache is linear: slot == position.
     The new token's k/v are written in place (JAX returns an updated copy
     with ``dynamic_update_slice``); a ``t`` past a linear cache raises
-    ``IndexError`` instead of being clamped."""
+    ``IndexError`` instead of being clamped.
+
+    ``cross``: the cache is the static cross cache (the encoder's K/V), left
+    as it is; every slot is valid (positions 0..C-1 against ``t = C - 1``),
+    and q takes no rotary embedding."""
     B = x.shape[0]
     K, H, D = cfg.num_kv_heads, cfg.num_heads, cfg.head_dim
     G = H // K
     k_cache, v_cache = cache
     C = k_cache.shape[1]
     q = dense(x, p["wq"]).reshape(B, 1, K, G, D)
-    xk = dense(x, p["wk"]).reshape(B, 1, K, D)
-    xv = dense(x, p["wv"]).reshape(B, 1, K, D)
-    pos = torch.full((1,), t, dtype=torch.long, device=x.device)
-    q, xk = _positions_rope(cfg, p, q, xk, pos, pos)
-    windowed = spec.attention == "window" and C == spec.window
-    slot = t % C if windowed else t
-    k_cache[:, slot] = xk[:, 0]
-    v_cache[:, slot] = xv[:, 0]
     j = torch.arange(C, device=x.device)
-    # ring: positions in (t - C, t], floor modulo as jnp's; < 0 => empty slot
-    kv_positions = t - torch.remainder(t - j, C) if windowed else j
-    window = spec.window if spec.attention == "window" else 0
-    out = decode_attend(q.permute(0, 2, 3, 1, 4), k_cache, v_cache, kv_positions, t, window)
+    if cross:
+        out = decode_attend(q.permute(0, 2, 3, 1, 4), k_cache, v_cache, j, C - 1)
+    else:
+        xk = dense(x, p["wk"]).reshape(B, 1, K, D)
+        xv = dense(x, p["wv"]).reshape(B, 1, K, D)
+        pos = torch.full((1,), t, dtype=torch.long, device=x.device)
+        q, xk = _positions_rope(cfg, p, q, xk, pos, pos)
+        windowed = spec.attention == "window" and C == spec.window
+        slot = t % C if windowed else t
+        k_cache[:, slot] = xk[:, 0]
+        v_cache[:, slot] = xv[:, 0]
+        # ring: positions in (t - C, t], floor modulo as jnp's; < 0 => empty slot
+        kv_positions = t - torch.remainder(t - j, C) if windowed else j
+        window = spec.window if spec.attention == "window" else 0
+        out = decode_attend(q.permute(0, 2, 3, 1, 4), k_cache, v_cache, kv_positions, t, window)
     out = out.permute(0, 3, 1, 2, 4).reshape(B, 1, H * D)
     return dense(out, p["wo"]), (k_cache, v_cache)

@@ -48,13 +48,17 @@ class Engine:
     @torch.inference_mode()
     def generate(self, batch: Dict[str, object], num_steps: int) -> np.ndarray:
         """Prefill the prompts ``batch["tokens"]`` (B, S), then return the
-        ``num_steps`` sampled tokens (B, num_steps) as int32.
+        ``num_steps`` sampled tokens (B, num_steps) as int32.  The whole batch
+        goes to prefill on the engine's device, as the JAX engine passes it:
+        with M-RoPE the position streams, for an encoder-decoder the frames
+        (which stay f32 until the encoder casts them).
 
         The JAX engine also runs a decode step after the last token and drops
         its result; this one stops at the last token it returns."""
-        tokens = torch.as_tensor(batch["tokens"], device=self.device)
+        inputs = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
+        tokens = inputs["tokens"]
         prompt_len = tokens.shape[1]
-        logits, caches = self.prefill_fn({"tokens": tokens})
+        logits, caches = self.prefill_fn(inputs)
         tok = self._sample(logits)[:, None]
         out = []
         for i in range(num_steps):

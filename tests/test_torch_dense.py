@@ -479,6 +479,26 @@ def test_engine_greedy_tokens_equal_jax(arch):
     np.testing.assert_array_equal(got, want)
 
 
+def test_engine_passes_the_position_streams_to_prefill():
+    """qwen2-vl in f32, B = 2, S = 16, three distinct position streams (i, 3i
+    mod 7 and S-1-i in every row): the port's engine gives the JAX engine's
+    greedy tokens, row by row.  The streams change the JAX engine's tokens,
+    so an engine that prefilled the tokens alone would fail here."""
+    cfg, jcfg = configs("qwen2-vl-72b")
+    jp, tp = both_params(cfg, jcfg, "float32")
+    B, S = 2, 16
+    toks = prompts(cfg, B, S, seed=0)
+    i = np.arange(S)
+    streams = np.broadcast_to(np.stack([i, 3 * i % 7, S - 1 - i])[:, None], (3, B, S)).astype(np.int32)
+    jeng = jengine.Engine(jcfg, None, jp, jengine.ServeOptions(max_seq=24, batch_size=B))
+    teng = tengine.Engine(cfg, tp, tengine.ServeOptions(max_seq=24, batch_size=B))
+    want = jeng.generate({"tokens": jnp.asarray(toks), "positions_3d": jnp.asarray(streams)}, 6)
+    flat = jeng.generate({"tokens": jnp.asarray(toks)}, 6)
+    assert not np.array_equal(want, flat)
+    got = teng.generate({"tokens": toks, "positions_3d": streams}, 6)
+    np.testing.assert_array_equal(got, want)
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_serve_main_runs_the_dense_archs_on_cpu(arch, capsys):
     argv = ["--arch", arch, "--reduced", "--device", "cpu", "--batch", "2", "--prompt-len", "12",

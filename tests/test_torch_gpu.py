@@ -134,6 +134,10 @@ TC_CASES = [
     (1, 2, 2, 300, 300, 112, True, 48, 0),    # narrow window over several tiles
     (4, 32, 8, 512, 512, 128, True, 0, 0),    # jamba's serve prefill (G = 4, no RoPE)
     (4, 32, 8, 513, 513, 128, True, 0, 0),    # its prefill of prompt + one token
+    (4, 16, 16, 1500, 1500, 64, False, 0, 0),  # whisper's encoder (1500 = 11 x 128 + 92)
+    (4, 16, 16, 384, 1500, 64, False, 0, 0),  # whisper's cross-attention
+    (4, 16, 16, 384, 384, 64, True, 0, 0),    # whisper's decoder self-attention
+    (2, 4, 4, 220, 92, 64, False, 0, 0),      # bidirectional, one kv edge tile, Sq > Skv
 ]
 
 
@@ -335,6 +339,30 @@ def test_flash_tensor_cores_read_only_their_own_bytes(cuda):
     assert ops.launch_counts() == dict(NO_LAUNCHES, flash_attention_tc=1)
 
 
+@pytest.mark.parametrize("Sq,Skv", [(200, 1500), (1500, 1500), (300, 92)])
+def test_flash_tensor_cores_bidirectional_read_only_their_own_bytes(cuda, Sq, Skv):
+    """Bidirectional attention at D = 64 with the lengths of whisper's cross
+    and encoder attention, neither a multiple of the 128-row tile: q, k and v
+    are views at the start of larger NaN-filled buffers, so a read past the
+    last row (the kv edge tile of 92 keys has no causal mask to hide it) or
+    a store of the last q tile past Sq would bring a NaN in or leave one."""
+    B, H, Kh, D = 1, 4, 4, 64
+    views = []
+    for t in _qkv(cuda, B, H, Kh, Sq, Skv, D, torch.bfloat16):
+        buf = torch.full((t.numel() + 128 * D,), float("nan"), dtype=torch.bfloat16, device="cuda")
+        views.append(buf[: t.numel()].view(t.shape))
+        views[-1].copy_(t)
+    q, k, v = views
+    got = ops.flash_attention(q, k, v, False, 0, 0)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    want = ref.flash_attention_ref(q, k, v, False, 0, 0)
+    torch.testing.assert_close(got.float(), want.float(), **tol(torch.bfloat16))
+    assert not torch.allclose(got.float(), ref.flash_attention_ref(q, k[:, :, : Skv - 92], v[:, :, : Skv - 92],
+                                                                   False, 0, 0).float(), **tol(torch.bfloat16))
+    assert ops.launch_counts() == dict(NO_LAUNCHES, flash_attention_tc=1)
+
+
 def test_flash_tensor_cores_refuse_a_misaligned_start(cuda):
     """TMA reads from 16-byte aligned addresses; the route does not change."""
     q, k, v = _qkv(cuda, 1, 2, 2, 33, 33, 64, torch.bfloat16)
@@ -384,7 +412,7 @@ def test_reduced_model_on_the_card_matches_the_cpu(cuda):
             if name in blk:
                 blk[name].copy_(torch.from_numpy(rng.randn(*blk[name].shape).astype(np.float32) * 0.3))
     gparams = _to_cuda(params)
-    toks = torch.from_numpy(serve.random_prompts(cfg, 2, 13, 1))
+    toks = torch.from_numpy(serve.random_batch(cfg, 2, 13, 1)["tokens"])
     cl, cc = T.prefill(cfg, params, {"tokens": toks}, 24)
     gl, gc = T.prefill(cfg, gparams, {"tokens": toks.cuda()}, 24)
     torch.testing.assert_close(gl.cpu(), cl, rtol=1e-4, atol=1e-4)
@@ -448,7 +476,7 @@ def test_reduced_mixtral_ring_decode_on_the_card_matches_the_cpu(cuda):
         if "w" in blk:
             blk["w"].copy_(torch.from_numpy(rng.randn(*blk["w"].shape).astype(np.float32) * 0.3))
     gparams = _to_cuda(params)
-    toks = torch.from_numpy(serve.random_prompts(cfg, 2, 18, 1))
+    toks = torch.from_numpy(serve.random_batch(cfg, 2, 18, 1)["tokens"])
     cl, cc = T.prefill(cfg, params, {"tokens": toks[:, :12]}, 16)
     gl, gc = T.prefill(cfg, gparams, {"tokens": toks[:, :12].cuda()}, 16)
     assert gc[0]["pos0"]["k"].shape[2] == 8
@@ -509,7 +537,8 @@ def _perturbed_norms(params, seed: int):
     def walk(node, in_norm=False):
         items = node.items() if isinstance(node, dict) else enumerate(node)
         for name, v in items:
-            norm = in_norm or name in ("ln1", "ln2", "final_norm", "q_norm", "k_norm", "mu", "u", "w0", "ln_w",
+            norm = in_norm or name in ("ln1", "ln2", "ln_cross", "final_norm", "q_norm", "k_norm", "mu", "u", "w0",
+                                       "ln_w",
                                        "ln_b", "conv_b", "dt_b", "A_log", "D")
             if isinstance(v, (dict, list)):
                 walk(v, norm)
@@ -535,7 +564,7 @@ def test_reduced_gemma3_bf16_on_the_card_matches_the_cpu(cuda):
     params = init_params(T.model_skel(cfg), torch.Generator().manual_seed(1), "cpu")
     _perturbed_norms(params, 1)
     gparams = _to_cuda(params)
-    toks = torch.from_numpy(serve.random_prompts(cfg, 2, 20, 1))
+    toks = torch.from_numpy(serve.random_batch(cfg, 2, 20, 1)["tokens"])
     cl, cc = T.prefill(cfg, params, {"tokens": toks[:, :12]}, 24)
     gl, gc = T.prefill(cfg, gparams, {"tokens": toks[:, :12].cuda()}, 24)
     assert [g["pos0"]["k"].shape[2] for g in gc] == [8, 8] and gc[0]["pos5"]["k"].shape[2] == 24
@@ -570,7 +599,7 @@ def test_reduced_qwen2_vl_with_position_streams_on_the_card_matches_the_cpu(cuda
     params = init_params(T.model_skel(cfg), torch.Generator().manual_seed(2), "cpu", "float32")
     _perturbed_norms(params, 2)
     gparams = _to_cuda(params)
-    toks = torch.from_numpy(serve.random_prompts(cfg, 2, 16, 2))
+    toks = torch.from_numpy(serve.random_batch(cfg, 2, 16, 2)["tokens"])
     pos = _mrope_positions(2, 12)
     full, _ = T.forward(cfg, params, {"tokens": toks[:, :12], "positions_3d": pos})
     gfull, _ = T.forward(cfg, gparams, {"tokens": toks[:, :12].cuda(), "positions_3d": pos.cuda()})
@@ -653,6 +682,43 @@ def test_unembed_on_the_card_is_an_f32_product(cuda, tied):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
     rounded = torch.mm(x.reshape(-1, 512), w).float().reshape(2, 3, 1000)
     assert not torch.allclose(rounded, want, rtol=1e-4, atol=1e-3)
+
+
+def test_reduced_whisper_on_the_card_matches_the_cpu(cuda):
+    """reduced whisper in bf16 at its own head dim of 64 (flash on the tensor
+    cores, as at full width) over 1500 frames a row: the encoder and the
+    forward logits, then prefill and four decode steps against the static
+    cross cache, each within 2e-2 of the CPU's largest magnitude; the
+    launches (flash per encoder layer, decoder self-attention and
+    cross-attention; LayerNorm: no RMSNorm), and the engine's tokens on the
+    card from the same frames."""
+    cfg = dataclasses.replace(reduced_config(get_config("whisper-medium")), head_dim=64, encoder_seq=1500,
+                              dtype="bfloat16", param_dtype="bfloat16")
+    params = init_params(T.model_skel(cfg), torch.Generator().manual_seed(5), "cpu")
+    _perturbed_norms(params, 5)
+    gparams = _to_cuda(params)
+    host = serve.random_batch(cfg, 2, 16, 5)
+    batch = {k: torch.from_numpy(v) for k, v in host.items()}
+    gbatch = {k: v.cuda() for k, v in batch.items()}
+    enc = T._run_encoder(cfg, params, batch["encoder_frames"])
+    assert _max_err(T._run_encoder(cfg, gparams, gbatch["encoder_frames"]), enc) <= 2e-2
+    full, _ = T.forward(cfg, params, batch)
+    gfull, _ = T.forward(cfg, gparams, gbatch)
+    assert _max_err(gfull, full) <= 2e-2
+    pre = dict(batch, tokens=batch["tokens"][:, :12])
+    cl, cc = T.prefill(cfg, params, pre, 24)
+    gl, gc = T.prefill(cfg, gparams, {k: v.cuda() for k, v in pre.items()}, 24)
+    assert _max_err(gl, cl) <= 2e-2
+    assert _max_err(gc[0]["pos0"]["cross_k"], cc[0]["pos0"]["cross_k"]) <= 2e-2
+    toks = batch["tokens"]
+    for t in range(12, 16):
+        cl, cc = T.decode_step(cfg, params, toks[:, t : t + 1], t, cc)
+        gl, gc = T.decode_step(cfg, gparams, toks[:, t : t + 1].cuda(), t, gc)
+        assert _max_err(gl, cl) <= 2e-2, t
+    L, E = cfg.num_layers, cfg.encoder_layers
+    assert ops.launch_counts() == dict(NO_LAUNCHES, flash_attention_tc=E + 2 * (E + 2 * L))
+    out = Engine(cfg, gparams, ServeOptions(max_seq=24, batch_size=2)).generate(host, 6)
+    assert out.shape == (2, 6) and out.min() >= 0 and out.max() < cfg.vocab_size
 
 
 def test_serve_main_defaults_to_the_card(cuda, capsys):

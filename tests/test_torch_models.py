@@ -29,7 +29,7 @@ from repro_torch.models import moe as tmoe
 from repro_torch.models import transformer as TT
 
 TOL = dict(rtol=1e-5, atol=1e-5)
-NORMS = ("ln1", "ln2", "final_norm", "q_norm", "k_norm")
+NORMS = ("ln1", "ln2", "ln_cross", "final_norm", "q_norm", "k_norm")
 
 
 def perturbed_jax_params(cfg, seed=0):
@@ -158,24 +158,45 @@ def test_convert_keeps_bf16_and_checks_the_tree():
         convert.params_from_jax(bad, cfg, device="cpu")
 
 
-# Every family with an encoder and cross-attention (whisper's), over each kind
-# of decoder layer: the port runs Mamba and RWKV layers, so only the encoder
-# is missing.
+# An encoder and cross-attention (whisper's) over each kind of decoder layer:
+# attention and Mamba layers take a cross-attention block, RWKV blocks none.
 ENCODER = dict(encoder_layers=2, encoder_seq=32)
-UNSUPPORTED = {
+ENCODER_OVER = {
+    "attn": ENCODER,
     "mamba": dict(pattern=(LayerSpec(kind="mamba"),), **ENCODER),
     "rwkv": dict(pattern=(LayerSpec(kind="rwkv"),), **ENCODER),
-    "cross": ENCODER,
 }
 
 
-@pytest.mark.parametrize("what", sorted(UNSUPPORTED))
-def test_other_families_raise_not_implemented(what):
-    cfg = dataclasses.replace(tconfigs.reduced_config(tconfigs.get_config("qwen3-14b")), **UNSUPPORTED[what])
-    with pytest.raises(NotImplementedError, match="the port runs.*missing: encoder and cross-attention$"):
-        TT.model_skel(cfg)
-    with pytest.raises(NotImplementedError):
-        TT.prefill(cfg, {}, {"tokens": torch.zeros((1, 4), dtype=torch.long)}, 8)
+@pytest.mark.parametrize("what", sorted(ENCODER_OVER))
+def test_encoder_over_each_decoder_kind_matches_jax(what):
+    """reduced qwen3 (RMSNorm, qk-norm, RoPE) with an encoder of 2 layers over
+    32 frames, its decoder layers attention, Mamba or RWKV: ``forward``,
+    prefill and two decode steps in f32 against the JAX package, and the
+    cross caches only where the reference has them (none for RWKV)."""
+    changes = ENCODER_OVER[what]
+    cfg = dataclasses.replace(tconfigs.reduced_config(tconfigs.get_config("qwen3-14b")), **changes)
+    jcfg = dataclasses.replace(jconfigs.reduced_config(jconfigs.get_config("qwen3-14b")), **changes)
+    np_params = perturbed_jax_params(jcfg)
+    jp = jax.tree_util.tree_map(jnp.asarray, np_params)
+    tp = convert.params_from_jax(np_params, cfg, device="cpu")
+    assert ("cross" in tp["stages"][0]["pos0"]) == (what != "rwkv")
+    rng = np.random.RandomState(3)
+    toks = rng.randint(0, cfg.vocab_size, (2, 12)).astype(np.int32)
+    frames = rng.randn(2, 32, cfg.d_model).astype(np.float32)
+    tol = lambda w: dict(rtol=2e-5, atol=2e-5 * max(1.0, float(np.abs(np32(w)).max())))
+    jl, _ = JT.forward(jcfg, jp, {"tokens": jnp.asarray(toks), "encoder_frames": jnp.asarray(frames)})
+    tl, _ = TT.forward(cfg, tp, {"tokens": torch.from_numpy(toks), "encoder_frames": torch.from_numpy(frames)})
+    np.testing.assert_allclose(np32(tl), np32(jl), **tol(jl))
+    jl, jc = JT.prefill(jcfg, jp, {"tokens": jnp.asarray(toks[:, :10]), "encoder_frames": jnp.asarray(frames)}, 16)
+    tl, tc = TT.prefill(cfg, tp, {"tokens": torch.from_numpy(toks[:, :10]),
+                                  "encoder_frames": torch.from_numpy(frames)}, 16)
+    np.testing.assert_allclose(np32(tl), np32(jl), **tol(jl))
+    assert ("cross_k" in tc[0]["pos0"]) == ("cross_k" in jc[0]["pos0"]) == (what != "rwkv")
+    for t in (10, 11):
+        jl, jc = JT.decode_step(jcfg, jp, jnp.asarray(toks[:, t : t + 1]), jnp.int32(t), jc)
+        tl, tc = TT.decode_step(cfg, tp, torch.from_numpy(toks[:, t : t + 1]), t, tc)
+        np.testing.assert_allclose(np32(tl), np32(jl), **tol(jl), err_msg=f"decode at {t}")
 
 
 # ---------------------------------------------------------------------------

@@ -138,18 +138,17 @@ def _no_launches():
 # ---------------------------------------------------------------------------
 
 
-def test_check_supported_raises_for_whisper_only():
-    """Every config of the port's registry runs; the encoder-decoder (whisper,
-    here its encoder fields on a port config) raises, naming the encoder
-    and nothing else."""
+def test_registry_equals_jax_and_every_config_runs():
+    """The port's registry holds the JAX package's configs, all ten, and
+    ``check_supported`` passes each; a layer kind the port lacks still
+    raises, naming it."""
+    assert set(tconfigs.ARCHS) == set(jconfigs.ARCHS) and len(tconfigs.ARCHS) == 10
     for cfg in tconfigs.ARCHS.values():
         TT.check_supported(cfg)
-    assert set(jconfigs.ARCHS) - set(tconfigs.ARCHS) == {"whisper-medium"}
-    w = jconfigs.get_config("whisper-medium")
-    cfg = dataclasses.replace(tconfigs.get_config("rwkv6-1.6b"), encoder_layers=w.encoder_layers,
-                              encoder_seq=w.encoder_seq)
-    with pytest.raises(NotImplementedError, match=r"missing: encoder and cross-attention$"):
-        TT.check_supported(cfg)
+    bad = dataclasses.replace(tconfigs.get_config("rwkv6-1.6b"),
+                              pattern=(dataclasses.replace(tconfigs.get_config("rwkv6-1.6b").pattern[0], kind="conv"),))
+    with pytest.raises(NotImplementedError, match=r"missing: conv layers$"):
+        TT.check_supported(bad)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
