@@ -1135,8 +1135,9 @@ def measure_encoder(torch, eng, batch, metrics):
     """The encoder of a served encoder-decoder: its time alone on prefill's
     frames (``T._run_encoder``, host clock around a synchronised call,
     median of 3), its share of the prefill's median, and its device busy
-    time and time by kind in one profiled call; the cross caches of one
-    prefill, (L, B, E, K, D) in the model's type, and their bytes."""
+    time and time by kind in one profiled call; the bytes of the cross
+    caches that prefill writes, K and V of (B, E, K, D) in the model's type
+    for every layer with cross-attention (an RWKV block has none)."""
     from repro_torch.models import transformer as T
 
     cfg, frames = eng.cfg, batch["encoder_frames"]
@@ -1154,15 +1155,10 @@ def measure_encoder(torch, eng, batch, metrics):
         enc_ms = statistics.median(runs)
         busy, kinds = device_profile(torch, lambda: T._run_encoder(cfg, eng.params, frames), f"{cfg.name} encoder",
                                      enc_ms)
-        _, caches = T.prefill(cfg, eng.params, batch, eng.options.max_seq)
     B, E = frames.shape[:2]
-    want = (B, E, cfg.num_kv_heads, cfg.head_dim)
-    cross = [t for stage in caches for c in stage.values() for name, t in c.items() if name.startswith("cross_")]
-    if len(cross) != 2 * len(caches) or any(tuple(t.shape[1:]) != want or t.dtype != getattr(torch, cfg.dtype)
-                                            for t in cross):
-        raise AssertionError(f"cross caches {[tuple(t.shape) for t in cross]}, expected (L,) + {want}")
-    cross_gb = sum(t.numel() * t.element_size() for t in cross) / 1e9
-    del caches, cross
+    cross_layers = sum(kind != "rwkv" for kind in layer_kinds(cfg))
+    itemsize = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
+    cross_gb = 2 * cross_layers * B * E * cfg.num_kv_heads * cfg.head_dim * itemsize / 1e9
     log(f"[serve_encdec] {cfg.name} encoder ({cfg.encoder_layers} layers, {B} x {E} frames): {enc_ms:.2f} ms "
         f"(median of 3: {', '.join(f'{t:.2f}' for t in runs)}), {100 * enc_ms / metrics['prefill_ms']:.1f}% of "
         f"the {metrics['prefill_ms']:.2f} ms prefill; cross caches {cross_gb:.3f} GB")

@@ -3,7 +3,8 @@ the CPU: the reduced config (d=64, 4 heads of 16, 2 encoder and 2 decoder
 layers, 32 frames), cross-attention (``kv_x``), the encoder's bidirectional
 self-attention, the static cross cache in decode, the encoder, ``forward``,
 prefill with decode, the loss with every gradient, the engine and the serve
-launcher, and ``chip_smoke``'s cache check and launch counts.
+launcher, and ``chip_smoke``'s cache check (its launch counts for whisper
+are cases of ``tests/test_torch_moe.py``'s launch-count test).
 
 Weights are drawn once by the JAX package; every LayerNorm weight and bias
 (``ln1``, ``ln2``, ``ln_cross``, the decoder's and the encoder's final norm)
@@ -11,11 +12,9 @@ gets 0.5 x N(0, 1) added from a numpy seed first: with ones and zeros, two
 norms swapped would not show.  They cross to the port through
 ``convert.params_from_jax``; inputs are drawn with numpy.  Tolerances
 (tests/test_kernels.py:16-17): 2e-5 in f32, 2e-2 in bf16, relative and, of
-the largest magnitude compared (at least 1), absolute.
+the largest magnitude compared (at least 1), absolute.  The helpers that
+draw weights and inputs and compare are ``tests/test_torch_ssm.py``'s.
 """
-
-import dataclasses
-import functools
 
 import numpy as np
 import pytest
@@ -24,10 +23,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from repro import configs as jconfigs
 from repro.data import pipeline as jpipeline
 from repro.models import attention as jattn
-from repro.models import common as jcommon
 from repro.models import transformer as JT
 from repro.serving import engine as jengine
 from repro_torch import configs as tconfigs
@@ -42,66 +39,12 @@ from repro_torch.models import transformer as TT
 from repro_torch.serving import engine as tengine
 from repro_torch.tree import leaves, unflatten_like
 from test_torch_moe import CS, paired
+from test_torch_ssm import _first, both_params, close, configs, hidden, np32, perturbed_jax_params
 from test_torch_train import rounded_as_written
 
 ARCH = "whisper-medium"
 DTYPES = ["float32", "bfloat16"]
 BF16 = dict(dtype="bfloat16", param_dtype="bfloat16")
-FRAC = {"float32": 2e-5, "bfloat16": 2e-2}
-NORMS = ("ln1", "ln2", "ln_cross", "final_norm")
-
-
-def np32(x):
-    return x.detach().float().numpy() if isinstance(x, torch.Tensor) else np.asarray(x, np.float32)
-
-
-def close(got, want, dtype: str, what: str = ""):
-    """rtol and atol of ``FRAC[dtype]``, atol times the largest |want| (at least 1)."""
-    g, w = np32(got), np32(want)
-    assert g.shape == w.shape, (what, g.shape, w.shape)
-    frac = FRAC[dtype]
-    np.testing.assert_allclose(g, w, rtol=frac, atol=frac * max(1.0, float(np.abs(w).max())), err_msg=what)
-
-
-def configs(dtype="float32", **changes):
-    cfg = tconfigs.reduced_config(tconfigs.get_config(ARCH))
-    jcfg = jconfigs.reduced_config(jconfigs.get_config(ARCH))
-    if dtype == "bfloat16":
-        changes = dict(changes, **BF16)
-    return dataclasses.replace(cfg, **changes), dataclasses.replace(jcfg, **changes)
-
-
-@functools.lru_cache(maxsize=None)
-def perturbed_jax_params(jcfg, dtype: str, seed=0):
-    """JAX-initialised weights as numpy in ``dtype`` (bf16 as ml_dtypes), with
-    0.5 x N(0, 1) added to every norm's weight and bias.  Drawn once per
-    (config, dtype, seed) and shared: callers copy (``params_from_jax``
-    does) and never write to it."""
-    tree = jcommon.init_params(JT.model_skel(jcfg), jax.random.PRNGKey(seed), dtype_override=getattr(jnp, dtype))
-    rng = np.random.RandomState(seed)
-
-    def fix(path, a):
-        a = np.array(a)
-        if any(getattr(k, "key", None) in NORMS for k in path):
-            a = (a.astype(np.float32) + 0.5 * rng.randn(*a.shape)).astype(a.dtype)
-        return a
-
-    return jax.tree_util.tree_map_with_path(fix, tree)
-
-
-def both_params(cfg, jcfg, dtype, seed=0):
-    np_params = perturbed_jax_params(jcfg, dtype, seed)
-    return jax.tree_util.tree_map(jnp.asarray, np_params), convert.params_from_jax(np_params, cfg, device="cpu")
-
-
-def _first(node):
-    return {k: _first(v) for k, v in node.items()} if isinstance(node, dict) else node[0]
-
-
-def hidden(shape, seed, dtype="float32"):
-    """The same inputs for both packages (rounded to bf16 first in bf16)."""
-    j = jnp.asarray(np.random.RandomState(seed).randn(*shape).astype(np.float32), getattr(jnp, dtype))
-    return j, torch.from_numpy(np.array(np32(j))).to(getattr(torch, dtype))
 
 
 def inputs(cfg, B, S, seed, E=None):
@@ -136,7 +79,7 @@ def test_convert_carries_the_encoder_and_cross_leaves():
     """The encoder subtree and every decoder layer's ``cross`` and
     ``ln_cross`` cross exactly, in their own type (bf16 here); the cross
     block has no qk-norm; a tree without the encoder raises."""
-    cfg, jcfg = configs("bfloat16")
+    cfg, jcfg = configs(ARCH, "bfloat16")
     tree = perturbed_jax_params(jcfg, "bfloat16")
     p = convert.params_from_jax(tree, cfg, device="cpu")
     dec, jdec = p["stages"][0]["pos0"], tree["stages"][0]["pos0"]
@@ -185,7 +128,7 @@ def test_attention_fwd_matches_jax(kind, E, dtype):
     embedding or mask: rolling the frames leaves it as it is, and it differs
     from the decoder's causal self-attention; the bidirectional one differs
     from the causal one."""
-    cfg, jcfg = configs(dtype)
+    cfg, jcfg = configs(ARCH, dtype)
     jp, tp = both_params(cfg, jcfg, dtype)
     layer = "cross" if kind == "cross" else "attn"
     ja, ta = _first(jp["stages"][0]["pos0"][layer]), _first(tp["stages"][0]["pos0"][layer])
@@ -214,7 +157,7 @@ def test_cross_decode_reads_the_static_cache(dtype):
     """``attention_decode(cross=True)`` against a cross cache of 32 frames at
     position 5: the JAX package's output, every slot seen (t plays no part),
     and the cache left as it was."""
-    cfg, jcfg = configs(dtype)
+    cfg, jcfg = configs(ARCH, dtype)
     jp, tp = both_params(cfg, jcfg, dtype)
     ja, ta = _first(jp["stages"][0]["pos0"]["cross"]), _first(tp["stages"][0]["pos0"]["cross"])
     K, D = cfg.num_kv_heads, cfg.head_dim
@@ -238,7 +181,7 @@ def test_cross_decode_reads_the_static_cache(dtype):
 @pytest.fixture(scope="module", params=DTYPES)
 def model(request):
     dtype = request.param
-    cfg, jcfg = configs(dtype)
+    cfg, jcfg = configs(ARCH, dtype)
     jp, tp = both_params(cfg, jcfg, dtype)
     return dtype, cfg, jcfg, jp, tp
 
@@ -295,7 +238,7 @@ def test_prefill_and_two_decode_steps_match_jax(model):
 def test_cross_cache_matches_the_jax_cache_skeleton():
     """Prefill's caches have ``cache_skel``'s shapes and types in bf16: self
     K/V of max_seq slots, cross K/V of encoder_seq frames."""
-    cfg, jcfg = configs("bfloat16")
+    cfg, jcfg = configs(ARCH, "bfloat16")
     params = tcommon.init_params(TT.model_skel(cfg), torch.Generator().manual_seed(0), "cpu")
     _, caches = TT.prefill(cfg, params, tbatch(inputs(cfg, 2, 6, 0)), 16)
     want = JT.cache_skel(jcfg, 2, 16)
@@ -308,7 +251,7 @@ def test_decode_step_matches_the_prefill_of_one_more_token():
     """f32: decode at position S from the caches of a prefill of S tokens
     gives the logits of a prefill of S + 1 and of ``forward`` there; decode
     at a position past the 8192-row table adds its last row, as JAX's."""
-    cfg, jcfg = configs()
+    cfg, jcfg = configs(ARCH)
     jp, tp = both_params(cfg, jcfg, "float32")
     batch = tbatch(inputs(cfg, 2, 13, 9))
     _, caches = TT.prefill(cfg, tp, dict(batch, tokens=batch["tokens"][:, :12]), 16)
@@ -331,7 +274,7 @@ def test_train_loss_and_every_gradient_match_jax():
     """f32: the loss of ``data.pipeline``'s batch (its frames included) at
     2e-5 and the gradient of every leaf, the encoder's included, within 2e-5
     of its leaf's largest magnitude."""
-    cfg, jcfg = configs()
+    cfg, jcfg = configs(ARCH)
     jp, tp = both_params(cfg, jcfg, "float32")
     batch = jpipeline.host_batch(jcfg, ShapeSpec("t", 16, 2, "train"), 0, seed=1)
     assert batch["encoder_frames"].shape == (2, cfg.encoder_seq, cfg.d_model)
@@ -358,7 +301,7 @@ def test_train_loss_and_every_gradient_match_jax():
 def test_engine_greedy_tokens_equal_jax():
     """The engine takes the frames with the prompts (f32 numpy) and gives the
     JAX engine's greedy tokens; other frames give other tokens."""
-    cfg, jcfg = configs()
+    cfg, jcfg = configs(ARCH)
     jp, tp = both_params(cfg, jcfg, "float32")
     batch = inputs(cfg, 3, 9, 10)
     jeng = jengine.Engine(jcfg, None, jp, jengine.ServeOptions(max_seq=16, batch_size=3))
@@ -376,7 +319,7 @@ def test_serve_main_draws_the_jax_launchers_frames(monkeypatch, capsys):
     engine gets the prompts and frames the JAX launcher draws
     (``RandomState(0)``: randint, then randn, src/repro/launch/serve.py),
     frames in f32; two runs give the same tokens."""
-    cfg, _ = configs()
+    cfg, _ = configs(ARCH)
     B, P = 2, 12
     seen = []
     generate = tengine.Engine.generate
@@ -438,7 +381,7 @@ def test_chip_smoke_cache_check_fails_a_cross_cache_fault(fault, monkeypatch):
     frames given to every prefill: 4 prompts of 12 tokens, decode at 12.  It
     passes the port as it is and fails cross caches with two rows swapped
     or taken before the encoder's final norm."""
-    cfg, jcfg = configs("bfloat16")
+    cfg, jcfg = configs(ARCH, "bfloat16")
     params = convert.params_from_jax(perturbed_jax_params(jcfg, "bfloat16"), cfg, device="cpu")
     eng = tengine.Engine(cfg, params, tengine.ServeOptions(max_seq=16, batch_size=4))
     batch = {k: torch.from_numpy(v) for k, v in tserve.random_batch(cfg, 4, 12, 0).items()}
@@ -450,47 +393,3 @@ def test_chip_smoke_cache_check_fails_a_cross_cache_fault(fault, monkeypatch):
         _cross_fault(fault, monkeypatch)
         with pytest.raises(AssertionError, match="decode disagrees with prefill"):
             CS.check_cache(torch, TT, eng, toks, "test", batch)
-
-
-ENCODER = dict(encoder_layers=2, encoder_seq=32)
-
-
-@pytest.mark.parametrize("what", ["whisper", "attn", "mamba", "rwkv"])
-def test_chip_smoke_expects_the_calls_the_encdec_serve_path_makes(what, monkeypatch):
-    """One counted call per ``ops.rmsnorm`` and per ``ops.flash_attention``
-    (on the route it names) in the engine's run must be what
-    ``chip_smoke.expected_launches`` asks of the card: the reduced whisper
-    at its own head dim of 64 in bf16 (flash once per encoder layer, decoder
-    self-attention and cross-attention; LayerNorm: no RMSNorm), and an
-    encoder over reduced qwen3's RMSNorm and qk-norm layers, attention,
-    Mamba or RWKV (which takes no cross-attention)."""
-    if what == "whisper":
-        full = tconfigs.get_config(ARCH)
-        cfg = dataclasses.replace(tconfigs.reduced_config(full), head_dim=full.head_dim, **BF16)
-    else:
-        pattern = {} if what == "attn" else dict(pattern=(TT.LayerSpec(kind=what),))
-        cfg = dataclasses.replace(tconfigs.reduced_config(tconfigs.get_config("qwen3-14b")), **ENCODER,
-                                  **pattern, **BF16)
-    params = tcommon.init_params(TT.model_skel(cfg), torch.Generator().manual_seed(0), "cpu")
-    calls = {"rmsnorm": 0, "flash_attention_tc": 0, "flash_attention_cores": 0}
-    rms, flash = tops.rmsnorm, tops.flash_attention
-
-    def counted_rms(*a, **k):
-        calls["rmsnorm"] += 1
-        return rms(*a, **k)
-
-    def counted_flash(q, *a, **k):
-        calls[f"flash_attention_{tfa.route(q.dtype, q.shape[-1])}"] += 1
-        return flash(q, *a, **k)
-
-    monkeypatch.setattr(tops, "rmsnorm", counted_rms)
-    monkeypatch.setattr(tops, "flash_attention", counted_flash)
-    steps = 5
-    tengine.Engine(cfg, params, tengine.ServeOptions(max_seq=16, batch_size=2)).generate(
-        tserve.random_batch(cfg, 2, 12, 0), steps)
-    want = CS.expected_launches(cfg, steps - 1)
-    assert calls == {k: want[k] for k in calls}
-    L, E = cfg.num_layers, cfg.encoder_layers
-    flash_calls = {"whisper": 3 * L, "attn": 3 * L, "mamba": E + L, "rwkv": E}[what]
-    assert want["flash_attention_tc"] == flash_calls and want["flash_attention_cores"] == 0
-    assert (want["rmsnorm"] == 0) == (what == "whisper")

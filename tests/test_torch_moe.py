@@ -54,6 +54,7 @@ from repro_torch.models import transformer as TT
 from repro_torch.serving import engine as tengine
 from repro_torch.train import step as TS
 from repro_torch.tree import leaves, unflatten_like
+from test_torch_models import ENCODER_OVER
 
 
 def _chip_smoke():
@@ -740,7 +741,9 @@ def test_train_step_matches_jax_on_reduced_mixtral():
 
 
 @pytest.mark.parametrize("arch", ["qwen3-14b"] + ARCHS + ["gemma3-27b", "starcoder2-3b", "stablelm-3b",
-                                                           "qwen2-vl-72b", "rwkv6-1.6b", "jamba-v0.1-52b"])
+                                                           "qwen2-vl-72b", "rwkv6-1.6b", "jamba-v0.1-52b",
+                                                           "whisper-medium"]
+                         + [f"qwen3-14b+encoder-{what}" for what in sorted(ENCODER_OVER)])
 def test_chip_smoke_expects_the_calls_the_serve_path_makes(arch, monkeypatch):
     """The card counts one launch per call of ``ops.rmsnorm`` and per call of
     ``ops.flash_attention`` on the route ``flash_attention.route`` names: on
@@ -748,13 +751,18 @@ def test_chip_smoke_expects_the_calls_the_serve_path_makes(arch, monkeypatch):
     ``chip_smoke.expected_launches`` asks of the card, for a prompt that takes
     the ring roll of the windowed archs.  The reduced config in bf16 at the
     arch's own head dim (and M-RoPE sections), so the routes are the card's:
-    the tensor cores for stablelm's 80 and for 128, none on the CUDA cores.
-    Flash once per attention layer (every layer but jamba's Mamba layers
-    and rwkv6's RWKV blocks); RMSNorm: none for LayerNorm models, ln1 and
-    ln2 of every layer kind, with qk-norm the norms of q and k too."""
-    full = tconfigs.get_config(arch)
+    the tensor cores for whisper's 64, stablelm's 80 and for 128, none on the
+    CUDA cores.  Flash once per attention layer (every layer but jamba's
+    Mamba layers and rwkv6's RWKV blocks), and with an encoder once per
+    encoder layer and per cross-attention (every attention or Mamba layer,
+    no RWKV block); RMSNorm: none for LayerNorm models, ln1 and ln2 of every
+    layer kind, with qk-norm the norms of q and k too.  ``qwen3-14b+encoder-*``
+    is reduced qwen3 with an encoder over its attention, Mamba or RWKV layers
+    (``test_torch_models.ENCODER_OVER``)."""
+    base, _, encoder = arch.partition("+encoder-")
+    full = tconfigs.get_config(base)
     cfg = dataclasses.replace(tconfigs.reduced_config(full), head_dim=full.head_dim,
-                              mrope_sections=full.mrope_sections, **BF16)
+                              mrope_sections=full.mrope_sections, **ENCODER_OVER.get(encoder, {}), **BF16)
     params = tcommon.init_params(TT.model_skel(cfg), torch.Generator().manual_seed(0), "cpu")
     calls = {"rmsnorm": 0, "flash_attention_tc": 0, "flash_attention_cores": 0}
     rms, flash = tops.rmsnorm, tops.flash_attention
@@ -771,14 +779,18 @@ def test_chip_smoke_expects_the_calls_the_serve_path_makes(arch, monkeypatch):
     monkeypatch.setattr(tops, "flash_attention", counted_flash)
     steps = 5
     tengine.Engine(cfg, params, tengine.ServeOptions(max_seq=16, batch_size=2)).generate(
-        {"tokens": prompts(cfg, 2, 12, 0)}, steps)
+        tserve.random_batch(cfg, 2, 12, 0), steps)
     want = CS.expected_launches(cfg, steps - 1)
     assert calls == {k: want[k] for k in calls}
     assert want["chunk_reduce"] == want["dequant_add"] == 0
     assert (want["rmsnorm"] == 0) == (cfg.norm == "layernorm")
+    L, E = cfg.num_layers, cfg.encoder_layers
     attn_layers = CS.layer_kinds(cfg).count("attn")
-    assert attn_layers == {"rwkv6-1.6b": 0, "jamba-v0.1-52b": 2}.get(arch, cfg.num_layers)
-    assert want["flash_attention_tc"] == attn_layers and want["flash_attention_cores"] == 0
+    assert attn_layers == {"rwkv6-1.6b": 0, "jamba-v0.1-52b": 2, "qwen3-14b+encoder-mamba": 0,
+                           "qwen3-14b+encoder-rwkv": 0}.get(arch, L)
+    flash_calls = {"whisper-medium": 3 * L, "qwen3-14b+encoder-attn": 3 * L, "qwen3-14b+encoder-mamba": E + L,
+                   "qwen3-14b+encoder-rwkv": E}.get(arch, attn_layers)
+    assert want["flash_attention_tc"] == flash_calls and want["flash_attention_cores"] == 0
 
 
 def _ring_fault(fault, monkeypatch):

@@ -54,8 +54,9 @@ ARCHS = ["rwkv6-1.6b", "jamba-v0.1-52b"]
 DTYPES = ["float32", "bfloat16"]
 BF16 = dict(dtype="bfloat16", param_dtype="bfloat16")
 FRAC = {"float32": 2e-5, "bfloat16": 2e-2}
-# leaves the JAX package initialises to zeros or ones, and the norms
-PERTURBED = ("mu", "u", "w0", "ln_w", "ln_b", "conv_b", "dt_b", "A_log", "D", "ln1", "ln2", "final_norm")
+# leaves the JAX package initialises to zeros or ones, and the norms (ln_cross:
+# whisper's, for tests/test_torch_encdec.py, which shares these helpers)
+PERTURBED = ("mu", "u", "w0", "ln_w", "ln_b", "conv_b", "dt_b", "A_log", "D", "ln1", "ln2", "ln_cross", "final_norm")
 
 
 def np32(x):
