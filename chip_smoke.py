@@ -77,6 +77,23 @@ mask), then drives these paths:
   (``check_train_gradients``).  It checks the losses and gradient norms, the
   first loss against ln(vocab), and the kernel launches per step against
   ``expected_train_launches``, and profiles one more step.
+- ckpt: checkpoint and restart of the same train state (28.77 GB: bf16
+  parameters, f32 AdamW moments, the counts).  It prints the free disk and
+  host memory first and fails if they cannot hold one checkpoint and two
+  host copies.  ``launch.train.run`` takes CKPT_SAVE_AT steps; the state is
+  saved asynchronously into a directory under ``build/`` (the only
+  checkpoint of this size the run writes, so that the whole run writes
+  about 29 GB to disk), and the uninterrupted run steps on for as long as
+  the write lasts, then CKPT_AFTER steps more (the copy to host memory's
+  time, the write's time and rate, the median and largest step time before,
+  during and after the write); then its state is freed.  The checkpoint is
+  restored onto the card (time and rate) and must equal the state as saved
+  bit for bit; from it CKPT_RESUMED steps run again: the first loss must
+  equal the uninterrupted one bit for bit, the later losses and gradient
+  norms lie within CKPT_RTOL.  Then ``launch.train`` restarts
+  from a checkpoint directory on the card on reduced qwen3-14b in bf16, bit
+  for bit against an uninterrupted run.  The directory is removed at the
+  end whatever happens.
 
 Every phase raises on failure; the script then exits non-zero.  At the end
 it stops multiprocessing's resource tracker (started by the sync phase's
@@ -167,6 +184,17 @@ FLASH_TRAIN = (1, 40, 8, TRAIN_SEQ, TRAIN_SEQ, 128, True, 0)
 # bf16 at a head dim past the tensor-core route's 128, which no config has:
 # the CUDA-core kernel's bf16 case, held and timed in the kernel phase.
 CORES_BF16 = (BATCH, 16, 8, PROMPT, PROMPT, 256, True, 0)
+
+# The ckpt phase: the state is saved after step CKPT_SAVE_AT (steps 2 to
+# CKPT_SAVE_AT time the step before the write); the uninterrupted run steps
+# while the write lasts (at most CKPT_MAX_DURING steps), then CKPT_AFTER more;
+# the run resumed from the checkpoint takes CKPT_RESUMED steps.
+CKPT_SAVE_AT, CKPT_MAX_DURING, CKPT_AFTER, CKPT_RESUMED = 4, 200, 3, 2
+# The resumed run's steps after its first against the uninterrupted ones,
+# relative (see ckpt).
+CKPT_RTOL = 1e-3
+# Room on top of the checkpoint on disk and of the host copies in memory.
+CKPT_SPARE_BYTES = 4e9
 
 # The sync phase: rank processes on the one card (each with one decoder
 # block of gradients)
@@ -1397,6 +1425,213 @@ def train(torch, card: str):
                     "layers": TRAIN_LAYERS, "seq": TRAIN_SEQ, "batch": TRAIN_BATCH, "microbatches": TRAIN_MICRO}
 
 
+def mem_available_bytes() -> int:
+    """The host memory the kernel says is available (/proc/meminfo)."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) * 1024
+    raise RuntimeError("/proc/meminfo has no MemAvailable")
+
+
+def same_bits(torch, a, b) -> bool:
+    """Two tensors of one type and shape with the same bits (bf16 included)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        a, b = a.view(ints), b.view(ints)
+    return torch.equal(a, b)
+
+
+def timed_step(torch, train_step, state, batch):
+    """One train step as ``launch.train.run`` times it: from a synchronised
+    card to the metrics on the host.  Returns (state, metrics, ms)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    state, m = train_step(state, batch)
+    metrics = {k: float(v) for k, v in m.items()}
+    return state, metrics, (time.perf_counter() - t) * 1e3
+
+
+def launcher_restart_on_the_card(torch, tmp: Path):
+    """``launch.train`` restarting from a checkpoint directory on the card,
+    on reduced qwen3-14b in bf16 (a state of a few MB): 4 steps with a
+    checkpoint every 2, then a new run to step 6, against an uninterrupted
+    6-step run; the resumed losses and gradient norms must be its own bit for
+    bit.  Returns the resumed run's (loss, grad_norm) per step."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import train as LT
+    from repro_torch.train import step as TS
+
+    cfg = dataclasses.replace(reduced_config(get_config(ARCH)), dtype="bfloat16", param_dtype="bfloat16")
+    shape, opts = ShapeSpec("t", 64, 4, "train"), TS.TrainOptions(num_microbatches=2)
+    run = lambda steps, d, logs, every: LT.run(cfg, shape, opts, "cuda", steps=steps, seed=SEED, log_every=100,
+                                               log=logs.append, ckpt_dir=str(d), ckpt_every=every)[1]
+    logs = []
+    whole = run(6, tmp / "whole", [], 100)
+    run(4, tmp / "cut", [], 2)
+    resumed = run(6, tmp / "cut", logs, 2)
+    got = [(r["loss"], r["grad_norm"]) for r in resumed]
+    want = [(r["loss"], r["grad_norm"]) for r in whole[4:]]
+    log(f"[ckpt] launch.train on {cfg.name} (bf16) on the card: {logs[0]!r}; resumed steps "
+        f"{[r['step'] for r in resumed]}: (loss, gnorm) {got}, uninterrupted {want}")
+    if logs[0] != "[restart] resumed from checkpoint step 4" or got != want:
+        raise AssertionError(f"ckpt: the launcher's restart on the card: {logs}, {got} against {want}")
+    return got
+
+
+def ckpt(torch, card: str):
+    """Checkpoint and restart of the train phase's state (see the module's
+    docstring).  It writes one checkpoint of this state, asynchronously,
+    while the uninterrupted run steps on, and restarts from it: a run of the
+    script writes about 29 GB to disk, not a multiple of it.  Where a host
+    caps the bytes one job may write (deleted files count), a cap of 45 GiB
+    holds one run of the script and about 16 GB of other writes, not two
+    runs.  Returns the launches of the phase's train steps and its
+    metrics."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.checkpoint.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as LT
+    from repro_torch.train import step as TS
+    from repro_torch.tree import leaves
+
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=TRAIN_LAYERS)
+    shape = ShapeSpec("train_4k, batch cut", TRAIN_SEQ, TRAIN_BATCH, "train")
+    opts = TS.TrainOptions(num_microbatches=TRAIN_MICRO, remat="full", pod_sync="gspmd")
+    want = expected_train_launches(cfg, opts)
+    state_bytes = sum(t.numel() * t.element_size() for t in leaves(TS.abstract_state(cfg)))
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(root, ignore_errors=True)  # a run that died left it
+    root.parent.mkdir(parents=True, exist_ok=True)
+    disk, mem = shutil.disk_usage(root.parent).free, mem_available_bytes()
+    need_disk, need_mem = state_bytes + CKPT_SPARE_BYTES, 2 * state_bytes + CKPT_SPARE_BYTES
+    log(f"[ckpt] state {state_bytes / 1e9:.2f} GB ({cfg.name}, {TRAIN_LAYERS} layers: {cfg.param_dtype} parameters, "
+        f"f32 moments, int32 counts); free disk under {root.parent}: {disk / 1e9:.1f} GB (need "
+        f"{need_disk / 1e9:.1f}: one checkpoint); host memory available {mem / 1e9:.1f} GB (need "
+        f"{need_mem / 1e9:.1f}: the phase's own copy, and the checkpointer's, which the written files replace "
+        "leaf by leaf where the file system keeps them in memory)")
+    if disk < need_disk or mem < need_mem:
+        raise AssertionError(f"ckpt: {disk / 1e9:.1f} GB of disk and {mem / 1e9:.1f} GB of host memory cannot "
+                             f"hold the phase's {need_disk / 1e9:.1f} and {need_mem / 1e9:.1f} GB")
+    dev = torch.device("cuda")
+    batch = lambda i: pipeline.device_batch(cfg, shape, i, dev, SEED)
+    train_step = TS.make_train_step(cfg, opts)
+    try:
+        # The run up to the save, through the launcher.
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, recs = LT.run(cfg, shape, opts, "cuda", steps=CKPT_SAVE_AT, seed=SEED, log_every=100,
+                             log=lambda m: None)  # the main path
+        log(f"[ckpt] {CKPT_SAVE_AT} steps through launch.train.run in {time.perf_counter() - t0:.1f} s: "
+            + ", ".join(f"step {r['step']} loss {r['loss']!r} {r['ms']:.1f} ms" for r in recs))
+        # The phase's own copy of the state as saved, to hold the restored one to.
+        t0 = time.perf_counter()
+        saved = [t.to("cpu", copy=True) for t in leaves(state)]
+        copy_s = time.perf_counter() - t0
+
+        # The save: the copy to host memory now, the write on a thread while the run steps on.
+        ck = Checkpointer(str(root), keep=1)
+        ck.save_async(CKPT_SAVE_AT, state)
+        whole, during, after, i = [], [], [], CKPT_SAVE_AT
+        while True:  # each step here starts while the write runs
+            state, m, ms = timed_step(torch, train_step, state, batch(i))
+            whole.append(m)
+            during.append(ms)
+            i += 1
+            if not ck.in_flight() or len(during) == CKPT_MAX_DURING:
+                break
+        t0 = time.perf_counter()
+        ck.wait()
+        waited_s = time.perf_counter() - t0
+        while len(after) < CKPT_AFTER or len(whole) < CKPT_RESUMED:
+            state, m, ms = timed_step(torch, train_step, state, batch(i))
+            whole.append(m)
+            after.append(ms)
+            i += 1
+        save = ck.history[-1]
+        before = [r["ms"] for r in recs[1:]]
+        steps = {"before": before, "during": during, "after": after}
+        stats = {k: (statistics.median(v), max(v)) for k, v in steps.items()}
+        log(f"[ckpt] async save of step {CKPT_SAVE_AT}: {save['bytes'] / 1e9:.2f} GB in {len(saved)} leaves; copy to "
+            f"host memory (save_async's synchronous part) {save['snapshot_s'] * 1e3:.1f} ms "
+            f"({save['bytes'] / save['snapshot_s'] / 1e9:.3f} GB/s); write on the thread {save['write_s']:.2f} s "
+            f"({save['bytes'] / save['write_s'] / 1e9:.3f} GB/s), {waited_s:.2f} s of it left after the steps; "
+            f"{len(during)} steps started during the write ({sum(during) / 1e3:.2f} s); step ms (median, max) "
+            + ", ".join(f"{k} {len(v)} steps ({stats[k][0]:.1f}, {stats[k][1]:.1f})" for k, v in steps.items())
+            + f"; during / before: median {stats['during'][0] / stats['before'][0]:.4f}x, max "
+            f"{stats['during'][1] / stats['before'][1]:.4f}x; after / before: median "
+            f"{stats['after'][0] / stats['before'][0]:.4f}x; the phase's own copy {copy_s:.2f} s; host memory "
+            f"available {mem_available_bytes() / 1e9:.1f} GB; on {card}")
+        log(f"[ckpt] step ms during the write: {[round(x, 1) for x in during]}")
+        if ck.list_steps() != [CKPT_SAVE_AT]:
+            raise AssertionError(f"ckpt: the directory holds steps {ck.list_steps()}")
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # Restore onto the card: the state as saved, bit for bit; then resume.
+        step, state = ck.restore(TS.abstract_state(cfg), device="cuda")
+        torch.cuda.synchronize()
+        rec = ck.history[-1]
+        equal = [same_bits(torch, a, w.to(dev)) for a, w in zip(leaves(state), saved)]
+        del saved
+        log(f"[ckpt] restore of step {step} onto the card: {rec['bytes'] / 1e9:.2f} GB in {rec['restore_s']:.2f} s "
+            f"({rec['bytes'] / rec['restore_s'] / 1e9:.3f} GB/s; reading the files {rec['read_s']:.2f} s, "
+            f"{rec['bytes'] / rec['read_s'] / 1e9:.3f} GB/s; the copies to the card the rest); {sum(equal)} of "
+            f"{len(equal)} leaves equal the state as saved bit for bit")
+        if step != CKPT_SAVE_AT or not all(equal):
+            raise AssertionError(f"ckpt: step {step}, leaves equal {equal}")
+        resumed = []
+        for i in range(CKPT_SAVE_AT, CKPT_SAVE_AT + CKPT_RESUMED):
+            state, m, _ = timed_step(torch, train_step, state, batch(i))
+            resumed.append(m)
+        del state
+        counts = ops.launch_counts()
+        n_steps = CKPT_SAVE_AT + len(whole) + len(resumed)
+        whole = whole[:CKPT_RESUMED]
+        diffs = [{k: abs(r[k] - w[k]) / abs(w[k]) for k in ("loss", "grad_norm")} for r, w in zip(resumed, whole)]
+        log("[ckpt] resumed against uninterrupted: " + "; ".join(
+            f"step {CKPT_SAVE_AT + 1 + i} loss {r['loss']!r} vs {w['loss']!r}, gnorm {r['grad_norm']!r} vs "
+            f"{w['grad_norm']!r}" for i, (r, w) in enumerate(zip(resumed, whole))) + f" (tol {CKPT_RTOL:g} after the "
+            "first)")
+        if resumed[0]["loss"] != whole[0]["loss"]:
+            raise AssertionError(f"ckpt: the first resumed loss {resumed[0]['loss']!r} is not the uninterrupted "
+                                 f"{whole[0]['loss']!r}")
+        if any(d > CKPT_RTOL for row in diffs for d in row.values()):
+            raise AssertionError(f"ckpt: resumed steps differ from the uninterrupted ones by {diffs}")
+        if counts != {k: n_steps * n for k, n in want.items()}:
+            raise AssertionError(f"ckpt: {n_steps} steps launched {counts}, expected {want} a step")
+        gc.collect()
+        torch.cuda.empty_cache()
+        launcher = launcher_restart_on_the_card(torch, root / "launcher")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if root.exists():
+        raise AssertionError(f"ckpt: {root} was not removed")
+    log(f"[ckpt] {root} removed")
+    return counts, {"state_gb": state_bytes / 1e9, "disk_free_gb": disk / 1e9, "mem_available_gb": mem / 1e9,
+                    "snapshot_ms": save["snapshot_s"] * 1e3, "snapshot_GBps": save["bytes"] / save["snapshot_s"] / 1e9,
+                    "write_s": save["write_s"], "write_GBps": save["bytes"] / save["write_s"] / 1e9,
+                    "write_left_after_steps_s": waited_s, "step_ms_before": before, "step_ms_during_write": during,
+                    "step_ms_after_write": after,
+                    "step_ms_median_max": {k: list(v) for k, v in stats.items()},
+                    "restore_s": rec["restore_s"], "restore_read_s": rec["read_s"],
+                    "restore_GBps": rec["bytes"] / rec["restore_s"] / 1e9,
+                    "loss_uninterrupted": [w["loss"] for w in whole], "loss_resumed": [r["loss"] for r in resumed],
+                    "grad_norm_uninterrupted": [w["grad_norm"] for w in whole],
+                    "grad_norm_resumed": [r["grad_norm"] for r in resumed], "resumed_rel_diff": diffs,
+                    "launcher_restart_reduced": launcher}
+
+
 def device_events(torch, fn):
     """One call of ``fn`` under torch.profiler: its device-side events
     (kernels, copies), and their total time and count by name."""
@@ -1579,6 +1814,12 @@ def main() -> int:
     # Phase 5: the train step at full width, depth cut.
     train_counts, train_metrics = train(torch, card)
     log(f"[train] metrics {json.dumps(train_metrics)} on {card}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Phase 5b: checkpoint and restart of the train state.
+    ckpt_counts, ckpt_metrics = ckpt(torch, card)
+    log(f"[ckpt] metrics {json.dumps(ckpt_metrics)} on {card}")
 
     stop_resource_tracker()
     check_no_children()
@@ -1586,7 +1827,7 @@ def main() -> int:
     # launches of each kernel on each main path (each flash record: its route's)
     by_path = {"serve": counts, "serve_moe": moe_counts, "serve_dense": dense_counts, "serve_ssm": ssm_counts,
                "serve_encdec": encdec_counts, "sync": {"chunk_reduce": sum(summary["methods"]["hoplite_chain"]["chunk_reduce"])},
-               "train": train_counts}
+               "train": train_counts, "ckpt": ckpt_counts}
     for r in records:
         name = "flash_attention_tc" if r["name"] == "flash_attention" else r["name"]
         r["launches_by_path"] = {path: c.get(name, 0) for path, c in by_path.items()}

@@ -182,10 +182,13 @@ def make_train_step(cfg: ModelConfig, options: TrainOptions = TrainOptions(), po
 
 
 def abstract_state(cfg: ModelConfig):
-    """The state's shapes and types as tensors on the ``meta`` device: the
-    parameters in their skeleton's types, f32 moments, int32 counts."""
+    """The shapes and types of the state ``init_state`` draws, as tensors on
+    the ``meta`` device: parameters of ``cfg.param_dtype``, f32 moments,
+    int32 counts.  (The JAX package's ``abstract_state`` gives the
+    parameters their skeleton's type, bfloat16, whatever ``param_dtype``
+    says; its launcher's restore reads only the names.)"""
     meta = lambda shape, dtype: torch.empty(shape, dtype=dtype, device="meta")
-    params = tree_map_params(lambda p: meta(p.shape, getattr(torch, p.dtype)), T.model_skel(cfg))
+    params = tree_map_params(lambda p: meta(p.shape, getattr(torch, cfg.param_dtype)), T.model_skel(cfg))
     f32 = lambda t: meta(t.shape, torch.float32)
     return {"params": params,
             "opt": {"m": tree_map(f32, params), "v": tree_map(f32, params), "count": meta((), torch.int32)},

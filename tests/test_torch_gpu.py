@@ -17,6 +17,7 @@ import pytest
 import torch
 
 import torch_rank_cases as cases
+from repro_torch.checkpoint.checkpoint import Checkpointer
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.configs.base import ShapeSpec
 from repro_torch.core import collectives as C
@@ -318,6 +319,37 @@ def test_bf16_train_gradients_on_the_card(cuda):
     for g, c, w in zip(card, cpu, f32):
         assert g.dtype == torch.bfloat16
         assert _rel_l2(g, w) <= 2 * _rel_l2(c, w), (_rel_l2(g, w), _rel_l2(c, w))
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view({2: torch.int16, 4: torch.int32}[t.element_size()]) if t.is_floating_point() else t
+
+
+def test_a_checkpoint_written_from_the_card_restores_bit_for_bit(cuda, tmp_path):
+    """A bf16 train state after one step on the card, saved asynchronously
+    while the next step updates it in place: restored onto the card and onto
+    the CPU, every leaf is the state as it was saved, bit for bit, and the
+    step from the restored state gives the uninterrupted step's loss."""
+    cfg = dataclasses.replace(reduced_config(get_config("qwen3-14b")), head_dim=64, dtype="bfloat16",
+                              param_dtype="bfloat16")
+    shape = ShapeSpec("t", 32, 4, "train")
+    step = TS.make_train_step(cfg, TS.TrainOptions(num_microbatches=2))
+    batch = lambda i: pipeline.device_batch(cfg, shape, i, torch.device("cuda"))
+    state, _ = step(TS.init_state(cfg, 0, "cuda"), batch(0))
+    want = tree_map(torch.clone, state)
+    ck = Checkpointer(str(tmp_path))
+    ck.save_async(1, state)
+    _, m = step(state, batch(1))
+    ck.wait()
+    for dev in ("cuda", "cpu"):
+        n, got = ck.restore(TS.abstract_state(cfg), device=dev)
+        assert n == 1
+        for a, b in zip(leaves(got), leaves(want)):
+            assert a.device.type == dev and a.dtype == b.dtype and a.shape == b.shape
+            assert torch.equal(_bits(a.cpu()), _bits(b.cpu()))
+    assert any(t.dtype == torch.bfloat16 for t in leaves(want))
+    _, again = step(ck.restore(TS.abstract_state(cfg), device="cuda")[1], batch(1))
+    assert float(again["loss"]) == float(m["loss"])
 
 
 def test_flash_tensor_cores_read_only_their_own_bytes(cuda):

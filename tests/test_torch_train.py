@@ -551,14 +551,24 @@ def test_unknown_remat_raises():
 
 
 def test_abstract_state_matches_jax():
-    cfg, jcfg = QWEN_SMALL
-    got, want = TS.abstract_state(cfg), JS.abstract_state(jcfg)
-    n = 0
-    for path, t, j in paired(got, want):
-        assert t.device.type == "meta", path
-        assert tuple(t.shape) == tuple(j.shape) and str(t.dtype).split(".")[-1] == str(j.dtype), path
-        n += 1
-    assert n == 2 + 3 * 14
+    """The shapes and types of the JAX package's ``init_state``, in f32 and
+    bf16, which the port's restore checks a checkpoint against.  The JAX
+    package's own ``abstract_state`` has the same names and shapes, and the
+    same types but for the parameters, which it gives their skeleton's
+    bfloat16 whatever ``param_dtype`` says."""
+    for dtype in ("float32", "bfloat16"):
+        cfg, jcfg = (dataclasses.replace(c, dtype=dtype, param_dtype=dtype) for c in QWEN_SMALL)
+        got = TS.abstract_state(cfg)
+        want = jax.eval_shape(lambda: JS.init_state(jcfg, jax.random.PRNGKey(0)))
+        n = 0
+        for (path, t, j), (_, _, a) in zip(paired(got, want), paired(got, JS.abstract_state(jcfg))):
+            assert t.device.type == "meta", path
+            assert tuple(t.shape) == tuple(j.shape) == tuple(a.shape), path
+            assert str(t.dtype).split(".")[-1] == str(j.dtype), path
+            skeleton_type = path.startswith("/params") and dtype == "float32"
+            assert (str(a.dtype) == "bfloat16") if skeleton_type else (a.dtype == j.dtype), path
+            n += 1
+        assert n == 2 + 3 * 14
 
 
 def test_init_state_and_state_from_jax_lay_the_state_out_alike(initial_state):
@@ -655,9 +665,20 @@ def test_train_main_without_device_raises(monkeypatch):
         ttrain.main(["--arch", "qwen3-14b", "--reduced", "--steps", "1"])
 
 
-def test_train_main_ckpt_dir_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        ttrain.main(["--arch", "qwen3-14b", "--reduced", "--device", "cpu", "--ckpt-dir", str(tmp_path)])
+def test_train_main_ckpt_dir_is_not_ported(tmp_path, capsys):
+    """Named when ``--ckpt-dir`` raised: it now saves and restarts as the JAX
+    driver does (tests/test_torch_checkpoint.py holds the numbers)."""
+    argv = ["--arch", "qwen3-14b", "--reduced", "--device", "cpu", "--log-every", "1", "--seq-len", "16",
+            "--global-batch", "2", "--ckpt-dir", str(tmp_path), "--ckpt-every", "1"]
+    ttrain.main(argv + ["--steps", "2"])
+    out = capsys.readouterr().out
+    assert "[restart]" not in out and "[ckpt] final checkpoint at step 2" in out
+    assert sorted(os.listdir(tmp_path)) == ["step_00000001", "step_00000002"]
+    state = ttrain.main(argv + ["--steps", "3"])
+    out = capsys.readouterr().out
+    assert "[restart] resumed from checkpoint step 2" in out and "step 3: loss=" in out
+    assert "step 2: loss=" not in out and "[ckpt] final checkpoint at step 3" in out
+    assert int(state["step"]) == 3
 
 
 @pytest.mark.parametrize("method", sorted(TS.POD_SYNC_METHODS))
