@@ -94,10 +94,24 @@ mask), then drives these paths:
   from a checkpoint directory on the card on reduced qwen3-14b in bf16, bit
   for bit against an uninterrupted run.  The directory is removed at the
   end whatever happens.
+- pods: the launcher's multi-pod training (``launch.train.run(pods=2)``,
+  ``--multi-pod --pod-sync hoplite_chain``) on qwen3-14b at full width cut to
+  one layer: 2 pods, each a rank process with its own replica of the state
+  (18.86 GB) on the one card, one row of 4096 tokens a pod (its share of a
+  global batch of 2 by ``batch_specs``' placements), 3 steps; every hop of
+  the gradient sync between the pods (3.77 GB of bf16 gradients a step) is
+  the ``chunk_reduce`` kernel.  It reckons the memory the two replicas need
+  first and fails if the card cannot hold them.  One process takes the first
+  step on the joined batch before the pods start, and is freed.  The pods'
+  replicas must hash the same after every step, their first loss and
+  gradient norm equal the one process's within POD_RTOL, and each pod's
+  launches per step are predicted (``expected_pod_launches``).  Each step's
+  time is split into the pod's own step and the sync, beside the sync's
+  time predicted from ``core.planner.HOST_STAGED_LINK``.
 
 Every phase raises on failure; the script then exits non-zero.  At the end
-it stops multiprocessing's resource tracker (started by the sync phase's
-ranks) and fails if any process it started is still there.
+it stops multiprocessing's resource tracker (started by the sync and pods
+phases' ranks) and fails if any process it started is still there.
 
 The last two lines are a JSON ``kernels`` record (times, bounds, launches)
 and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -199,6 +213,14 @@ CKPT_SPARE_BYTES = 4e9
 # The sync phase: rank processes on the one card (each with one decoder
 # block of gradients)
 SYNC_RANKS = 4
+
+# The pods phase: qwen3-14b's widths cut to POD_LAYERS, POD_PODS pods (each a
+# rank process with a replica) on the one card, a global batch of POD_BATCH
+# rows of train_4k's sequence (one row a pod, one microbatch), POD_STEPS steps.
+POD_LAYERS, POD_PODS, POD_BATCH, POD_STEPS = 1, 2, 2, 3
+# The pods' first step against one process on the joined batch, relative
+# (tests/test_torch_train.py::test_pod_step_matches_one_process_on_the_joined_batch).
+POD_RTOL = 1e-5
 
 # Names of the port's kernels in a profile (see device_profile).
 PORT_KERNELS = ("flash_fwd_sm90_kernel", "flash_fwd_kernel", "rmsnorm", "chunk_reduce_kernel")
@@ -1425,6 +1447,124 @@ def train(torch, card: str):
                     "layers": TRAIN_LAYERS, "seq": TRAIN_SEQ, "batch": TRAIN_BATCH, "microbatches": TRAIN_MICRO}
 
 
+def expected_pod_launches(cfg, options, pods: int, rank: int):
+    """Launches of one pod's train step: ``expected_train_launches``, and the
+    hop kernel as ``collectives.hop_launches`` predicts for each leaf of the
+    gradient tree over ``pods`` ranks (the parameters' type with one
+    microbatch, the f32 sums with more)."""
+    import torch
+
+    from repro_torch.core import collectives as C
+    from repro_torch.models import transformer as T
+    from repro_torch.train import step as TS
+    from repro_torch.tree import leaves
+
+    size = 4 if options.num_microbatches > 1 else getattr(torch, cfg.param_dtype).itemsize
+    method = TS.POD_SYNC_METHODS[options.pod_sync]
+    return dict(expected_train_launches(cfg, options), chunk_reduce=sum(
+        C.hop_launches(method, pods, rank, math.prod(p.shape) * size, C.HOST_STAGED_CONFIG)
+        for p in leaves(T.model_skel(cfg))))
+
+
+def pods(torch, card: str):
+    """The launcher's multi-pod training at full width: qwen3-14b cut to
+    POD_LAYERS layers, POD_PODS pods of one row of TRAIN_SEQ tokens each,
+    hoplite_chain between them, POD_STEPS steps through
+    ``launch.train.run(pods=...)``.  First one process takes one step on the
+    joined batch, and is freed.  The pods' replicas must hash the same after
+    every step (``run`` raises if not), their first loss and gradient norm
+    equal the one process's within POD_RTOL, and each pod's launches per step
+    equal ``expected_pod_launches``.  It reckons the card memory the pods
+    need before they start and fails if it does not fit."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core.planner import HOST_STAGED_LINK
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as LT
+    from repro_torch.models import transformer as T
+    from repro_torch.train import step as TS
+    from repro_torch.tree import leaves
+
+    full = get_config(ARCH)
+    cfg = dataclasses.replace(full, num_layers=POD_LAYERS)
+    shape = ShapeSpec("train_4k, batch cut", TRAIN_SEQ, POD_BATCH, "train")
+    opts = TS.TrainOptions(num_microbatches=1, remat="full", pod_sync="hoplite_chain")
+    n = cfg.param_count()
+    pbytes = getattr(torch, cfg.param_dtype).itemsize
+    state_b, grad_b = n * (pbytes + 8), n * pbytes  # bf16 parameters, f32 m and v; bf16 gradients
+    rows = POD_BATCH // POD_PODS
+    logits_b = rows * TRAIN_SEQ * cfg.padded_vocab * 4
+    embed_b = cfg.padded_vocab * cfg.d_model * 4
+    # AdamW's f32 passes over the largest leaf (the gradient scaled, a moment
+    # term, the step's two quotients) against the loss's f32 logits, their
+    # exponentials and their gradient: the larger is a pod's transient peak
+    transient_b = max(4 * embed_b, 3 * logits_b)
+    need = POD_PODS * (state_b + grad_b + transient_b)
+    free, total = torch.cuda.mem_get_info()
+    log(f"[pods] {cfg.name} at full width (d={cfg.d_model}, {cfg.num_heads} q / {cfg.num_kv_heads} kv heads, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}), cut to {POD_LAYERS} of {full.num_layers} layers: {n / 1e9:.3f} B "
+        f"parameters; {POD_PODS} pods, each a rank process with a replica on the one card, {rows} row of "
+        f"{TRAIN_SEQ} tokens a pod, one microbatch, remat {opts.remat}, {opts.pod_sync}, {POD_STEPS} steps")
+    log(f"[pods] reckoned per pod: state {state_b / 1e9:.2f} GB, {cfg.param_dtype} gradients {grad_b / 1e9:.2f} "
+        f"GB (the sync's volume a step), transients up to {transient_b / 1e9:.2f} GB (f32 logits "
+        f"{logits_b / 1e9:.2f} GB; the embedding in f32 {embed_b / 1e9:.2f} GB): {POD_PODS} pods "
+        f"{need / 1e9:.2f} GB; the card has {free / 1e9:.2f} of {total / 1e9:.2f} GB free; host memory available "
+        f"{mem_available_bytes() / 1e9:.1f} GB")
+    if need > free:
+        raise AssertionError(f"pods: {POD_PODS} replicas need about {need / 1e9:.2f} GB; {free / 1e9:.2f} GB free")
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, one = LT.run(cfg, shape, opts, "cuda", steps=1, seed=SEED, log_every=1,
+                        log=lambda m: log(f"[pods] one process on the joined batch: {m}"))
+    one_peak = torch.cuda.max_memory_allocated()
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[pods] one process: {time.perf_counter() - t0:.1f} s, peak {one_peak / 1e9:.2f} GB; freed "
+        f"({torch.cuda.memory_allocated() / 1e9:.2f} GB left allocated); host memory available "
+        f"{mem_available_bytes() / 1e9:.1f} GB before the pods")
+
+    t0 = time.perf_counter()
+    _, recs = LT.run(cfg, shape, opts, "cuda", steps=POD_STEPS, seed=SEED, log_every=1,
+                     log=lambda m: log(f"[pods] {m}"), pods=POD_PODS, return_state=False)  # the main path
+    phase_s = time.perf_counter() - t0
+    want = [expected_pod_launches(cfg, opts, POD_PODS, r) for r in range(POD_PODS)]
+    grad_sizes = [math.prod(p.shape) * pbytes for p in leaves(T.model_skel(cfg))]
+    predicted_ms = sum(HOST_STAGED_LINK.transfer_time(b) for b in grad_sizes) * 1e3
+    for r in recs:
+        log(f"[pods] step {r['step']}: loss {r['loss']!r} gnorm {r['grad_norm']!r}; digests {r['digests']}; "
+            + "; ".join(f"pod {i}: {p['ms']:.1f} ms = own {p['ms'] - p['sync_ms']:.1f} + sync {p['sync_ms']:.1f} "
+                        f"(predicted {predicted_ms:.1f}), peak {p['peak_bytes'] / 1e9:.2f} GB, launches "
+                        f"{p['launches']}" for i, p in enumerate(r["pods"])))
+    rel = {k: abs(recs[0][k] - one[0][k]) / abs(one[0][k]) for k in ("loss", "grad_norm")}
+    log(f"[pods] first step against one process on the joined batch: loss {recs[0]['loss']!r} vs "
+        f"{one[0]['loss']!r}, gnorm {recs[0]['grad_norm']!r} vs {one[0]['grad_norm']!r}; relative {rel} "
+        f"(tol {POD_RTOL:g}); phase {phase_s:.1f} s")
+    if len(recs) != POD_STEPS or any(len(set(r["digests"])) != 1 for r in recs):
+        raise AssertionError(f"pods: {len(recs)} steps, digests {[r['digests'] for r in recs]}")
+    if any(v > POD_RTOL for v in rel.values()):
+        raise AssertionError(f"pods: the first step differs from one process on the joined batch by {rel}")
+    got = [[r["pods"][i]["launches"] for r in recs] for i in range(POD_PODS)]
+    if any(g != want[i] for i in range(POD_PODS) for g in got[i]):
+        raise AssertionError(f"pods: launches {got}, expected {want} a step")
+    counts = {k: sum(g[k] for pod in got for g in pod) for k in want[0]}
+    ms = [[r["pods"][i]["ms"] for r in recs] for i in range(POD_PODS)]
+    sync_ms = [[r["pods"][i]["sync_ms"] for r in recs] for i in range(POD_PODS)]
+    return counts, {"layers": POD_LAYERS, "pods": POD_PODS, "rows_per_pod": rows, "seq": TRAIN_SEQ,
+                    "params": n, "state_gb": state_b / 1e9, "grad_gb": grad_b / 1e9, "need_gb": need / 1e9,
+                    "free_gb": free / 1e9, "one_process_peak_gb": one_peak / 1e9,
+                    "loss": [r["loss"] for r in recs], "grad_norm": [r["grad_norm"] for r in recs],
+                    "one_process": {"loss": one[0]["loss"], "grad_norm": one[0]["grad_norm"], "ms": one[0]["ms"]},
+                    "first_step_rel": rel, "step_ms": ms, "sync_ms": sync_ms,
+                    "own_ms": [[a - b for a, b in zip(x, y)] for x, y in zip(ms, sync_ms)],
+                    "sync_predicted_ms": predicted_ms,
+                    "peak_gb": [recs[-1]["pods"][i]["peak_bytes"] / 1e9 for i in range(POD_PODS)],
+                    "digests": [r["digests"] for r in recs], "phase_s": phase_s}
+
+
 def mem_available_bytes() -> int:
     """The host memory the kernel says is available (/proc/meminfo)."""
     for line in Path("/proc/meminfo").read_text().splitlines():
@@ -1820,6 +1960,12 @@ def main() -> int:
     # Phase 5b: checkpoint and restart of the train state.
     ckpt_counts, ckpt_metrics = ckpt(torch, card)
     log(f"[ckpt] metrics {json.dumps(ckpt_metrics)} on {card}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Phase 5c: the launcher's multi-pod training, each pod a rank process.
+    pod_counts, pod_metrics = pods(torch, card)
+    log(f"[pods] metrics {json.dumps(pod_metrics)} on {card}")
 
     stop_resource_tracker()
     check_no_children()
@@ -1827,7 +1973,7 @@ def main() -> int:
     # launches of each kernel on each main path (each flash record: its route's)
     by_path = {"serve": counts, "serve_moe": moe_counts, "serve_dense": dense_counts, "serve_ssm": ssm_counts,
                "serve_encdec": encdec_counts, "sync": {"chunk_reduce": sum(summary["methods"]["hoplite_chain"]["chunk_reduce"])},
-               "train": train_counts, "ckpt": ckpt_counts}
+               "train": train_counts, "ckpt": ckpt_counts, "pods": pod_counts}
     for r in records:
         name = "flash_attention_tc" if r["name"] == "flash_attention" else r["name"]
         r["launches_by_path"] = {path: c.get(name, 0) for path, c in by_path.items()}

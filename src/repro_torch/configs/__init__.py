@@ -12,9 +12,9 @@ of ``repro.configs``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, List
 
-from repro_torch.configs.base import LayerSpec, ModelConfig, ShapeSpec  # noqa: F401
+from repro_torch.configs.base import ALL_SHAPES, LayerSpec, ModelConfig, ShapeSpec  # noqa: F401
 from repro_torch.configs.gemma3_27b import CONFIG as GEMMA3
 from repro_torch.configs.jamba_v0_1_52b import CONFIG as JAMBA
 from repro_torch.configs.llama4_scout_17b_a16e import CONFIG as LLAMA4_SCOUT
@@ -36,6 +36,25 @@ def get_config(name: str) -> ModelConfig:
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; available: {sorted(ARCHS)}")
     return ARCHS[name]
+
+
+def shapes_for(cfg: ModelConfig) -> List[ShapeSpec]:
+    """Applicable shape cells for an arch (the JAX package's skip rules):
+    the config's own ``skip_shapes``, and ``long_500k`` only for a config
+    that allows long contexts or is sub-quadratic."""
+    out = []
+    for s in ALL_SHAPES:
+        if s.name in cfg.skip_shapes:
+            continue
+        if s.name == "long_500k" and not (cfg.long_context_ok or cfg.sub_quadratic()):
+            continue
+        out.append(s)
+    return out
+
+
+def all_cells() -> List[tuple]:
+    """Every (arch, shape) dry-run cell, with skips applied."""
+    return [(name, s.name) for name, cfg in ARCHS.items() for s in shapes_for(cfg)]
 
 
 def reduced_config(cfg: ModelConfig) -> ModelConfig:

@@ -2,8 +2,9 @@
 
 Every (step, batch row) is a pure function of the seed: numpy's PCG64 keyed
 as the JAX package keys it, so the port's batches are the JAX package's bit
-for bit, and a run resumes by step index, not by iterator state.  There are
-no sharding specs: a batch lands whole on one device.
+for bit, and a run resumes by step index, not by iterator state.  A batch
+lands on one device: whole, or the share of it that ``share`` picks from
+the host batch (a pod's rows: ``launch.train.pod_share``).
 
 ``Prefetcher`` keeps a few batches ready in a background thread, so that
 making them overlaps the device's step.
@@ -13,7 +14,7 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Dict, Iterator, Optional
+from typing import Callable, Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -52,27 +53,33 @@ def host_batch(cfg: ModelConfig, shape: ShapeSpec, step: int, seed: int = 0,
     return batch
 
 
+Share = Callable[[Dict[str, np.ndarray]], Dict[str, np.ndarray]]
+
+
 def device_batch(cfg: ModelConfig, shape: ShapeSpec, step: int, device: torch.device, seed: int = 0,
-                 structured: bool = False) -> Dict[str, torch.Tensor]:
-    """``host_batch`` as tensors on ``device``.  For the card each array is
-    copied from pinned host memory without blocking the host; the copy is
-    ordered on the current stream before any work queued after it."""
+                 structured: bool = False, share: Optional[Share] = None) -> Dict[str, torch.Tensor]:
+    """``host_batch`` (or ``share`` of it) as tensors on ``device``.  For the
+    card each array is copied from pinned host memory without blocking the
+    host; the copy is ordered on the current stream before any work queued
+    after it."""
     out = {}
-    for name, arr in host_batch(cfg, shape, step, seed, structured).items():
+    batch = host_batch(cfg, shape, step, seed, structured)
+    for name, arr in (batch if share is None else share(batch)).items():
         t = torch.from_numpy(np.ascontiguousarray(arr))
         out[name] = t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t.to(device)
     return out
 
 
 class Prefetcher:
-    """Batches ``start_step``, ``start_step + 1``, ... made on a background
-    thread, at most ``depth`` ahead of the consumer.  Iterating yields
+    """Batches ``start_step``, ``start_step + 1``, ... (each ``share`` of the
+    global batch, if given) made on a background thread, at most ``depth``
+    ahead of the consumer.  Iterating yields
     ``(step, batch)``; ``close()`` stops the thread and drops what is queued.
     A failure in the thread is raised by the next ``next()``."""
 
     def __init__(self, cfg: ModelConfig, shape: ShapeSpec, device: torch.device, start_step: int = 0,
-                 seed: int = 0, depth: int = 2):
-        self._args = (cfg, shape, device, seed)
+                 seed: int = 0, depth: int = 2, share: Optional[Share] = None):
+        self._args = (cfg, shape, device, seed, share)
         self._q: "queue.Queue" = queue.Queue(maxsize=depth)
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._run, args=(start_step,), daemon=True)
@@ -88,10 +95,10 @@ class Prefetcher:
         return False
 
     def _run(self, step: int) -> None:
-        cfg, shape, device, seed = self._args
+        cfg, shape, device, seed, share = self._args
         while not self._stop.is_set():
             try:
-                item = (step, device_batch(cfg, shape, step, device, seed), None)
+                item = (step, device_batch(cfg, shape, step, device, seed, share=share), None)
             except Exception as e:  # handed to the consumer, which raises it
                 self._put((step, None, e))
                 return

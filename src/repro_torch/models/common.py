@@ -71,6 +71,33 @@ def init_params(skel, generator: torch.Generator, device=None, dtype_override=No
     return tree_map_params(draw, skel)
 
 
+def _leaves_of(skel):
+    if is_param(skel):
+        yield skel
+    elif isinstance(skel, dict):
+        for v in skel.values():
+            yield from _leaves_of(v)
+    else:
+        for v in skel:
+            yield from _leaves_of(v)
+
+
+def abstract_params(skel):
+    """The skeleton as tensors on the ``meta`` device, each of its ``Param``'s
+    shape and dtype: nothing is allocated (the JAX package's
+    ``ShapeDtypeStruct`` tree)."""
+    return tree_map_params(lambda p: torch.empty(p.shape, dtype=getattr(torch, p.dtype), device="meta"), skel)
+
+
+def param_bytes(skel) -> int:
+    """Bytes of every parameter in its skeleton dtype."""
+    return sum(math.prod(p.shape) * getattr(torch, p.dtype).itemsize for p in _leaves_of(skel))
+
+
+def param_elems(skel) -> int:
+    return sum(math.prod(p.shape) for p in _leaves_of(skel))
+
+
 # ---------------------------------------------------------------------------
 # layer math (activations in cfg.dtype, reductions in f32)
 # ---------------------------------------------------------------------------

@@ -12,8 +12,11 @@ at most its window, as a ring); Mamba ``{"conv": (L,B,W-1,di), "ssm":
 (L,B,H,hs,hs) f32}``; a decoder layer with cross-attention wraps its own
 cache as ``{"self": <it>, "cross_k", "cross_v"}``, the encoder output's K/V
 of (L,B,E,K,D) in the model's type, written once by prefill.  The port
-fills and updates them in place (JAX returns new arrays).  GSPMD sharding
-hints have no counterpart on one device.  ``layer_fwd``, ``stage_fwd`` and
+fills and updates them in place (JAX returns new arrays); ``cache_skel``
+gives their shapes on ``meta`` and ``cache_spec_skel`` their partition
+specs.  The JAX package's sharding hints (``_constrain``) stand where its
+do: a plain tensor passes unchanged, a DTensor is redistributed to the
+policy's placements.  ``layer_fwd``, ``stage_fwd`` and
 ``forward`` carry the MoE auxiliary loss (0 for a plain FFN or an RWKV
 block), as the JAX package's do.
 
@@ -38,6 +41,7 @@ import functools
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import attention as attn
@@ -52,6 +56,7 @@ from repro_torch.models.common import (
     sinusoidal_positions,
     tree_map_params,
 )
+from repro_torch.sharding.partitioning import PartitionSpec, placements
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -219,6 +224,45 @@ def cache_for(cfg, spec: LayerSpec, n: int, batch: int, cache_seq: int, dtype, d
     raise ValueError(spec.kind)
 
 
+def cache_skel(cfg: ModelConfig, batch: int, seq_len: int):
+    """The decode caches of a shape cell as tensors on ``meta``: per stage, per
+    pattern position, ``cache_for``'s tree over the stage's blocks (an
+    encoder-decoder's with its cross K/V over ``cfg.encoder_seq`` frames)."""
+    dt = getattr(torch, cfg.dtype)
+    enc = cfg.encoder_seq if cfg.is_encoder_decoder else 0
+    return [{f"pos{i}": cache_for(cfg, spec, n, batch, seq_len, dt, "meta", enc) for i, spec in enumerate(pattern)}
+            for pattern, n in cfg.stages()]
+
+
+def cache_spec_skel(cfg: ModelConfig, b_ax, seq_ax, tp_ax):
+    """PartitionSpec tree mirroring :func:`cache_skel`.
+
+    b_ax: batch mesh axes (or None); seq_ax: cache-length mesh axes; tp_ax:
+    model axis for state inner dims.  The leading dim is the stacked layers
+    axis (never sharded).  Where ``cache_for`` gives a Mamba position of an
+    encoder-decoder cross K/V too (the JAX package's ``cache_skel`` does not;
+    no config has both), the spec mirrors the port's tree."""
+
+    def one_layer(spec: LayerSpec):
+        if cfg.is_encoder_decoder and spec.kind != "rwkv":
+            return {"self": _own(spec),
+                    "cross_k": PartitionSpec(None, b_ax, None, None, None),
+                    "cross_v": PartitionSpec(None, b_ax, None, None, None)}
+        return _own(spec)
+
+    def _own(spec: LayerSpec):
+        if spec.kind == "attn":
+            return {"k": PartitionSpec(None, b_ax, seq_ax, None, None), "v": PartitionSpec(None, b_ax, seq_ax, None, None)}
+        if spec.kind == "mamba":
+            return {"conv": PartitionSpec(None, b_ax, None, tp_ax), "ssm": PartitionSpec(None, b_ax, tp_ax, None)}
+        if spec.kind == "rwkv":
+            return {"shift_t": PartitionSpec(None, b_ax, tp_ax), "shift_c": PartitionSpec(None, b_ax, tp_ax),
+                    "wkv": PartitionSpec(None, b_ax, tp_ax, None, None)}
+        raise ValueError(spec.kind)
+
+    return [{f"pos{i}": one_layer(s) for i, s in enumerate(pattern)} for pattern, _n in cfg.stages()]
+
+
 def _store(cache, state) -> None:
     """Write a layer's new state into its cache views, in place."""
     for name, t in state.items():
@@ -288,6 +332,35 @@ def layer_decode(cfg, spec, lp, x, t: int, cache):
 
 
 # ---------------------------------------------------------------------------
+# activation sharding
+# ---------------------------------------------------------------------------
+
+
+# Activation-sharding policy, set by a launcher (the model code itself is
+# mesh-agnostic): "batch" -> the mesh axes of the activation batch dim, "tp"
+# -> the model/TP axis.  Unset, ``_constrain`` returns what it is given.
+ACTIVATION_SHARDING: Dict[str, Any] = {"batch": None, "tp": None}
+
+
+def set_activation_sharding(batch_axes, tp_axis) -> None:
+    ACTIVATION_SHARDING["batch"] = batch_axes
+    ACTIVATION_SHARDING["tp"] = tp_axis
+
+
+def _constrain(x, dims):
+    """dims: a policy key or None per tensor dim.  A DTensor is
+    redistributed over its own mesh to the placements of that spec; a plain
+    tensor (one device, no mesh) is returned unchanged, as the JAX package
+    returns its array where no mesh is in context."""
+    if ACTIVATION_SHARDING["batch"] is None and ACTIVATION_SHARDING["tp"] is None:
+        return x
+    if not isinstance(x, DTensor):
+        return x
+    spec = PartitionSpec(*[ACTIVATION_SHARDING.get(d) if d else None for d in dims])
+    return x.redistribute(x.device_mesh, placements(spec, x.device_mesh))
+
+
+# ---------------------------------------------------------------------------
 # stage runners (a Python loop over the stacked blocks)
 # ---------------------------------------------------------------------------
 
@@ -314,6 +387,9 @@ def stage_fwd(cfg, pattern, stage_params, x, q_pos, wrap: Optional[Callable] = N
     run = block if wrap is None else wrap(block)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for blk in range(_num_blocks(stage_params)):
+        # the block carry pinned batch-sharded, outside the remat as in the
+        # JAX package's stage_fwd and its train step's rematted body
+        x = _constrain(x, ("batch", None, None))
         x, a = run(x, _layer(stage_params, blk))
         aux = aux + a
     return x, aux
@@ -329,6 +405,7 @@ def stage_prefill(cfg, pattern, stage_params, x, q_pos, cache_seq: int, position
               for i, spec in enumerate(pattern)}
     for blk in range(n):
         bp = _layer(stage_params, blk)
+        x = _constrain(x, ("batch", None, None))
         for i, spec in enumerate(pattern):
             # prefill's aux is dropped, as the JAX package drops it
             x, _ = layer_prefill(cfg, spec, bp[f"pos{i}"], x, q_pos, _layer(caches[f"pos{i}"], blk),
@@ -339,6 +416,7 @@ def stage_prefill(cfg, pattern, stage_params, x, q_pos, cache_seq: int, position
 def stage_decode(cfg, pattern, stage_params, x, t: int, caches):
     for blk in range(_num_blocks(stage_params)):
         bp = _layer(stage_params, blk)
+        x = _constrain(x, ("batch", None, None))
         for i, spec in enumerate(pattern):
             x = layer_decode(cfg, spec, bp[f"pos{i}"], x, t, _layer(caches[f"pos{i}"], blk))
     return x, caches
@@ -359,6 +437,7 @@ def _unembed(cfg, params, x):
     w = params.get("lm_head")
     if w is None:
         w = params["embed"].T
+    w = _constrain(w, (None, "tp"))
     y = f32_product(x.reshape(-1, x.shape[-1]), w)
     return y.reshape(*x.shape[:-1], w.shape[-1])
 
@@ -426,6 +505,8 @@ def train_loss(cfg: ModelConfig, params, batch, wrap: Optional[Callable] = None)
     term is exact in f32, so both give the same number."""
     logits, aux = forward(cfg, params, batch, wrap)
     labels = batch["labels"]
+    # the JAX package also constrains its one-hot of the labels; the gather has none
+    logits = _constrain(logits, ("batch", None, "tp"))
     lse = torch.logsumexp(logits, dim=-1)
     picked = logits.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
     mask = (labels >= 0).float()

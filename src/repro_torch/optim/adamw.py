@@ -8,6 +8,10 @@ parameter's type once.  ``adamw_update`` writes the new moments and
 parameters into the tensors it is given, where the JAX package returns new
 arrays (and its train step donates the old ones): the old and the new state
 of a large model would not fit the card together.  The numbers are the same.
+A leaf is updated CHUNK elements at a time, so that its f32 temporaries
+take a few hundred MB, not several copies of the largest leaf (the
+embedding of a full-width model is 3.1 GB in f32); every operation is
+elementwise, so the numbers do not depend on the chunks.
 """
 
 from __future__ import annotations
@@ -19,6 +23,9 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.tree import leaves, tree_map
+
+# Elements of a leaf that one pass of the update takes at a time.
+CHUNK = 1 << 26
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,10 +79,12 @@ def adamw_update(grads, opt_state, params, cfg: AdamWConfig):
     b2c = 1 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32, device=c.device), c)
 
     # each line rounds as the JAX package's: m = b1 * m + (1 - b1) * g, ...
-    for g, m, v, p in zip(leaves(grads), leaves(opt_state["m"]), leaves(opt_state["v"]), leaves(params)):
-        g = g.float() * scale
-        m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
-        v.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
-        step = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps) + cfg.weight_decay * p.float()
-        p.copy_(p.float() - lr * step)  # rounded to p's type once
+    for leaf in zip(leaves(grads), leaves(opt_state["m"]), leaves(opt_state["v"]), leaves(params)):
+        flat = all(t.is_contiguous() for t in leaf)
+        for g, m, v, p in zip(*(t.view(-1).split(CHUNK) for t in leaf)) if flat else [leaf]:
+            g = g.float() * scale
+            m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+            v.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
+            step = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps) + cfg.weight_decay * p.float()
+            p.copy_(p.float() - lr * step)  # rounded to p's type once
     return params, {"m": opt_state["m"], "v": opt_state["v"], "count": count}, {"grad_norm": gnorm, "lr": lr}

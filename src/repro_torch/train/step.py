@@ -5,8 +5,10 @@ The JAX step runs under ``pjit`` over a (data, model) mesh and reduces
 gradients within a pod through GSPMD and across pods through the Hoplite
 chains over the "pod" axis.  The port's step runs on one device; the pods,
 when there are several, are the ranks of a process group (``pod``), each of
-which holds a replica of the state and its share of the global batch.
-Sharding the state over a mesh (``state_shardings``) is not ported yet.
+which holds a replica of the state and its share of the global batch
+(``launch.train`` takes that share from ``partitioning.batch_specs``).
+``state_shardings`` gives the state's DTensor placements on a mesh; no
+partitioner within a pod runs them yet.
 
 The step owns its state: it updates the parameters and the AdamW moments in
 place (``optim.adamw``), where the JAX step donates them to XLA.  A state of
@@ -17,6 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import time
 from typing import Any, Callable, Dict, List
 
 import torch
@@ -31,6 +34,8 @@ from repro_torch.models import transformer as T
 from repro_torch.models.common import init_params, tree_map_params
 from repro_torch.optim import adamw, compression
 from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.sharding import partitioning
+from repro_torch.sharding.partitioning import ShardingOptions
 from repro_torch.tree import leaves, tree_map, unflatten_like
 
 # pod_sync -> the grad_sync method that carries it
@@ -45,6 +50,7 @@ class TrainOptions:
     pod_sync: str = "hoplite_chain"  # gspmd | hoplite_chain | hoplite_2d | psum
     pod_compression: bool = False  # int8 quantize-dequantize before the pod sync
     adamw: AdamWConfig = AdamWConfig()
+    sharding: ShardingOptions = ShardingOptions()
 
 
 # The matrix products whose outputs "dots" keeps, as jax.checkpoint_policies.checkpoint_dots
@@ -118,7 +124,9 @@ def make_train_step(cfg: ModelConfig, options: TrainOptions = TrainOptions(), po
     scalars on the state's device.  ``pod`` is the process group of the pod
     axis (``None``: one pod): with more than one rank, each rank passes its
     share of the global batch, the gradients are synced by ``_pod_sync_fn``
-    and the loss is averaged over the ranks.
+    and the loss is averaged over the ranks.  The step then appends the wall
+    time of each sync, from a synchronised device to the synced tree, in
+    seconds, to its attribute ``sync_seconds``.
     """
     loss_fn = _loss_with_remat(cfg, options)
     n_pods = 1 if pod is None else dist.get_world_size(pod)
@@ -170,15 +178,36 @@ def make_train_step(cfg: ModelConfig, options: TrainOptions = TrainOptions(), po
             g.mul_(inv)
         return loss_sum * inv, gsum
 
+    def synced(grads, loss):
+        dev = loss.device
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        grads = sync(grads)
+        loss = G.psum(loss, pod) / n_pods
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        train_step.sync_seconds.append(time.perf_counter() - t)
+        return grads, loss
+
     def train_step(state, batch):
         loss, grads = grads_of(state["params"], batch)
         if sync is not None:
-            grads = sync(grads)
-            loss = G.psum(loss, pod) / n_pods
+            grads, loss = synced(grads, loss)
         params, opt, metrics = adamw.adamw_update(grads, state["opt"], state["params"], options.adamw)
         return {"params": params, "opt": opt, "step": state["step"] + 1}, dict(metrics, loss=loss)
 
+    train_step.sync_seconds = []
     return train_step
+
+
+def state_shardings(cfg: ModelConfig, mesh, options: TrainOptions = TrainOptions()):
+    """The state's tree of DTensor placements on ``mesh``: the parameters
+    and both AdamW moments as ``partitioning.param_specs`` places the
+    parameters, the count and the step replicated."""
+    pl = partitioning.param_placements(cfg, T.model_skel(cfg), mesh, options.sharding)
+    replicated = partitioning.placements(partitioning.P(), mesh)
+    return {"params": pl, "opt": {"m": pl, "v": pl, "count": replicated}, "step": replicated}
 
 
 def abstract_state(cfg: ModelConfig):

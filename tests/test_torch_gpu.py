@@ -27,6 +27,7 @@ from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rmsnorm as trn
 from repro_torch.launch import serve
+from repro_torch.launch import train as LT
 from repro_torch.models import moe
 from repro_torch.models import transformer as T
 from repro_torch.models.common import dense, init_params
@@ -350,6 +351,25 @@ def test_a_checkpoint_written_from_the_card_restores_bit_for_bit(cuda, tmp_path)
     assert any(t.dtype == torch.bfloat16 for t in leaves(want))
     _, again = step(ck.restore(TS.abstract_state(cfg), device="cuda")[1], batch(1))
     assert float(again["loss"]) == float(m["loss"])
+
+
+def test_pods_on_the_card_end_bit_for_bit_the_same(cuda):
+    """The launcher's multi-pod run on the card: 2 pods of reduced qwen3-14b
+    in bf16 (head dim 64: the tensor-core flash), each a rank process with a
+    replica, hoplite_chain between them.  After every step both replicas
+    hash the same, and each pod launched the hop kernel once a gradient leaf
+    (the pairwise exchange of 2 ranks) and the flash twice a layer (remat)."""
+    cfg = dataclasses.replace(reduced_config(get_config("qwen3-14b")), head_dim=64, dtype="bfloat16",
+                              param_dtype="bfloat16")
+    _, recs = LT.run(cfg, ShapeSpec("t", 32, 4, "train"), TS.TrainOptions(pod_sync="hoplite_chain"), "cuda",
+                     steps=3, log=lambda _: None, pods=2, return_state=False)
+    n_leaves = len(list(leaves(T.model_skel(cfg))))
+    assert [r["step"] for r in recs] == [1, 2, 3]
+    for r in recs:
+        assert len(r["digests"]) == 2 and len(set(r["digests"])) == 1
+        for p in r["pods"]:
+            assert p["launches"]["chunk_reduce"] == n_leaves and p["sync_ms"] > 0
+            assert p["launches"]["flash_attention_tc"] == 2 * cfg.num_layers
 
 
 def test_flash_tensor_cores_read_only_their_own_bytes(cuda):

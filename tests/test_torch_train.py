@@ -9,7 +9,10 @@ at the JAX kernel test's 2e-4 / 1e-5 (tests/test_kernels.py:67) or at 1e-4
 relative; bf16 at 2e-2 of the largest magnitude.
 """
 
+import contextlib
 import dataclasses
+import io
+import json
 import os
 import subprocess
 import sys
@@ -286,6 +289,34 @@ def test_adamw_update_matches_jax_step_for_step(clip):
                     np.testing.assert_allclose(np32(t), np32(j), rtol=2 ** -7, atol=0, err_msg=path)
                 else:
                     np.testing.assert_allclose(np32(t), np32(j), rtol=1e-6, atol=1e-7, err_msg=path)
+
+
+def test_adamw_in_chunks_is_the_whole_leafs_update_bit_for_bit(monkeypatch):
+    """The update runs CHUNK elements of a leaf at a time: with chunks of 7
+    elements the parameters and moments after three steps are those of one
+    pass over each leaf, bit for bit (f32 and bf16 leaves, and a leaf that is
+    not contiguous, which is updated whole)."""
+    rng = np.random.RandomState(3)
+    cfg = tadamw.AdamWConfig(lr=1e-2, warmup_steps=2)
+
+    def run():
+        g = torch.Generator().manual_seed(0)
+        params = {"a": torch.randn(5, 9, generator=g), "b": torch.randn(40, generator=g).bfloat16(),
+                  "c": torch.randn(6, 4, generator=g).T}
+        opt = tadamw.init_opt_state(params)
+        for i in range(3):
+            grads = {k: torch.from_numpy(rng.randn(*p.shape).astype(np.float32)).to(p.dtype) for k, p in params.items()}
+            params, opt, _ = tadamw.adamw_update(grads, opt, params, cfg)
+        return list(leaves(params)) + list(leaves(opt["m"])) + list(leaves(opt["v"]))
+
+    whole = run()
+    monkeypatch.setattr(tadamw, "CHUNK", 7)
+    rng = np.random.RandomState(3)
+    chunked = run()
+    assert not whole[2].is_contiguous()
+    for a, b in zip(chunked, whole):
+        assert a.dtype == b.dtype and torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
+                                                  b.view(torch.int16) if b.dtype == torch.bfloat16 else b)
 
 
 def test_adamw_decreases_quadratic():
@@ -665,9 +696,10 @@ def test_train_main_without_device_raises(monkeypatch):
         ttrain.main(["--arch", "qwen3-14b", "--reduced", "--steps", "1"])
 
 
-def test_train_main_ckpt_dir_is_not_ported(tmp_path, capsys):
-    """Named when ``--ckpt-dir`` raised: it now saves and restarts as the JAX
-    driver does (tests/test_torch_checkpoint.py holds the numbers)."""
+def test_train_main_ckpt_dir_saves_and_resumes(tmp_path, capsys):
+    """``--ckpt-dir`` saves every ``--ckpt-every`` steps and at the end, and
+    a second run resumes from the latest step, as the JAX driver does
+    (tests/test_torch_checkpoint.py holds the numbers)."""
     argv = ["--arch", "qwen3-14b", "--reduced", "--device", "cpu", "--log-every", "1", "--seq-len", "16",
             "--global-batch", "2", "--ckpt-dir", str(tmp_path), "--ckpt-every", "1"]
     ttrain.main(argv + ["--steps", "2"])
@@ -682,9 +714,24 @@ def test_train_main_ckpt_dir_is_not_ported(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("method", sorted(TS.POD_SYNC_METHODS))
-def test_train_main_pod_sync_is_not_ported(method):
-    with pytest.raises(NotImplementedError, match="one pod"):
-        ttrain.main(["--arch", "qwen3-14b", "--reduced", "--device", "cpu", "--pod-sync", method])
+def test_train_main_pod_sync_without_multi_pod_trains_one_pod(method, capsys):
+    """A Hoplite ``--pod-sync`` without ``--multi-pod`` trains one pod, as the
+    JAX step does on a mesh with no pod axis: the same losses as gspmd."""
+    argv = ["--arch", "qwen3-14b", "--reduced", "--device", "cpu", "--steps", "2", "--log-every", "1",
+            "--seq-len", "16", "--global-batch", "2"]
+    state = ttrain.main(argv + ["--pod-sync", method])
+    out = capsys.readouterr().out
+    ttrain.main(argv)
+    plain = capsys.readouterr().out
+    assert "pods" not in out and int(state["step"]) == 2
+    steps = lambda text: [line for line in text.splitlines() if line.startswith(("step ", "done"))]
+    losses = lambda text: [line.split("tok/s")[0] for line in steps(text)]
+    assert len(steps(out)) == 3 and losses(out) == losses(plain)
+
+
+def test_train_main_multi_pod_gspmd_raises():
+    with pytest.raises(NotImplementedError, match="partitioner within a pod"):
+        ttrain.main(["--arch", "qwen3-14b", "--reduced", "--device", "cpu", "--multi-pod", "--pod-sync", "gspmd"])
 
 
 def test_train_module_runs_in_a_subprocess():
@@ -696,3 +743,194 @@ def test_train_module_runs_in_a_subprocess():
     )
     assert r.returncode == 0, r.stderr
     assert "step 2: loss=" in r.stdout
+
+
+# ---------------------------------------------------------------------------
+# the launcher's multi-pod training
+# ---------------------------------------------------------------------------
+
+POD_SHAPE = ShapeSpec("pods", 16, 4, "train")
+POD_ARGV = ["--reduced", "--device", "cpu", "--log-every", "1", "--seq-len", "16", "--global-batch", "4"]
+POD_ARCHS = ("qwen3-14b", "qwen2-vl-72b")
+POD_STEPS = 4
+
+
+def run_main(argv):
+    """``main(argv)``'s result and what it printed (module fixtures have no capsys)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = ttrain.main(argv)
+    return out, buf.getvalue()
+
+
+@pytest.fixture(scope="module")
+def pod_mains():
+    """``main`` with --multi-pod on reduced qwen3-14b, for each Hoplite method."""
+    return {m: run_main(["--arch", "qwen3-14b", *POD_ARGV, "--steps", "2", "--multi-pod", "--pod-sync", m])
+            for m in sorted(TS.POD_SYNC_METHODS)}
+
+
+@pytest.fixture(scope="module")
+def pod_runs():
+    """``run`` with 2 pods (hoplite_chain) and in one process on the joined
+    batches, on reduced qwen3-14b and qwen2-vl-72b (whose positions_3d is
+    split on its dim 1)."""
+    out = {}
+    for arch in POD_ARCHS:
+        cfg = tconfigs.reduced_config(tconfigs.get_config(arch))
+        opts = TS.TrainOptions(pod_sync="hoplite_chain")
+        pods = ttrain.run(cfg, POD_SHAPE, opts, "cpu", steps=POD_STEPS, log_every=1, log=lambda _: None, pods=2)
+        one = ttrain.run(cfg, POD_SHAPE, opts, "cpu", steps=POD_STEPS, log_every=1, log=lambda _: None)
+        out[arch] = pods, one
+    return out
+
+
+@pytest.mark.parametrize("method", sorted(TS.POD_SYNC_METHODS))
+def test_train_main_multi_pod_ends_with_the_pods_bit_for_bit_the_same(pod_mains, method):
+    state, out = pod_mains[method]
+    assert state is None  # a multi-pod run returns no state unless asked
+    assert f"2 pods synced by {method}" in out and "step 2: loss=" in out and "sync_ms=" in out
+    assert "[pods] 2 replicas bit for bit the same after every step; step 2 digest" in out
+
+
+def test_train_main_multi_pod_methods_agree(pod_mains):
+    """Every method computes the same mean over 2 pods: the losses agree."""
+    losses = {m: [line.split(" gnorm")[0] for line in out.splitlines() if line.startswith("step ")]
+              for m, (_, out) in pod_mains.items()}
+    assert len(set(map(tuple, losses.values()))) == 1 and len(losses["hoplite_chain"]) == 2
+
+
+@pytest.mark.parametrize("arch", POD_ARCHS)
+def test_pods_match_one_process_on_the_joined_batch(pod_runs, arch):
+    """The pods' replicas agree after every step, and their losses and
+    gradient norms equal one process's on the joined batch within 1e-5
+    relative (f32: the mean of two halves' gradients against the whole's)."""
+    (state, recs), (_, one) = pod_runs[arch]
+    assert [r["step"] for r in recs] == list(range(1, POD_STEPS + 1))
+    for r, w in zip(recs, one):
+        assert len(r["digests"]) == 2 and len(set(r["digests"])) == 1
+        for key in ("loss", "grad_norm", "lr"):
+            np.testing.assert_allclose(r[key], w[key], rtol=1e-5, err_msg=f"step {r['step']} {key}")
+        assert all(p["sync_ms"] > 0 and p["launches"]["chunk_reduce"] == 0 for p in r["pods"])  # CPU: no kernel
+    assert state is not None and int(state["step"]) == POD_STEPS
+    assert ttrain.state_digest(state) == recs[-1]["digests"][0]
+
+
+def test_state_digest_sees_one_word():
+    cfg, _ = QWEN_SMALL
+    a = TS.init_state(cfg, seed=0, device="cpu")
+    b = TS.init_state(cfg, seed=0, device="cpu")
+    assert ttrain.state_digest(a) == ttrain.state_digest(b)
+    b["opt"]["v"]["embed"].view(-1)[12345] = 1e-30
+    assert ttrain.state_digest(a) != ttrain.state_digest(b)
+    b = TS.init_state(cfg, seed=0, device="cpu")
+    leaf = b["params"]["stages"][0]["pos0"]["attn"]["wq"]
+    leaf.view(-1)[[7, 8]] = leaf.view(-1)[[8, 7]].clone()  # two words swapped
+    assert ttrain.state_digest(a) != ttrain.state_digest(b)
+
+
+JAX_POD_ROWS = """
+import json, os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+sys.path.insert(0, "src")
+import numpy as np
+import jax
+from jax.sharding import Mesh, NamedSharding
+from repro.configs import get_config, reduced_config
+from repro.configs.base import ShapeSpec
+from repro.launch import specs
+from repro.sharding import partitioning
+
+names = ("pod", "data", "model")
+meshes = {"launcher": Mesh(np.array(jax.devices()[:2]).reshape(2, 1, 1), names),
+          "debug": Mesh(np.array(jax.devices()).reshape(2, 2, 2), names)}
+out = {}
+for arch in ("qwen3-14b", "qwen2-vl-72b", "whisper-medium"):
+    cfg = reduced_config(get_config(arch))
+    for batch in (2, 4, 8):
+        shape = ShapeSpec("pods", 16, batch, "train")
+        abstract = specs.train_batch_specs(cfg, shape)
+        for mname, mesh in meshes.items():
+            bspecs = partitioning.batch_specs(cfg, mesh, shape)
+            for key, spec in bspecs.items():
+                dim = 1 if key == "positions_3d" else 0
+                rows = [set(), set()]
+                idx = NamedSharding(mesh, spec).devices_indices_map(abstract[key].shape)
+                for dev, sl in idx.items():
+                    pod = int(np.argwhere(mesh.devices == dev)[0][0])
+                    rows[pod].update(range(abstract[key].shape[dim])[sl[dim]])
+                out[f"{arch}/{batch}/{mname}/{key}"] = [sorted(r) for r in rows]
+json.dump(out, open(sys.argv[1], "w"))
+"""
+
+
+@pytest.fixture(scope="module")
+def jax_pod_rows(tmp_path_factory):
+    """Each pod coordinate's rows of every batch key, from JAX's
+    ``batch_specs`` and ``NamedSharding.devices_indices_map`` on 8 host
+    devices: on the launcher's (2, 1, 1) mesh and the debug (2, 2, 2) mesh."""
+    d = tmp_path_factory.mktemp("jax_pod_rows")
+    proc = subprocess.run([sys.executable, "-c", JAX_POD_ROWS, str(d / "rows.json")],
+                          capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert proc.returncode == 0, f"stdout:\n{proc.stdout}\nstderr:\n{proc.stderr[-3000:]}"
+    return json.loads((d / "rows.json").read_text())
+
+
+def row_ids(cfg, shape):
+    """A host batch whose every entry holds its row's index."""
+    B, S = shape.global_batch, shape.seq_len
+    rows = np.broadcast_to(np.arange(B, dtype=np.int32)[:, None], (B, S)).copy()
+    batch = {"tokens": rows, "labels": rows.copy()}
+    if cfg.rope == "mrope":
+        batch["positions_3d"] = np.broadcast_to(rows[None], (3, B, S)).copy()
+    if cfg.is_encoder_decoder:
+        batch["encoder_frames"] = np.broadcast_to(rows[:, :1, None], (B, cfg.encoder_seq, cfg.d_model)).astype(
+            np.float32)
+    return batch
+
+
+@pytest.mark.parametrize("batch", [2, 4, 8])
+@pytest.mark.parametrize("arch", ["qwen3-14b", "qwen2-vl-72b", "whisper-medium"])
+def test_each_pod_takes_the_rows_jax_gives_its_pod_coordinate(jax_pod_rows, arch, batch):
+    """``pod_share`` on the launcher's mesh gives pod p the rows JAX's
+    ``batch_specs`` places on pod coordinate p there: dim 0 of tokens,
+    labels and encoder_frames, dim 1 of positions_3d.  Where (pod, data) of
+    the debug mesh divides the batch (4, 8), those are also the debug mesh's
+    rows of pod p; a batch of 2 the JAX rule replicates over its pods."""
+    cfg = tconfigs.reduced_config(tconfigs.get_config(arch))
+    shape = ShapeSpec("pods", 16, batch, "train")
+    full = row_ids(cfg, shape)
+    for pod in range(2):
+        mine = ttrain.pod_share(cfg, shape, TS.TrainOptions(), ttrain.pod_mesh(2), pod, full)
+        assert set(mine) == set(full)
+        for key, arr in mine.items():
+            dim = 1 if key == "positions_3d" else 0
+            rows = sorted(set(np.moveaxis(arr, dim, 0).reshape(arr.shape[dim], -1)[:, 0].tolist()))
+            assert rows == jax_pod_rows[f"{arch}/{batch}/launcher/{key}"][pod], (key, pod)
+            assert rows == list(range(pod * batch // 2, (pod + 1) * batch // 2))
+            debug = jax_pod_rows[f"{arch}/{batch}/debug/{key}"][pod]
+            assert debug == (rows if batch % 4 == 0 else list(range(batch))), (key, pod, debug)
+
+
+def test_multi_pod_ckpt_resumes_by_step_bit_for_bit(pod_runs, tmp_path):
+    """With pods, rank 0 writes the checkpoints and every rank restores: 2
+    steps with a checkpoint every 2, then ``main`` to step 4, against the
+    uninterrupted run's records and final digest."""
+    cfg = tconfigs.reduced_config(tconfigs.get_config("qwen3-14b"))
+    opts = TS.TrainOptions(pod_sync="hoplite_chain")
+    logs = []
+    _, first = ttrain.run(cfg, POD_SHAPE, opts, "cpu", steps=2, log_every=1, log=logs.append,
+                          ckpt_dir=str(tmp_path), ckpt_every=2, pods=2, return_state=False)
+    assert logs[-2:] == ["[ckpt] final checkpoint at step 2", f"done: 2 steps, loss={first[-1]['loss']:.4f}"]
+    assert sorted(os.listdir(tmp_path)) == ["step_00000002"]
+    _, out = run_main(["--arch", "qwen3-14b", *POD_ARGV, "--steps", str(POD_STEPS), "--multi-pod",
+                       "--pod-sync", "hoplite_chain", "--ckpt-dir", str(tmp_path), "--ckpt-every", "2"])
+    (_, whole), _ = pod_runs["qwen3-14b"]
+    assert out.count("[restart] resumed from checkpoint step 2") == 1 and "step 2: loss=" not in out
+    assert f"[ckpt] final checkpoint at step {POD_STEPS}" in out
+    for r, w in zip(first, whole):
+        assert (r["loss"], r["grad_norm"], r["digests"]) == (w["loss"], w["grad_norm"], w["digests"])
+    printed = [line.split(" tok/s")[0] for line in out.splitlines() if line.startswith("step ")]
+    assert printed == [f"step {r['step']}: loss={r['loss']:.4f} gnorm={r['grad_norm']:.3f} lr={r['lr']:.2e}"
+                       for r in whole[2:]]
+    assert out.strip().endswith(f"step {POD_STEPS} digest {whole[-1]['digests'][0]}")

@@ -20,9 +20,11 @@ import torch.distributed as dist
 
 from repro_torch import convert
 from repro_torch.configs import get_config, reduced_config
+from repro_torch.configs.base import ShapeSpec
 from repro_torch.core import collectives as C
 from repro_torch.core import group as G
 from repro_torch.kernels import ops
+from repro_torch.launch import train as LT
 from repro_torch.tree import leaves
 from repro_torch.train.step import TrainOptions, _pod_sync_fn, make_train_step
 
@@ -119,17 +121,19 @@ def card_cases(dev, x: np.ndarray):
 
 def train_pod_steps(dev, state_np, batches, options: TrainOptions):
     """Train steps of reduced qwen3-14b with every rank a pod: rank r takes
-    the r-th share of each global batch (numpy), the gradients meet by
-    ``options.pod_sync`` over the world group.  Returns the state and the
-    metrics of each step."""
+    its share of each global batch (numpy) as the launcher does, the block
+    that ``batch_specs``' placements give pod coordinate r on
+    ``launch.train.pod_mesh``; the gradients meet by ``options.pod_sync``
+    over the world group.  Returns the state and the metrics of each step."""
     r, n = dist.get_rank(), dist.get_world_size()
     cfg = reduced_config(get_config("qwen3-14b"))
     state = convert.state_from_jax(state_np, cfg, dev)
     step = make_train_step(cfg, options, pod=dist.group.WORLD)
     metrics = []
     for b in batches:
-        share = b["tokens"].shape[0] // n
-        mine = {k: torch.from_numpy(v[r * share:(r + 1) * share]).to(dev) for k, v in b.items()}
+        shape = ShapeSpec("pods", b["tokens"].shape[1], b["tokens"].shape[0], "train")
+        mine = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                for k, v in LT.pod_share(cfg, shape, options, LT.pod_mesh(n), r, b).items()}
         state, m = step(state, mine)
         metrics.append({k: float(v) for k, v in m.items()})
     return {"state": state, "metrics": metrics}
