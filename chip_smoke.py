@@ -77,6 +77,15 @@ mask), then drives these paths:
   (``check_train_gradients``).  It checks the losses and gradient norms, the
   first loss against ln(vocab), and the kernel launches per step against
   ``expected_train_launches``, and profiles one more step.
+- dryrun: the port's dry run (``launch.dryrun.trace_cell``: ``MemTracker``
+  and ``launch.op_cost`` under ``FakeTensorMode``) over the train phase's own
+  step, as fake tensors on the ``cuda`` device with no mesh: its predicted
+  peak must lie within 10% of the train phase's ``max_memory_allocated``.  It
+  prints the step's traced FLOPs, their share of the 989 TFLOP/s bf16 peak at
+  the measured median step time beside 6 * N * tokens, and the host cost a
+  call of the custom ops (``repro_torch::rmsnorm`` at a decode step's rows,
+  the flash forward) against the kernel wrappers they call.  It writes
+  nothing and launches nothing in the trace.
 - ckpt: checkpoint and restart of the same train state (28.77 GB: bf16
   parameters, f32 AdamW moments, the counts).  It prints the free disk and
   host memory first and fails if they cannot hold one checkpoint and two
@@ -1447,6 +1456,107 @@ def train(torch, card: str):
                     "layers": TRAIN_LAYERS, "seq": TRAIN_SEQ, "batch": TRAIN_BATCH, "microbatches": TRAIN_MICRO}
 
 
+# The dry run's memory prediction must lie within this share of the measured peak.
+DRYRUN_RTOL = 0.10
+# Calls a dispatch-cost timing makes of each entry point, and the rows of its
+# RMSNorm: one decode step of the serve phase's 4 prompts.
+DISPATCH_CALLS, DISPATCH_ROWS = 2000, 4
+
+
+def dispatch_cost(torch):
+    """Host time per call of the custom ops against the wrappers they call, at
+    a decode shape (RMSNorm over 4 rows of 5120, one decode step's ln1) and
+    the serve prefill's flash shape: the calls enqueue back to back and the
+    card keeps up with them, so the time is the host's.  In turns: wrapper,
+    op, op, wrapper; microseconds a call."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rmsnorm as rn
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn(DISPATCH_ROWS, 1, 5120, device="cuda", dtype=torch.bfloat16, generator=gen)
+    w = torch.zeros(5120, device="cuda", dtype=torch.bfloat16)
+    q = torch.randn(1, 40, 64, 128, device="cuda", dtype=torch.bfloat16, generator=gen)
+    kv = torch.randn(1, 8, 64, 128, device="cuda", dtype=torch.bfloat16, generator=gen)
+    pairs = {"rmsnorm (4, 1, 5120)": (lambda: rn.rmsnorm(x, w), lambda: ops.rmsnorm(x, w)),
+             "flash (1, 40, 64, 128)": (lambda: fa.flash_attention_fwd(q, kv, kv), lambda: ops.flash_attention(q, kv, kv))}
+    out = {}
+    for name, (plain, op) in pairs.items():
+        times = {"wrapper": [], "custom op": []}
+        for which, fn in (("wrapper", plain), ("custom op", op), ("custom op", op), ("wrapper", plain)):
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(DISPATCH_CALLS):
+                fn()
+            torch.cuda.synchronize()
+            times[which].append((time.perf_counter() - t) / DISPATCH_CALLS * 1e6)
+        out[name] = {k: v for k, v in times.items()}
+    return out
+
+
+def dryrun(torch, card: str, train_metrics, device: str = "cuda"):
+    """The dry run's trace of the train phase's own step, on the card's
+    machine: qwen3-14b at full width cut to TRAIN_LAYERS layers, TRAIN_BATCH x
+    TRAIN_SEQ tokens in TRAIN_MICRO microbatches, full remat, one pod, as
+    fake tensors on the ``cuda`` device (``FakeTensorMode``: the step's
+    products branch on the device type, so the trace takes the card's
+    branches), with no mesh: ``launch.dryrun.trace_cell``, ``MemTracker``
+    and ``launch.op_cost`` over one step.  Its predicted peak must lie
+    within DRYRUN_RTOL of the train phase's ``max_memory_allocated``.  It also
+    prints the step's traced FLOPs and their share of the card's bf16 peak at
+    the measured median step time, and the custom ops' host cost a call.
+    Nothing is written to disk and no kernel is launched by the trace."""
+    import dataclasses
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import specs
+    from repro_torch.train import step as TS
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=TRAIN_LAYERS)
+    shape = ShapeSpec("train_4k, batch cut", TRAIN_SEQ, TRAIN_BATCH, "train")
+    opts = TS.TrainOptions(num_microbatches=TRAIN_MICRO, remat="full", pod_sync="gspmd")
+    t0 = time.perf_counter()
+    with FakeTensorMode():
+        fake = lambda t: torch.zeros(t.shape, dtype=t.dtype, device=device)
+        state = tree_map(fake, TS.abstract_state(cfg))
+        batch = tree_map(fake, specs.train_batch_specs(cfg, shape))
+        rec = DR.trace_cell(TS.make_train_step(cfg, opts), (state, batch))
+    trace_s = time.perf_counter() - t0
+    mem, walk = rec["memory"], rec["walker"]
+    measured = train_metrics["peak_gb"] * 1e9
+    ratio = mem["peak_bytes"] / measured
+    log(f"[dryrun] traced (fake {device} tensors, no mesh, no device work) in {trace_s:.1f} s: arguments "
+        f"{mem['argument_size_in_bytes'] / 1e9:.2f} GB, predicted peak {mem['peak_bytes'] / 1e9:.2f} GB "
+        f"(temp {mem['temp_size_in_bytes'] / 1e9:.2f} GB) against the train phase's max_memory_allocated "
+        f"{measured / 1e9:.2f} GB: ratio {ratio:.4f}; on {card}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_ms = statistics.median(train_metrics["step_ms"][1:])
+    six_n = 6 * cfg.param_count() * tokens
+    share = walk["flops"] / (step_ms / 1e3) / PEAK_OPS_PER_S["bfloat16"]
+    log(f"[dryrun] the step's traced FLOPs {walk['flops']:.4e} ({walk['flops'] / six_n:.3f}x 6*N*tokens = "
+        f"{six_n:.4e}, N = {cfg.param_count()}, {tokens} tokens); at the measured median step of {step_ms:.2f} ms "
+        f"that is {share * 100:.2f}% of the {PEAK_OPS_PER_S['bfloat16'] / 1e12:.0f} TFLOP/s bf16 dense peak; "
+        f"on {card}")
+    costs = dispatch_cost(torch)
+    for name, t in costs.items():
+        log(f"[dryrun] host cost a call, {name}: custom op {t['custom op']} us, wrapper {t['wrapper']} us "
+            f"(turns: wrapper, op, op, wrapper); on {card}")
+    if abs(ratio - 1) > DRYRUN_RTOL:
+        raise AssertionError(f"dryrun: predicted peak {mem['peak_bytes']} B is {ratio:.4f}x the measured "
+                             f"{measured:.0f} B, beyond {DRYRUN_RTOL}")
+    return {"trace_s": trace_s, "argument_bytes": mem["argument_size_in_bytes"], "peak_bytes": mem["peak_bytes"],
+            "temp_bytes": mem["temp_size_in_bytes"], "measured_peak_bytes": measured, "ratio": ratio,
+            "flops": walk["flops"], "bytes": walk["bytes"], "six_n_tokens": six_n, "step_ms": step_ms,
+            "bf16_peak_share": share, "flops_by_op": rec["flops_by_op"], "dispatch_us": costs}
+
+
 def expected_pod_launches(cfg, options, pods: int, rank: int):
     """Launches of one pod's train step: ``expected_train_launches``, and the
     hop kernel as ``collectives.hop_launches`` predicts for each leaf of the
@@ -1956,6 +2066,10 @@ def main() -> int:
     log(f"[train] metrics {json.dumps(train_metrics)} on {card}")
     gc.collect()
     torch.cuda.empty_cache()
+
+    # Phase 5a: the dry run's trace of the train step, against the train phase's peak.
+    dry_metrics = dryrun(torch, card, train_metrics)
+    log(f"[dryrun] metrics {json.dumps(dry_metrics)} on {card}")
 
     # Phase 5b: checkpoint and restart of the train state.
     ckpt_counts, ckpt_metrics = ckpt(torch, card)

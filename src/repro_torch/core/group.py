@@ -40,6 +40,21 @@ PG_TIMEOUT_S = 60.0
 _EXIT_GRACE_S = 30.0
 
 
+# What this process sent through ``exchange`` since the last reset: bytes and
+# sends (``exchange_counts``, ``reset_exchange_counts``).  A trace on torch's
+# fake backend, whose sends move nothing, counts the bytes here.
+_SENT = {"bytes": 0, "sends": 0}
+
+
+def exchange_counts() -> Dict[str, int]:
+    """Bytes and sends of this process's ``exchange`` calls since the last reset."""
+    return dict(_SENT)
+
+
+def reset_exchange_counts() -> None:
+    _SENT.update(bytes=0, sends=0)
+
+
 def _global(group: Optional[dist.ProcessGroup], r: int) -> int:
     return r if group is None else dist.get_global_rank(group, r)
 
@@ -86,6 +101,8 @@ def exchange(send: Optional[torch.Tensor], dst: int, recv_like: Optional[torch.T
         sbuf = staging.buffer("send", sbytes.numel(), send.device.type == "cuda")
         sbuf.copy_(sbytes)  # synchronous: the bytes are on the host before gloo reads them
         works.append(dist.isend(sbuf, dst=_global(group, dst), group=group))
+        _SENT["bytes"] += sbytes.numel()
+        _SENT["sends"] += 1
     for w in works:
         w.wait()
     if recv_like is None:

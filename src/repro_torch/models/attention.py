@@ -21,11 +21,53 @@ import math
 from typing import Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.kernels import ops
 from repro_torch.models.common import Param, apply_mrope, apply_rope, dense, rmsnorm
+from repro_torch.sharding.partitioning import block_start
 
 NEG_INF = -1e30
+
+# The placements of q (B, H, S, D) under which the flash kernel ran on
+# DTensors, as strings, since the last ``PLACEMENTS_SEEN.clear()``: a dry run
+# records them, so that an attention replicated over the model axis shows.
+PLACEMENTS_SEEN: set = set()
+
+
+def _heads(t: torch.Tensor, kv_heads: int, shape) -> torch.Tensor:
+    """t (..., F), a projection's output whose features are heads of D, viewed
+    as ``shape``.  On a DTensor the features stay split over a mesh dim only
+    where the kv heads split with them: q head h reads kv head h // G, so q
+    and kv split their heads together or not at all (the flash rule,
+    ``ops._heads_split_together``).  A split the kv heads do not divide is
+    gathered first (GSPMD would pad it)."""
+    if isinstance(t, DTensor):
+        last = t.ndim - 1
+        split = [(i, n) for i, (n, p) in enumerate(zip(t.device_mesh.shape, t.placements)) if p == Shard(last)]
+        if split and kv_heads % math.prod(n for _, n in split):
+            keep = [Replicate() if p == Shard(last) else p for p in t.placements]
+            t = t.redistribute(t.device_mesh, keep)
+    return t.reshape(shape)
+
+
+def write_rows(cache: torch.Tensor, start: int, new: torch.Tensor) -> None:
+    """``cache[:, start:start + n] = new`` (dim 1, the slots), in place.  On a
+    DTensor cache each device writes the part of the rows its own block
+    holds, as ``dynamic_update_slice`` writes under GSPMD: ``new`` is placed as
+    the cache, whole along the slots, and nothing else moves."""
+    n = new.shape[1]
+    if not isinstance(cache, DTensor):
+        cache[:, start:start + n] = new
+        return
+    mesh = cache.device_mesh
+    whole = [Replicate() if p == Shard(1) else p for p in cache.placements]
+    local_new = new.redistribute(mesh, whole).to_local()
+    local = cache.to_local()
+    lo = block_start(cache.shape, cache.placements, mesh, mesh.get_coordinate(), 1)
+    a, b = max(start, lo), min(start + n, lo + local.shape[1])
+    if a < b:
+        local[:, a - lo:b - lo] = local_new[:, a - start:b - start]
 
 
 def attn_skel(cfg, cross: bool = False):
@@ -81,9 +123,9 @@ def attention_fwd(cfg, p, x: torch.Tensor, spec, q_pos: torch.Tensor, positions_
     Skv = src.shape[1]
     K, H, D = cfg.num_kv_heads, cfg.num_heads, cfg.head_dim
     G = H // K
-    q = dense(x, p["wq"]).reshape(B, S, K, G, D)
-    k = dense(src, p["wk"]).reshape(B, Skv, K, D)
-    v = dense(src, p["wv"]).reshape(B, Skv, K, D)
+    q = _heads(dense(x, p["wq"]), K, (B, S, K, G, D))
+    k = _heads(dense(src, p["wk"]), K, (B, Skv, K, D))
+    v = _heads(dense(src, p["wv"]), K, (B, Skv, K, D))
     if not cross:
         q, k = _positions_rope(cfg, p, q, k, q_pos, q_pos, positions_3d)
     # kernel layout: head h = k*G + g, so the kernel's h // G finds kv head k
@@ -95,6 +137,8 @@ def attention_fwd(cfg, p, x: torch.Tensor, spec, q_pos: torch.Tensor, positions_
     # window whatever q_pos starts at, and the kernel's q_offset is 0; cross:
     # kv positions are arange(Skv) and no causal mask applies
     window = spec.window if spec.attention == "window" else 0
+    if isinstance(qh, DTensor):
+        PLACEMENTS_SEEN.add(str(tuple(qh.placements)))
     out = ops.flash_attention(qh, kh, vh, causal=causal and not cross, window=window, q_offset=0)
     out = out.reshape(B, K, G, S, D).permute(0, 3, 1, 2, 4).reshape(B, S, H * D)
     return dense(out, p["wo"])
@@ -104,11 +148,11 @@ def attention_prefill_kv(cfg, p, x: torch.Tensor, q_pos: torch.Tensor, positions
     """The K/V tensors that seed a decode cache: a (B,S,K,D) pair."""
     B, S = x.shape[:2]
     K, D = cfg.num_kv_heads, cfg.head_dim
-    k = dense(x, p["wk"]).reshape(B, S, K, D)
+    k = _heads(dense(x, p["wk"]), K, (B, S, K, D))
     if cfg.qk_norm:
         k = rmsnorm(k, p["k_norm"])
     k = _rotate(cfg, k, q_pos, positions_3d)
-    return k, dense(x, p["wv"]).reshape(B, S, K, D)
+    return k, _heads(dense(x, p["wv"]), K, (B, S, K, D))
 
 
 def decode_attend(
@@ -157,19 +201,19 @@ def attention_decode(
     G = H // K
     k_cache, v_cache = cache
     C = k_cache.shape[1]
-    q = dense(x, p["wq"]).reshape(B, 1, K, G, D)
+    q = _heads(dense(x, p["wq"]), K, (B, 1, K, G, D))
     j = torch.arange(C, device=x.device)
     if cross:
         out = decode_attend(q.permute(0, 2, 3, 1, 4), k_cache, v_cache, j, C - 1)
     else:
-        xk = dense(x, p["wk"]).reshape(B, 1, K, D)
-        xv = dense(x, p["wv"]).reshape(B, 1, K, D)
+        xk = _heads(dense(x, p["wk"]), K, (B, 1, K, D))
+        xv = _heads(dense(x, p["wv"]), K, (B, 1, K, D))
         pos = torch.full((1,), t, dtype=torch.long, device=x.device)
         q, xk = _positions_rope(cfg, p, q, xk, pos, pos)
         windowed = spec.attention == "window" and C == spec.window
         slot = t % C if windowed else t
-        k_cache[:, slot] = xk[:, 0]
-        v_cache[:, slot] = xv[:, 0]
+        write_rows(k_cache, slot, xk)
+        write_rows(v_cache, slot, xv)
         # ring: positions in (t - C, t], floor modulo as jnp's; < 0 => empty slot
         kv_positions = t - torch.remainder(t - j, C) if windowed else j
         window = spec.window if spec.attention == "window" else 0

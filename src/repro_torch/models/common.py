@@ -14,6 +14,8 @@ from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
@@ -129,15 +131,146 @@ def apply_norm(cfg, p, x):
     return layernorm(x, p["w"], p["b"])
 
 
+# Cross-shard partial-sum dtype of a contraction split over a mesh axis, as
+# the JAX package's: f32 partials by default (each shard's product summed in
+# f32 across the shards, then rounded); ``set_matmul_partial_dtype(bf16)``
+# rounds each shard's product first and sums in bf16 (its "bf16partials").
+# Only a DTensor contraction has partials: on one device ``dense`` is one
+# product that accumulates in f32 and rounds once, the same number.  (The
+# JAX package's ``dense`` names the type ``preferred_element_type``, which
+# also sets what one device's product rounds to; the port's rounds once.)
+MATMUL_PARTIAL_DTYPE = [torch.float32]
+
+
+def set_matmul_partial_dtype(dtype) -> None:
+    MATMUL_PARTIAL_DTYPE[0] = dtype
+
+
 def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w, out in x's type.  Mixed operands are promoted to the wider type
     before the product, as JAX's ``dot_general`` does (bf16 activations against
     an f32 weight multiply in f32; an f32 weight is never rounded to bf16).
     With one type on both sides nothing is copied: on the card bf16 x bf16 is
     one cuBLAS GEMM that accumulates in f32 and rounds the output to bf16, as
-    the JAX package's f32-accumulated dot does."""
+    the JAX package's f32-accumulated dot does.  On DTensors the product is
+    ``product``, whose split contractions leave partial sums in
+    ``MATMUL_PARTIAL_DTYPE``, reduced before the result is rounded to x's type."""
     dt = torch.promote_types(x.dtype, w.dtype)
+    if isinstance(x, DTensor):
+        wide = torch.promote_types(dt, MATMUL_PARTIAL_DTYPE[0]) != dt
+        y = product(_fit_to_weight(x, w).to(dt), w.to(dt), wide)
+        if wide:
+            y = y.redistribute(y.device_mesh, [Replicate() if p.is_partial() else p for p in y.placements])
+        return y.to(x.dtype)
     return torch.matmul(x.to(dt), w.to(dt)).to(x.dtype)
+
+
+def _fit_to_weight(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x with its contracted (last) dim split as w's dim 0 is, over each mesh
+    dim that splits one of them and leaves x's other dims whole: gathered
+    where only x splits it, cut (no bytes move) where only w does.  The
+    weight stays where it lies and the activation, the smaller of the two,
+    moves: DTensor's costs tie between such choices, and elementwise ops
+    can leave an activation split along its features.  (Cut, x's gradient
+    comes back whole along the features, which a view of heads the split
+    does not divide needs.)"""
+    last = x.ndim - 1
+    want = []
+    for px, pw in zip(x.placements, w.placements):
+        if px == Shard(last) and pw != Shard(0):
+            want.append(Replicate())
+        elif px == Replicate() and pw == Shard(0):
+            want.append(Shard(last))
+        else:
+            want.append(px)
+    return x if tuple(want) == tuple(x.placements) else x.redistribute(x.device_mesh, want)
+
+
+@torch.library.custom_op("repro_torch::product", mutates_args=())
+def product(x: torch.Tensor, w: torch.Tensor, f32: bool) -> torch.Tensor:
+    """x (..., k) @ w (k, n) of operands of one type, accumulated in f32; the
+    result in f32 with ``f32`` (the JAX package's
+    ``preferred_element_type=float32``), else rounded to the operands' type.
+    One op on any number of leading dims, so that a DTensor holds a split
+    contraction's partial sums in the result's type, splits its rows however
+    unevenly, and a trace sees no upcast copies of the operands."""
+    if not f32:
+        return torch.matmul(x, w)
+    if x.device.type == "cuda" and x.dtype == torch.bfloat16:
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return y.reshape(*x.shape[:-1], w.shape[-1])
+    return torch.matmul(x.float(), w.float())
+
+
+@product.register_fake
+def _(x, w, f32):
+    return x.new_empty((*x.shape[:-1], w.shape[-1]), dtype=torch.float32 if f32 else x.dtype)
+
+
+def _product_setup(ctx, inputs, output):
+    x, w, f32 = inputs
+    ctx.save_for_backward(x, w)
+    ctx.f32 = f32
+
+
+def _product_backward(ctx, g):
+    """The cotangent in the operands' type; each product of the same kind,
+    rounded to its operand's type."""
+    x, w = ctx.saved_tensors
+    g = g.to(x.dtype)
+    dx = dw = None
+    if ctx.needs_input_grad[0]:
+        dx = product(g, w.t(), ctx.f32).to(x.dtype)
+    if ctx.needs_input_grad[1]:
+        dw = product_t(x, g, ctx.f32).to(w.dtype)
+    return dx, dw, None
+
+
+product.register_autograd(_product_backward, setup_context=_product_setup)
+
+
+@torch.library.custom_op("repro_torch::product_t", mutates_args=())
+def product_t(x: torch.Tensor, g: torch.Tensor, f32: bool) -> torch.Tensor:
+    """x (..., k) and g (..., n) contracted over every leading dim: (k, n), the
+    weight gradient of ``product``, of the same kind."""
+    k, n = x.shape[-1], g.shape[-1]
+    return product(x.reshape(-1, k).t().contiguous(), g.reshape(-1, n), f32)
+
+
+@product_t.register_fake
+def _(x, g, f32):
+    return x.new_empty((x.shape[-1], g.shape[-1]), dtype=torch.float32 if f32 else x.dtype)
+
+
+@register_flop_formula(torch.ops.repro_torch.product)
+def _product_flops(x_shape, w_shape, *args, out_shape=None, **kwargs):
+    return 2 * math.prod(x_shape) * w_shape[-1]
+
+
+@register_flop_formula(torch.ops.repro_torch.product_t)
+def _product_t_flops(x_shape, g_shape, *args, out_shape=None, **kwargs):
+    return 2 * math.prod(x_shape) * g_shape[-1]
+
+
+def _product_singles(x, w, f32):
+    """Per mesh dim, as a matrix product: rows of x split (by any leading
+    dim), columns of w split, or the contraction split (partial sums); or
+    everything whole."""
+    k = x.ndim - 1
+    return [[Replicate(), Replicate(), Replicate(), None], [Shard(k), Replicate(), Shard(1), None],
+            [Partial(), Shard(k), Shard(0), None]] + [[Shard(d), Shard(d), Replicate(), None] for d in range(k)]
+
+
+def _product_t_singles(x, g, f32):
+    """Per mesh dim: a leading dim split in both (partial sums), x's last dim
+    split (rows of the result), g's (its columns); or everything whole."""
+    k = x.ndim - 1
+    return [[Replicate(), Replicate(), Replicate(), None], [Shard(0), Shard(k), Replicate(), None],
+            [Shard(1), Replicate(), Shard(k), None]] + [[Partial(), Shard(d), Shard(d), None] for d in range(k)]
+
+
+ops.register_rule(torch.ops.repro_torch.product.default, 1, _product_singles)
+ops.register_rule(torch.ops.repro_torch.product_t.default, 1, _product_t_singles)
 
 
 class _F32Product(torch.autograd.Function):
@@ -164,9 +297,13 @@ def f32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` of 2-D operands with an f32 result, as the JAX package asks a
     dot for ``preferred_element_type=float32``: of bf16 operands on the card,
     cuBLAS's f32 output (through ``_F32Product`` for its gradient), which
-    accumulates in f32 and never rounds the product to bf16; elsewhere, and
-    where the types differ (JAX promotes both to f32), the product of the
+    accumulates in f32 and never rounds the product to bf16; on DTensors
+    ``product``, whose split contractions keep f32 partial sums; elsewhere,
+    and where the types differ (JAX promotes both to f32), the product of the
     upcast operands."""
+    if isinstance(a, DTensor):
+        dt = torch.promote_types(a.dtype, b.dtype)
+        return product(_fit_to_weight(a, b).to(dt), b.to(dt), True)
     if a.device.type == "cuda" and a.dtype == b.dtype == torch.bfloat16:
         return _F32Product.apply(a, b)
     return torch.mm(a.float(), b.float())

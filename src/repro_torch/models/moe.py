@@ -18,12 +18,16 @@ rounds again, while an expert's gelu runs on the f32 product.
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.models.common import Param, dense, f32_product, gelu
+from repro_torch.sharding.regions import local_region
+from repro_torch.tree import tree_map
 
 
 def ffn_skel(cfg, expert_dim: int = 0):
@@ -67,21 +71,36 @@ def moe_skel(cfg):
     return s
 
 
+def _top_k(logits: torch.Tensor, k: int):
+    """(weights with zeros off the top-k, the 0/1 choices, probs), each (..., E)
+    f32, from each token's router logits alone."""
+    probs = torch.softmax(logits, dim=-1)
+    topw, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topw, topi = topw[..., :k], topi[..., :k]
+    topw = topw / topw.sum(-1, keepdim=True).clamp(min=1e-9)
+    weights = torch.zeros_like(probs).scatter(-1, topi, topw)  # the k experts differ
+    return weights, torch.zeros_like(probs).scatter(-1, topi, 1.0), probs
+
+
 def _route(cfg, p, x) -> Tuple[torch.Tensor, torch.Tensor]:
     """Router: (weights (B,S,E) f32 with zeros off the top-k, aux loss).
 
     The top-k comes from a stable descending sort: among equal
     probabilities the lower expert comes first, as ``jax.lax.top_k`` puts
     it (``torch.topk`` promises no order).  Ties are real in bf16, where the
-    router's logits are rounded before the f32 softmax."""
+    router's logits are rounded before the f32 softmax.  On a DTensor the
+    sort and the scatters, which DTensor has no rule for, run on each
+    device's tokens (``local_region``, the experts whole on every device): a
+    token's routing reads its own logits only."""
     logits = dense(x, p["router"]).float()  # (B,S,E)
-    probs = torch.softmax(logits, dim=-1)
-    topw, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
-    topw, topi = topw[..., : cfg.top_k], topi[..., : cfg.top_k]
-    topw = topw / topw.sum(-1, keepdim=True).clamp(min=1e-9)
-    weights = torch.zeros_like(probs).scatter(-1, topi, topw)  # the k experts differ
+    if isinstance(logits, DTensor):
+        places = [Replicate() if isinstance(q, Shard) and q.dim == 2 else q for q in logits.placements]
+        fn = local_region(functools.partial(_top_k, k=cfg.top_k), (places,) * 3, (places,), logits.device_mesh)
+        weights, chosen, probs = fn(logits)
+    else:
+        weights, chosen, probs = _top_k(logits, cfg.top_k)
     # Switch-style load-balancing auxiliary loss
-    frac_tokens = torch.zeros_like(probs).scatter(-1, topi, 1.0).mean(dim=(0, 1))  # (E,)
+    frac_tokens = chosen.mean(dim=(0, 1))  # (E,)
     frac_probs = probs.mean(dim=(0, 1))
     aux = cfg.num_experts * torch.sum(frac_tokens * frac_probs)
     return weights, aux
@@ -97,6 +116,45 @@ def _expert_h(ex, e: int, xt: torch.Tensor, act: str) -> torch.Tensor:
     return gelu(h).to(xt.dtype)
 
 
+def _experts_dense(x, weights, wi, wg, wo, act: str):
+    """The weighted sum over the experts wi/wg/wo (E, ...) hold, f32 (B, S, d):
+    each expert's h weighted by the router first (the weights rounded to h's
+    type), then one f32 contraction over the experts and d_ff."""
+    B, S, d = x.shape
+    E, f = wi.shape[0], wi.shape[-1]
+    xt = x.reshape(B * S, d)
+    wt = weights.reshape(B * S, E).to(x.dtype)
+    ex = {"wi": wi, "wg": wg}
+    hw = x.new_empty((B * S, E, f))
+    for e in range(E):
+        hw[:, e] = _expert_h(ex, e, xt, act) * wt[:, e : e + 1]
+    return f32_product(hw.reshape(B * S, E * f), wo.reshape(E * f, d)).reshape(B, S, d)
+
+
+def _experts_sharded(cfg, x, weights, wi, wg, wo):
+    """``_experts_dense`` on each device's tokens and its block of the
+    experts (``local_region``): the experts split over the model axis where
+    ``partitioning`` splits them (expert parallelism), else their d_ff; the
+    weights whole along d_model (FSDP gathers them).  The sum over experts
+    and d_ff then spans the split: an f32 partial sum, reduced after."""
+    mesh = x.device_mesh
+    xp = [q if q == Shard(0) else Replicate() for q in x.placements]
+
+    def per_mesh_dim(px, pw):  # (wi and wg, wo, the router's weights, the result)
+        if px == Shard(0):  # a batch axis: the tokens split, the weights whole
+            return Replicate(), Replicate(), Shard(0), Shard(0)
+        if pw == Shard(0):  # the experts split (expert parallelism)
+            return Shard(0), Shard(0), Shard(2), Partial()
+        if pw == Shard(2):  # each expert's d_ff split
+            return Shard(2), Shard(1), Replicate(), Partial()
+        return (Replicate(),) * 4  # d_model's FSDP split gathered
+
+    w_in, w_out, wts, out = zip(*map(per_mesh_dim, xp, wi.placements))
+    fn = local_region(functools.partial(_experts_dense, act=cfg.act), list(out), (xp, wts, w_in, w_in, w_out), mesh)
+    y = fn(x, weights, wi, wg, wo)
+    return y.redistribute(mesh, [Replicate() if q.is_partial() else q for q in y.placements])
+
+
 def moe_fwd(cfg, p, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense-dispatch MoE: out = sum_e w_e * FFN_e(x).  (B,S,d) -> same, and aux.
 
@@ -104,16 +162,13 @@ def moe_fwd(cfg, p, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     weighted by the router first (the weights rounded to h's type), and the
     sum over experts and d_ff is one f32 contraction, (T, E*f) @ (E*f, d)."""
     weights, aux = _route(cfg, p, x)
-    B, S, d = x.shape
-    E, f = cfg.num_experts, cfg.d_ff
     ex = p["experts"]
-    xt = x.reshape(B * S, d)
-    wt = weights.reshape(B * S, E).to(x.dtype)
-    hw = x.new_empty((B * S, E, f))
-    for e in range(E):
-        hw[:, e] = _expert_h(ex, e, xt, cfg.act) * wt[:, e : e + 1]
-    out = f32_product(hw.reshape(B * S, E * f), ex["wo"].reshape(E * f, d))
-    out = out.reshape(B, S, d).to(x.dtype)
+    wg = ex.get("wg", ex["wi"])  # the gelu experts have no wg
+    if isinstance(x, DTensor):
+        out = _experts_sharded(cfg, x, weights, ex["wi"], wg, ex["wo"])
+    else:
+        out = _experts_dense(x, weights, ex["wi"], wg, ex["wo"], cfg.act)
+    out = out.to(x.dtype)
     if cfg.shared_expert:
         out = out + ffn_fwd(cfg, p["shared"], x)
     return out, aux
@@ -122,7 +177,18 @@ def moe_fwd(cfg, p, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def moe_fwd_dropping(cfg, p, x: torch.Tensor, capacity_factor: float = 1.25):
     """Gather-based dispatch with a capacity per expert: FLOPs proportional
     to the active parameters; tokens over capacity drop to the residual
-    stream.  Queue positions follow the flattened (B*S) token order."""
+    stream.  Queue positions follow the flattened (B*S) token order.  On a
+    DTensor the queues span every token, which DTensor's cumsum, scatter
+    and gathers have no rule for: the dispatch runs replicated
+    on every device over the gathered tokens, router and experts, and the
+    gathers are the collectives it costs."""
+    if isinstance(x, DTensor):
+        mesh = x.device_mesh
+        whole = [Replicate()] * mesh.ndim
+        local = lambda t: t.redistribute(mesh, whole).to_local()
+        out, aux = moe_fwd_dropping(cfg, tree_map(local, p), local(x), capacity_factor)
+        return (DTensor.from_local(out, mesh, whole, run_check=False),
+                DTensor.from_local(aux, mesh, whole, run_check=False))
     B, S, d = x.shape
     E, k = cfg.num_experts, cfg.top_k
     T = B * S

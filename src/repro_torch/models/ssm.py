@@ -12,6 +12,13 @@ boundaries is kept.  Decode carries O(1) state per layer.
 
 Shapes use (B, S, d) activations; states are dicts of tensors, which the
 model threads as it threads KV caches.
+
+On DTensors each scan is a ``local_region`` (``sharding.regions``): the
+recurrence runs on each device's local block, in the same Python loop, with
+the batch split as the activations split it and the channels (Mamba) or
+heads (RWKV-6) split over the model axis as the parameters place them.  Every
+step of the recurrence is elementwise in those dims, so nothing crosses a
+device inside a scan.
 """
 
 from __future__ import annotations
@@ -20,9 +27,11 @@ from typing import Dict
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.common import Param, dense
+from repro_torch.sharding.regions import local_region
 
 
 def _scan(step, h, *xs):
@@ -32,6 +41,41 @@ def _scan(step, h, *xs):
         h, y = step(h, tuple(x[t] for x in xs))
         ys.append(y)
     return h, torch.stack(ys)
+
+
+def _ref_places(batch_src, chan_src, chan_dim: int):
+    """A scan's split, per mesh dim, of its (B, S, C) activations: the batch
+    where ``batch_src`` splits its dim 0, else the channels (or heads, dim 2)
+    where the parameter ``chan_src`` splits its dim ``chan_dim``, else none."""
+    out = []
+    for pb, pc in zip(batch_src.placements, chan_src.placements):
+        out.append(Shard(0) if pb == Shard(0) else Shard(2) if pc == Shard(chan_dim) else Replicate())
+    return tuple(out)
+
+
+def _scan_region(scan, ref_places, mesh, layout, *args):
+    """``scan(*args)`` on each device's blocks (a ``local_region``) under
+    ``ref_places`` (``_ref_places``), or as it is when ``ref_places`` is None.
+    ``layout``: for each argument, then each output, its dims that carry the
+    batch (0) and the channels (2) of the (B, S, C) activations, None where
+    it has none; a non-tensor argument's entry is None.  A plain tensor
+    argument (a fresh zero state) is the same on every device."""
+    if ref_places is None:
+        return scan(*args)
+
+    def places(dims):
+        out = []
+        for p in ref_places:
+            d = dims[(0, 2).index(p.dim)] if isinstance(p, Shard) else None
+            out.append(Replicate() if d is None else Shard(d))
+        return tuple(out)
+
+    pl = [None if dims is None else places(dims) for dims in layout]
+    whole = [Replicate()] * mesh.ndim
+    args = [DTensor.from_local(a, mesh, whole, run_check=False)
+            if isinstance(a, torch.Tensor) and not isinstance(a, DTensor) else a for a in args]
+    n = len(args)
+    return local_region(scan, tuple(pl[n:]), tuple(pl[:n]), mesh)(*args)
 
 
 def chunked_scan(step, init, xs, seq_len: int, chunk: int = 128):
@@ -124,7 +168,11 @@ def _mamba_core(cfg, p, xz, conv_state, ssm_state, *, single_step: bool):
     dt, Bm, Cm = torch.split(proj, [dt_rank, N, N], dim=-1)
     delta = F.softplus(dense(dt, p["dt_w"]).float() + p["dt_b"].float())  # (B,S,di)
     A = -torch.exp(p["A_log"].float())  # (di,N)
-    ys, new_ssm_state = _selective_scan(delta, Bm.float(), Cm.float(), x.float(), A, ssm_state, single_step)
+    places = _ref_places(x, p["A_log"], 0) if isinstance(x, DTensor) else None
+    # delta, Bm, Cm, x, A, h, single_step -> ys, h
+    layout = ((0, 2), (0, None), (0, None), (0, 2), (None, 0), (0, 1), None, (0, 2), (0, 1))
+    ys, new_ssm_state = _scan_region(_selective_scan, places, getattr(x, "device_mesh", None), layout, delta,
+                                     Bm.float(), Cm.float(), x.float(), A, ssm_state, single_step)
     y = ys + x.float() * p["D"].float()
     y = (y * F.silu(z.float())).to(xz.dtype)
     return y, new_conv_state, new_ssm_state
@@ -263,7 +311,11 @@ def _rwkv_time_mix(cfg, p, x, shift_prev, wkv_state, single_step):
     w = torch.exp(-torch.exp(p["w0"].float() + w_dd))  # (B,S,d) in (0,1)
     w = w.reshape(B, S, H, hs)
     u = p["u"].float().reshape(H, hs)
-    y, wkv_state = _wkv6_scan(r, k, v, w, u, wkv_state, single_step)
+    places = _ref_places(r, p["wr"], 1) if isinstance(r, DTensor) else None
+    # r, k, v, w, u, state, single_step -> y, state
+    layout = ((0, 2), (0, 2), (0, 2), (0, 2), (None, 0), (0, 1), None, (0, 2), (0, 1))
+    y, wkv_state = _scan_region(_wkv6_scan, places, getattr(r, "device_mesh", None), layout, r, k, v, w, u,
+                                wkv_state, single_step)
     yf = _group_norm(y, p["ln_w"], p["ln_b"])
     out = dense((yf * g).to(x.dtype), p["wo"])
     return out, x[:, -1], wkv_state

@@ -41,7 +41,8 @@ import functools
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor import zeros as dtensor_zeros
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import attention as attn
@@ -53,10 +54,12 @@ from repro_torch.models.common import (
     dense,
     f32_product,
     norm_skel,
+    product,
     sinusoidal_positions,
     tree_map_params,
 )
-from repro_torch.sharding.partitioning import PartitionSpec, placements
+from repro_torch.sharding.partitioning import PartitionSpec, block_start, cache_specs, placements, tree_map_specs
+from repro_torch.sharding.regions import local_region
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -293,8 +296,8 @@ def layer_prefill(cfg, spec, lp, x, q_pos, cache, positions_3d=None, enc_out=Non
         k, v = attn.attention_prefill_kv(cfg, lp["attn"], h, q_pos, positions_3d)
         S, C = k.shape[1], own["k"].shape[1]
         if C >= S:
-            own["k"][:, :S] = k
-            own["v"][:, :S] = v
+            attn.write_rows(own["k"], 0, k)
+            attn.write_rows(own["v"], 0, v)
         else:  # ring cache: keep the last C positions at slots pos % C
             own["k"].copy_(torch.roll(k[:, -C:], S % C, dims=1))
             own["v"].copy_(torch.roll(v[:, -C:], S % C, dims=1))
@@ -395,14 +398,27 @@ def stage_fwd(cfg, pattern, stage_params, x, q_pos, wrap: Optional[Callable] = N
     return x, aux
 
 
-def stage_prefill(cfg, pattern, stage_params, x, q_pos, cache_seq: int, positions_3d=None, enc_out=None):
+def _placed_zeros(meta_tree, place_tree, mesh):
+    """DTensor zeros of a tree of ``meta`` tensors, each with its placements."""
+    if isinstance(meta_tree, dict):
+        return {k: _placed_zeros(v, place_tree[k], mesh) for k, v in meta_tree.items()}
+    return dtensor_zeros(meta_tree.shape, dtype=meta_tree.dtype, device_mesh=mesh, placements=place_tree)
+
+
+def stage_prefill(cfg, pattern, stage_params, x, q_pos, cache_seq: int, positions_3d=None, enc_out=None,
+                  cache_places=None):
+    """``cache_places``: the stage's tree of cache placements, for DTensor
+    activations (``prefill`` passes ``partitioning.cache_specs``' own)."""
     B, S = x.shape[:2]
     if S > cache_seq:
         raise ValueError(f"prompt of {S} tokens does not fit a cache of {cache_seq}")
     n = _num_blocks(stage_params)
     E = 0 if enc_out is None else enc_out.shape[1]
-    caches = {f"pos{i}": cache_for(cfg, spec, n, B, cache_seq, x.dtype, x.device, E)
+    dev = "meta" if cache_places is not None else x.device
+    caches = {f"pos{i}": cache_for(cfg, spec, n, B, cache_seq, x.dtype, dev, E)
               for i, spec in enumerate(pattern)}
+    if cache_places is not None:
+        caches = _placed_zeros(caches, cache_places, x.device_mesh)
     for blk in range(n):
         bp = _layer(stage_params, blk)
         x = _constrain(x, ("batch", None, None))
@@ -438,6 +454,8 @@ def _unembed(cfg, params, x):
     if w is None:
         w = params["embed"].T
     w = _constrain(w, (None, "tp"))
+    if isinstance(x, DTensor):  # rows kept as they are split, however unevenly
+        return product(x, w.to(x.dtype), True)
     y = f32_product(x.reshape(-1, x.shape[-1]), w)
     return y.reshape(*x.shape[:-1], w.shape[-1])
 
@@ -496,6 +514,30 @@ def forward(cfg: ModelConfig, params, batch, wrap: Optional[Callable] = None):
     return _unembed(cfg, params, x), aux_total
 
 
+def _pick_local(logits, labels, lo: int):
+    """A device's block of the vocab: each row's logit at its label where the
+    label falls in the block [lo, lo + V_local), else 0."""
+    idx = labels.clamp(min=0) - lo
+    inside = (idx >= 0) & (idx < logits.shape[-1])
+    got = logits.gather(-1, idx.clamp(0, logits.shape[-1] - 1)[..., None])[..., 0]
+    return torch.where(inside, got, torch.zeros_like(got))
+
+
+def _sharded_lse_and_pick(logits, labels):
+    """``logsumexp`` over the vocab and the label's logit, for logits (B, S, V)
+    whose vocab may be split over the mesh: the max and the sum of exps as
+    partial results over the vocab's split, and the pick as a sum of one
+    nonzero term over the blocks (the JAX package's one-hot contraction)."""
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    lse = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
+    mesh, places = logits.device_mesh, logits.placements
+    lo = block_start(logits.shape, places, mesh, mesh.get_coordinate(), 2)
+    out_places = [Partial() if p == Shard(2) else p for p in places]
+    label_places = [Replicate() if p == Shard(2) else p for p in places]
+    pick = local_region(functools.partial(_pick_local, lo=lo), out_places, (places, label_places), mesh)
+    return lse, pick(logits, labels)
+
+
 def train_loss(cfg: ModelConfig, params, batch, wrap: Optional[Callable] = None) -> torch.Tensor:
     """Next-token cross-entropy in f32, the mean over labels >= 0, plus the
     MoE aux loss weighted by ``router_aux_weight / num_layers``.
@@ -505,10 +547,14 @@ def train_loss(cfg: ModelConfig, params, batch, wrap: Optional[Callable] = None)
     term is exact in f32, so both give the same number."""
     logits, aux = forward(cfg, params, batch, wrap)
     labels = batch["labels"]
-    # the JAX package also constrains its one-hot of the labels; the gather has none
+    # as the JAX package constrains the logits and its one-hot of the labels
     logits = _constrain(logits, ("batch", None, "tp"))
-    lse = torch.logsumexp(logits, dim=-1)
-    picked = logits.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    labels = _constrain(labels, ("batch", None))
+    if isinstance(logits, DTensor):
+        lse, picked = _sharded_lse_and_pick(logits, labels)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = logits.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
     mask = (labels >= 0).float()
     loss = -((picked - lse) * mask).sum() / mask.sum().clamp(min=1.0)
     if cfg.num_experts:
@@ -532,9 +578,13 @@ def prefill(cfg: ModelConfig, params, batch, cache_seq: int):
         enc_out = _run_encoder(cfg, params, batch["encoder_frames"])
     q_pos = torch.arange(S, device=x.device)
     positions_3d = batch.get("positions_3d") if cfg.rope == "mrope" else None
+    places = [None] * len(params["stages"])
+    if isinstance(x, DTensor):
+        mesh = x.device_mesh
+        places = tree_map_specs(lambda sp: placements(sp, mesh), cache_specs(cfg, mesh, tokens.shape[0]))
     all_caches: List[Dict[str, Any]] = []
-    for (pattern, _n), sp in zip(cfg.stages(), params["stages"]):
-        x, caches = stage_prefill(cfg, pattern, sp, x, q_pos, cache_seq, positions_3d, enc_out)
+    for (pattern, _n), sp, pl in zip(cfg.stages(), params["stages"], places):
+        x, caches = stage_prefill(cfg, pattern, sp, x, q_pos, cache_seq, positions_3d, enc_out, pl)
         all_caches.append(caches)
     x = apply_norm(cfg, params["final_norm"], x)
     return _unembed(cfg, params, x[:, -1:])[:, 0], all_caches

@@ -21,6 +21,7 @@ import math
 from typing import Any, Dict
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.tree import leaves, tree_map
 
@@ -53,11 +54,19 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def init_opt_state(params) -> Dict[str, Any]:
-    """Zero f32 moments shaped like ``params``, and a step count of 0."""
+    """Zero f32 moments shaped (and, for DTensors, placed) like ``params``,
+    and a step count of 0."""
     device = next(iter(leaves(params))).device
-    zeros32 = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    zeros32 = lambda p: torch.zeros_like(p, dtype=torch.float32, memory_format=torch.contiguous_format)
     return {"m": tree_map(zeros32, params), "v": tree_map(zeros32, params),
             "count": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor scalar as a plain tensor of its value (else ``t``)."""
+    if isinstance(t, DTensor):
+        return t.redistribute(t.device_mesh, [Replicate()] * t.device_mesh.ndim).to_local()
+    return t
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -78,13 +87,21 @@ def adamw_update(grads, opt_state, params, cfg: AdamWConfig):
     b1c = 1 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32, device=c.device), c)
     b2c = 1 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32, device=c.device), c)
 
+    # the scalars whole on every device, for the local blocks' update
+    sc, lr_t, b1c, b2c = (_whole(t) for t in (scale, lr, b1c, b2c))
     # each line rounds as the JAX package's: m = b1 * m + (1 - b1) * g, ...
     for leaf in zip(leaves(grads), leaves(opt_state["m"]), leaves(opt_state["v"]), leaves(params)):
+        if isinstance(leaf[3], DTensor):
+            # the moments are placed as their parameter: the update is
+            # elementwise, on each device's blocks; the scalars are whole
+            p = leaf[3]
+            leaf = (leaf[0].redistribute(p.device_mesh, p.placements),) + leaf[1:]
+            leaf = tuple(t.to_local() for t in leaf)
         flat = all(t.is_contiguous() for t in leaf)
         for g, m, v, p in zip(*(t.view(-1).split(CHUNK) for t in leaf)) if flat else [leaf]:
-            g = g.float() * scale
+            g = g.float() * sc
             m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
             v.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
             step = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps) + cfg.weight_decay * p.float()
-            p.copy_(p.float() - lr * step)  # rounded to p's type once
+            p.copy_(p.float() - lr_t * step)  # rounded to p's type once
     return params, {"m": opt_state["m"], "v": opt_state["v"], "count": count}, {"grad_norm": gnorm, "lr": lr}

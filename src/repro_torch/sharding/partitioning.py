@@ -114,6 +114,19 @@ def local_slices(shape: Sequence[int], places: Sequence, mesh, coordinate: Seque
     return tuple(slice(s, s + k) for s, k in zip(start, size))
 
 
+def block_start(shape: Sequence[int], places: Sequence, mesh, coordinate: Sequence[int], dim: int) -> int:
+    """Where, along ``dim``, the block of the device at ``coordinate`` starts:
+    ``local_slices``' start, with an uneven split cut as DTensor cuts it
+    (``torch.chunk``: blocks of ceil(size / n), the last ones short or empty)."""
+    start, size = 0, shape[dim]
+    for n, c, pl in zip(mesh.shape, coordinate, places):
+        if isinstance(pl, Shard) and pl.dim == dim:
+            step = -(-size // n)
+            start += min(c * step, size)
+            size = max(0, min(step, size - c * step))
+    return start
+
+
 def expert_parallel(cfg: ModelConfig, mesh, opts: ShardingOptions) -> bool:
     tp = mesh_axes(mesh)[opts.tp_axis]
     return cfg.num_experts > 0 and cfg.num_experts % tp == 0

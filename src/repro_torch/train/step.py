@@ -3,12 +3,16 @@ sync and AdamW (port of ``repro.train.step``).
 
 The JAX step runs under ``pjit`` over a (data, model) mesh and reduces
 gradients within a pod through GSPMD and across pods through the Hoplite
-chains over the "pod" axis.  The port's step runs on one device; the pods,
-when there are several, are the ranks of a process group (``pod``), each of
-which holds a replica of the state and its share of the global batch
-(``launch.train`` takes that share from ``partitioning.batch_specs``).
-``state_shardings`` gives the state's DTensor placements on a mesh; no
-partitioner within a pod runs them yet.
+chains over the "pod" axis.  The port's step runs on one device, or on a
+state of DTensors placed by ``state_shardings`` (the dry run's program:
+DTensor redistributes op by op where GSPMD partitions the whole step); the
+pods, when there are several, are the ranks of a process group (``pod``),
+each of which holds a replica of the state and its share of the global
+batch (``launch.train`` takes that share from ``partitioning.batch_specs``),
+or on a mesh the "pod" sub-group of it, each pod's state on the (data,
+model) sub-mesh.  On DTensors every gradient's pod sync runs on the device's
+local block, as the JAX step's chain runs per device inside its
+``shard_map``.
 
 The step owns its state: it updates the parameters and the AdamW moments in
 place (``optim.adamw``), where the JAX step donates them to XLA.  A state of
@@ -17,13 +21,16 @@ full-width qwen3-14b's 4 layers would not fit the card twice.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import math
 import time
 from typing import Any, Callable, Dict, List
 
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import ModelConfig
@@ -36,6 +43,7 @@ from repro_torch.optim import adamw, compression
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.sharding import partitioning
 from repro_torch.sharding.partitioning import ShardingOptions
+from repro_torch.sharding.regions import local_region
 from repro_torch.tree import leaves, tree_map, unflatten_like
 
 # pod_sync -> the grad_sync method that carries it
@@ -85,15 +93,90 @@ def _loss_with_remat(cfg: ModelConfig, options: TrainOptions) -> Callable:
     return lambda params, batch: T.train_loss(cfg, params, batch, wrap)
 
 
-def _split_micro(batch: Dict[str, torch.Tensor], n: int) -> List[Dict[str, torch.Tensor]]:
-    """The global batch as n microbatches of consecutive rows (dim 1 of
-    ``positions_3d``, dim 0 of the rest)."""
-    dim = lambda name: 1 if name == "positions_3d" else 0
+def _local_rows(x: torch.Tensor, dim: int) -> int:
+    return x.to_local().shape[dim] if isinstance(x, DTensor) else x.shape[dim]
+
+
+def _batch_dim(name: str) -> int:
+    return 1 if name == "positions_3d" else 0
+
+
+def _split_micro(batch: Dict[str, torch.Tensor], n: int, pad: int = 0) -> List[Dict[str, torch.Tensor]]:
+    """The global batch as n microbatches (dim 1 of ``positions_3d``, dim 0 of
+    the rest): of consecutive rows on one device; on DTensors, of each
+    device's own consecutive rows, so that every microbatch stays split as
+    the batch is (the JAX step's reshape under its constraint).  With
+    ``pad`` (``_micro_pad``), for DTensors whose devices hold too few rows
+    to split in n: each leaf gathered, split whole, and each microbatch
+    padded by ``pad`` rows that the loss masks (labels -1, zeros elsewhere)
+    and split again, evenly, as GSPMD pads an uneven split."""
     for name, x in batch.items():
-        if x.shape[dim(name)] % n:
-            raise ValueError(f"{name}: a batch of {x.shape[dim(name)]} rows does not split into {n} microbatches")
-    parts = {name: torch.chunk(x, n, dim=dim(name)) for name, x in batch.items()}
+        if x.shape[_batch_dim(name)] % n:
+            raise ValueError(f"{name}: a batch of {x.shape[_batch_dim(name)]} rows does not split into {n} "
+                             "microbatches")
+    parts = {name: _chunks(x, n, _batch_dim(name), pad, -1 if name == "labels" else 0)
+             for name, x in batch.items()}
     return [{name: p[i] for name, p in parts.items()} for i in range(n)]
+
+
+def _micro_pad(x: torch.Tensor, n: int) -> int:
+    """Rows to add to each of n microbatches of x's rows (dim 0) so that they
+    split evenly over x's batch mesh dims: 0 on one device, or where each
+    device's own rows split in n."""
+    if not isinstance(x, DTensor) or _local_rows(x, 0) % n == 0:
+        return 0
+    split = math.prod(k for k, p in zip(x.device_mesh.shape, x.placements) if p == Shard(0))
+    rows = x.shape[0] // n
+    return -(-rows // split) * split - rows
+
+
+def _gathered(x: DTensor, dim: int = 0) -> DTensor:
+    """x whole along ``dim`` on every device."""
+    return x.redistribute(x.device_mesh, [Replicate() if p == Shard(dim) else p for p in x.placements])
+
+
+def _chunks(x: torch.Tensor, n: int, dim: int, pad: int, fill):
+    if not isinstance(x, DTensor):
+        return torch.chunk(x, n, dim=dim)
+    mesh, places = x.device_mesh, x.placements
+    if not pad:
+        return local_region(lambda t: tuple(torch.chunk(t, n, dim=dim)), (places,) * n, (places,), mesh)(x)
+    out = []
+    for part in torch.chunk(_gathered(x, dim), n, dim=dim):
+        shape = list(part.shape)
+        shape[dim] = pad
+        extra = torch.full(shape, fill, dtype=part.dtype, device=part.device)
+        out.append(torch.cat([part, extra], dim=dim).redistribute(mesh, places))
+    return out
+
+
+
+
+def _table_grad_local(table, tokens, *gxs):
+    """One device's gradient of the embedding table: its tokens' rows of
+    ``gxs`` (the microbatches' gradients, each device's rows in order)
+    accumulated into zeros, rounded to the table's type first."""
+    rows = torch.cat(gxs).reshape(-1, table.shape[-1]).to(table.dtype)
+    return torch.zeros_like(table).index_put_((tokens.reshape(-1),), rows, accumulate=True)
+
+
+def _table_grad(table, tokens, gxs):
+    """``_table_grad_local``; on DTensors on each device's tokens and its block
+    of the table's features: a partial sum over the devices that split the
+    tokens, reduced into the gradient sums after."""
+    if not isinstance(table, DTensor):
+        return _table_grad_local(table, tokens, *gxs)
+
+    def per_mesh_dim(pt, pp):  # (table, tokens, a gradient, the result)
+        if pt == Shard(0):  # the tokens split: each device's rows, the whole table
+            return Replicate(), pt, Shard(0), Partial()
+        if pp == Shard(1):  # the features split
+            return pp, Replicate(), Shard(2), pp
+        return (Replicate(),) * 4
+
+    t_in, tok_in, g_in, out = zip(*map(per_mesh_dim, tokens.placements, table.placements))
+    fn = local_region(_table_grad_local, list(out), (t_in, tok_in) + (g_in,) * len(gxs), table.device_mesh)
+    return fn(table, tokens, *gxs)
 
 
 def _pod_sync_fn(options: TrainOptions, group=None):
@@ -107,10 +190,18 @@ def _pod_sync_fn(options: TrainOptions, group=None):
     method = POD_SYNC_METHODS[options.pod_sync]
     config = collectives.HOST_STAGED_CONFIG
 
-    def sync(grads):
+    def sync_local(grads):
         if options.pod_compression:
             grads = tree_map(compression.compress_decompress, grads)
         return collectives.grad_sync(grads, group, method=method, config=config)
+
+    def sync(grads):
+        if not any(isinstance(g, DTensor) for g in leaves(grads)):
+            return sync_local(grads)
+        # each device's block, synced with the same block of the other pods
+        done = sync_local(tree_map(lambda g: g.to_local(), grads))
+        return tree_map(lambda g, s: DTensor.from_local(s, g.device_mesh, g.placements, run_check=False,
+                                                        shape=g.shape, stride=g.stride()), grads, done)
 
     return sync
 
@@ -143,7 +234,7 @@ def make_train_step(cfg: ModelConfig, options: TrainOptions = TrainOptions(), po
             loss = loss_fn(ps, batch)
             grads = torch.autograd.grad(loss, flat, allow_unused=True)  # None: a leaf the loss does not use
             return loss.detach(), unflatten_like(params, [
-                torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)])
+                torch.zeros_like(p) if g is None else _placed_as(g, p) for p, g in zip(flat, grads)])
 
         # The embedding gather runs once, outside the microbatch loop, and its
         # table gradient is folded back after it, as the JAX step does.  The
@@ -155,8 +246,11 @@ def make_train_step(cfg: ModelConfig, options: TrainOptions = TrainOptions(), po
         tokens = batch["tokens"]
         table = params["embed"]
         x_emb = table[tokens]
-        micro = _split_micro(dict({k: v for k, v in batch.items() if k != "tokens"}, x_embed=x_emb), n)
-        gacc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in flat]
+        pad = _micro_pad(x_emb, n)
+        micro = _split_micro(dict({k: v for k, v in batch.items() if k != "tokens"}, x_embed=x_emb), n, pad)
+        # the tokens as the microbatches hold their rows: gathered where they were
+        micro_tokens = _gathered(tokens) if pad else tokens
+        gacc = [torch.zeros_like(p, dtype=torch.float32, memory_format=torch.contiguous_format) for p in flat]
         loss_sum = torch.zeros((), dtype=torch.float32, device=table.device)
         gxs = []
         for mb in micro:
@@ -167,12 +261,10 @@ def make_train_step(cfg: ModelConfig, options: TrainOptions = TrainOptions(), po
                 if g is not None:
                     a.add_(g)  # in f32: a + g.float()
             loss_sum = loss_sum + loss.detach()
-            gxs.append(gx)
+            gxs.append(_gathered(gx)[:tokens.shape[0] // n] if pad else gx)  # without the padding rows
             del loss, gp, gx
         gsum = unflatten_like(params, gacc)
-        d_table = torch.zeros_like(table).index_put_(
-            (tokens.reshape(-1),), torch.cat(gxs).reshape(-1, table.shape[-1]).to(table.dtype), accumulate=True)
-        gsum["embed"].add_(d_table)
+        gsum["embed"].add_(_table_grad(table, micro_tokens, gxs))
         inv = 1.0 / n
         for g in gacc:
             g.mul_(inv)
@@ -184,6 +276,8 @@ def make_train_step(cfg: ModelConfig, options: TrainOptions = TrainOptions(), po
             torch.cuda.synchronize(dev)
         t = time.perf_counter()
         grads = sync(grads)
+        if isinstance(loss, DTensor):
+            loss = loss.redistribute(loss.device_mesh, [Replicate()] * loss.device_mesh.ndim).to_local()
         loss = G.psum(loss, pod) / n_pods
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
@@ -191,6 +285,10 @@ def make_train_step(cfg: ModelConfig, options: TrainOptions = TrainOptions(), po
         return grads, loss
 
     def train_step(state, batch):
+        with _activation_sharding(state["params"], options):
+            return step(state, batch)
+
+    def step(state, batch):
         loss, grads = grads_of(state["params"], batch)
         if sync is not None:
             grads, loss = synced(grads, loss)
@@ -199,6 +297,32 @@ def make_train_step(cfg: ModelConfig, options: TrainOptions = TrainOptions(), po
 
     train_step.sync_seconds = []
     return train_step
+
+
+def _placed_as(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A gradient in its parameter's placements (a partial sum reduced)."""
+    if isinstance(g, DTensor) and g.placements != p.placements:
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+@contextlib.contextmanager
+def _activation_sharding(params, options: TrainOptions):
+    """``transformer.set_activation_sharding`` for a step on DTensor
+    parameters, as the JAX step sets it while it traces: the batch over the
+    data-parallel axes of the parameters' mesh (a pod's sub-mesh has none
+    but "data"), the rest over the model axis."""
+    p = next(iter(leaves(params)))
+    if not isinstance(p, DTensor):
+        yield
+        return
+    names = p.device_mesh.mesh_dim_names
+    prev = dict(T.ACTIVATION_SHARDING)
+    T.set_activation_sharding(tuple(a for a in options.sharding.dp_axes if a in names), options.sharding.tp_axis)
+    try:
+        yield
+    finally:
+        T.ACTIVATION_SHARDING.update(prev)
 
 
 def state_shardings(cfg: ModelConfig, mesh, options: TrainOptions = TrainOptions()):

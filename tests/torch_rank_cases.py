@@ -17,6 +17,7 @@ import time
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch import convert
 from repro_torch.configs import get_config, reduced_config
@@ -147,3 +148,136 @@ def fail_on_rank_1(dev):
 
 def hang(dev):
     time.sleep(600)
+
+
+def _seeded_make(seed: int, vocab: int, made: list):
+    """``dryrun.build_cell``'s ``make``: each tensor whole, the same on every
+    rank (one generator, one order), kept in ``made``: floats in f32 (the
+    bf16 parameters of the skeleton too, so that 1e-5 can hold), uniform in
+    [0, 0.1); integers (tokens, labels, positions) below ``vocab``; a scalar
+    count 0."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def make(shape, dtype):
+        if not dtype.is_floating_point:
+            t = (torch.zeros(shape, dtype=dtype) if not shape
+                 else torch.randint(0, vocab, shape, generator=gen).to(dtype))
+        else:
+            t = torch.rand(shape, generator=gen) * 0.1
+        made.append(t)
+        return t
+
+    return make
+
+
+def _plant_wrong_gqa_rule():
+    """A wrong GQA rule: q keeps its heads split over the model axis while k
+    and v are gathered, and the flash ops accept that split.  The kernel's
+    h // G then reads the wrong kv head on every device but the first."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as attn
+
+    heads = attn._heads
+
+    def wrong(t, kv_heads, shape):
+        # q (five dims) keeps its split; k and v are gathered (3 divides no split)
+        return t.reshape(shape) if len(shape) == 5 else heads(t, 3, shape)
+
+    def wrong_singles(n):
+        # first: q (and the outputs) split on heads, k and v whole
+        right = ops._flash_singles(n)
+        return lambda *specs: [[Shard(1)] * n + [Shard(1), Replicate(), Replicate()] + [None] * 3] + right(*specs)
+
+    attn._heads = wrong
+    for op, n in ((torch.ops.repro_torch.flash_attention_fwd.default, 1),
+                  (torch.ops.repro_torch.flash_attention_fwd_lse.default, 2)):
+        ops.register_rule(op, n, wrong_singles(n), None)
+
+    def undo():
+        attn._heads = heads
+        for op, n in ((torch.ops.repro_torch.flash_attention_fwd.default, 1),
+                      (torch.ops.repro_torch.flash_attention_fwd_lse.default, 2)):
+            ops.register_rule(op, n, ops._flash_singles(n), ops._heads_split_together)
+        DTensor._op_dispatcher.sharding_propagator.propagate_op_sharding.cache_clear()
+
+    return undo
+
+
+def one_block(cfg):
+    """A reduced config cut to the first three layers of its pattern, no tail,
+    and one encoder layer: each config's every layer kind (jamba's attention,
+    Mamba with the MoE and Mamba with the FFN), once."""
+    import dataclasses
+
+    pattern = cfg.pattern[:3]
+    return dataclasses.replace(cfg, pattern=pattern, tail_pattern=(), num_layers=len(pattern),
+                               encoder_layers=min(cfg.encoder_layers, 1))
+
+
+def _whole(tree):
+    """Every DTensor of a tree gathered (collective: every rank calls it)."""
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda t: t.full_tensor() if isinstance(t, DTensor) else t, tree)
+
+
+def dtensor_program_cases(dev, cases, seed: int):
+    """The DTensor program the dry run traces (``dryrun.build_cell``), run on
+    the debug meshes of the 8 ranks with real tensors, and the same step in
+    one process on the whole tensors.  ``cases``: (name, arch, mesh kind,
+    shape kind, planted) with planted True for a run under
+    ``_plant_wrong_gqa_rule`` (run first: nothing of the real rule is cached
+    yet).  Rank 0 returns {name: {"sharded": ..., "plain": ...}} of numpy
+    arrays: prefill's logits and caches, decode's logits, the train step's
+    loss, gradient norm and updated parameters."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import transformer as T
+    from repro_torch.train import step as TS
+    from repro_torch.tree import unflatten_like
+
+    torch.set_num_threads(1)  # eight ranks on the CPU's cores: one thread each
+    meshes = {"single": M.make_debug_mesh(), "multi": M.make_debug_mesh(multi_pod=True)}
+    shapes = {"train": ShapeSpec("train", 8, 16, "train"), "prefill": ShapeSpec("prefill", 8, 16, "prefill"),
+              "decode": ShapeSpec("decode", 8, 16, "decode")}
+    # two microbatches a train step (each device's 4 rows split in two), not
+    # the dry run's four: the microbatch path at half the operations
+    D.micro_batches_for = lambda cfg, shape: 2 if shape.kind == "train" else 1
+    out = {}
+    for name, arch, mesh_kind, kind, planted in cases:
+        cfg = one_block(reduced_config(get_config(arch)))
+        shape = shapes[kind]
+        made = []
+        undo = _plant_wrong_gqa_rule() if planted else None
+        try:
+            with D._variant_restored():
+                fn, args = D.build_cell(cfg, shape, meshes[mesh_kind], "hoplite_chain",
+                                        make=_seeded_make(seed, cfg.vocab_size, made))
+                plain_args = unflatten_like(args, [t.clone() for t in made])
+                with implicit_replication():
+                    got = _whole(fn(*args))
+        finally:
+            if undo is not None:
+                undo()
+        if kind == "train":
+            opts = TrainOptions(num_microbatches=D.micro_batches_for(cfg, shape), remat="full", pod_sync="gspmd")
+            want = TS.make_train_step(cfg, opts)(*plain_args)
+            pick = lambda res: {"loss": res[1]["loss"], "grad_norm": res[1]["grad_norm"],
+                                "params": res[0]["params"]}
+        elif kind == "prefill":
+            want = T.prefill(cfg, plain_args[0], plain_args[1], cache_seq=shape.seq_len)
+            pick = lambda res: {"logits": res[0], "caches": res[1]}
+        else:
+            want = T.decode_step(cfg, plain_args[0], plain_args[1], shape.seq_len - 1, plain_args[2])
+            pick = lambda res: {"logits": res[0]}
+        if dist.get_rank() == 0:
+            out[name] = {"sharded": _as_numpy(pick(got)), "plain": _as_numpy(pick(want))}
+    return out if dist.get_rank() == 0 else None
+
+
+def _as_numpy(tree):
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda t: t.detach().float().cpu().numpy() if isinstance(t, torch.Tensor) else t, tree)
