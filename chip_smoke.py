@@ -117,10 +117,28 @@ mask), then drives these paths:
   launches per step are predicted (``expected_pod_launches``).  Each step's
   time is split into the pod's own step and the sync, beside the sync's
   time predicted from ``core.planner.HOST_STAGED_LINK``.
+- mesh: the launchers over the debug mesh as ``--devices 8``: 8 rank
+  processes share the card and meet in the ``staged`` process group (every
+  collective through pinned host buffers and gloo).  Train
+  (``launch.train.run(mesh=...)``, 4 x 2048 tokens in 2 microbatches, full
+  remat, 2 steps) on qwen3-14b's layer widths with its vocabulary cut to
+  32,768: at 151,936 the embedding, split over the model axis only, holds
+  3.89 GB of weights and f32 moments a rank, and 8 ranks do not fit the
+  card at any depth (the dry run: 97-113 GB; 1 layer in 1 microbatch ran
+  out of the card).  4 layers on (data 4, model 2); 2 layers on (pod 2, data
+  2, model 2) under ``hoplite_chain`` (the hop kernel on each rank's local
+  blocks, the pods' blocks bit for bit the same) and ``gspmd``.  Serve
+  (``launch.serve.serve(devices=8)``) qwen3-14b at full width cut to 4
+  layers, 4 x 512 tokens and 4 greedy tokens.  Each rank's launches are
+  predicted, its ``max_memory_allocated`` held within 10% of the dry run's
+  per-device prediction (fake ``cuda`` tensors on a fake mesh), and the
+  metrics, logits and first tokens against one process's on the card; the
+  step time is printed beside the staged collectives' calls, bytes and
+  seconds.
 
 Every phase raises on failure; the script then exits non-zero.  At the end
-it stops multiprocessing's resource tracker (started by the sync and pods
-phases' ranks) and fails if any process it started is still there.
+it stops multiprocessing's resource tracker (started by the sync, pods and
+mesh phases' ranks) and fails if any process it started is still there.
 
 The last two lines are a JSON ``kernels`` record (times, bounds, launches)
 and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -1675,6 +1693,284 @@ def pods(torch, card: str):
                     "digests": [r["digests"] for r in recs], "phase_s": phase_s}
 
 
+# The mesh phase: the launchers over the debug mesh, MESH_RANKS rank processes
+# on the one card.  Train: qwen3-14b's layer widths with its vocabulary cut to
+# MESH_VOCAB (at 151,936 the embedding, split over the model axis only, with
+# its f32 moments is 3.89 GB a rank: 8 ranks do not fit the card at any depth,
+# see mesh()), MESH_BATCH rows of MESH_SEQ tokens (one row a data shard) in
+# MESH_MICRO microbatches, full remat, MESH_STEPS steps: MESH_LAYERS on (data
+# 4, model 2), MESH_POD_LAYERS on (pod 2, data 2, model 2); the largest depths
+# whose 8 predicted peaks and CUDA contexts stay under about 70 GB.  Serve:
+# qwen3-14b at full width cut to MESH_SERVE_LAYERS on (data 4, model 2),
+# MESH_SERVE (batch, prompt, greedy tokens, max_seq).
+MESH_VOCAB, MESH_LAYERS, MESH_POD_LAYERS = 32768, 4, 2
+MESH_SEQ, MESH_BATCH, MESH_MICRO, MESH_STEPS = 2048, 4, 2, 2
+MESH_SERVE_LAYERS, MESH_SERVE = 4, (4, 512, 4, 1024)
+MESH_RANKS = 8
+# Each rank's max_memory_allocated against the dry run's prediction for its
+# device (as DRYRUN_RTOL); the mesh's loss and gradient norm against one
+# process's, relative (f32 partial sums in another order: 3e-7 to 2.8e-5 on
+# an H100); its logits against one process's, relative L2 (bf16: the tests'
+# bf16 tolerance).
+MESH_MEM_RTOL = 0.10
+MESH_RTOL = 1e-3
+# A rank's CUDA context and torch's own allocations outside its tensors.
+MESH_CONTEXT_BYTES = 0.6e9
+MESH_LOGITS_TOL = 2e-2
+
+
+def mesh_peak_prediction(torch, cfg, shape, options, multi_pod: bool = False) -> int:
+    """The dry run's peak bytes per device for one train step of ``cfg`` on
+    the debug mesh (``launch.dryrun.build_cell`` and ``trace_cell`` on
+    ``fake_mesh(debug=True)`` with fake ``cuda`` tensors, rank 0's view;
+    every split here is even, so each rank's)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.mesh import fake_mesh
+
+    make = lambda shape_, dtype: torch.empty(shape_, dtype=dtype, device="cuda")
+    with fake_mesh(multi_pod=multi_pod, debug=True, device="cuda") as fmesh, FakeTensorMode():
+        fn, args = DR.build_cell(cfg, shape, fmesh, options.pod_sync, make=make,
+                                 microbatches=options.num_microbatches)
+        rec = DR.trace_cell(fn, args)
+    return rec["memory"]["peak_bytes"]
+
+
+def mesh_serve_prediction(torch, cfg, batch: int, prompt: int, max_seq: int) -> int:
+    """The dry run's peak bytes per device of ``cfg``'s prefill of ``batch`` x
+    ``prompt`` tokens into caches of ``max_seq`` on the (4, 2) debug mesh
+    (fake ``cuda`` tensors, as ``mesh_peak_prediction``)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.mesh import fake_mesh
+    from repro_torch.models import transformer as T
+
+    make = lambda shape_, dtype: torch.empty(shape_, dtype=dtype, device="cuda")
+    with DR._variant_restored(), fake_mesh(debug=True, device="cuda") as fmesh, FakeTensorMode():
+        _, args = DR.build_cell(cfg, ShapeSpec("mesh serve", prompt, batch, "prefill"), fmesh, "gspmd", make=make)
+        rec = DR.trace_cell(lambda params, inputs: T.prefill(cfg, params, inputs, cache_seq=max_seq), args)
+    return rec["memory"]["peak_bytes"]
+
+
+def expected_mesh_pod_launches(cfg, options, rank: int):
+    """One rank's launches of a train step on (pod 2, data 2, model 2) under a
+    Hoplite pod sync: ``expected_train_launches``, and the hop kernel as
+    ``collectives.hop_launches`` predicts for each leaf's local block on the
+    pod's (data, model) sub-mesh, over the 2 pods (the f32 sums with more
+    than one microbatch, else the parameters' type)."""
+    import torch
+
+    from repro_torch.core import collectives as C
+    from repro_torch.launch.mesh import debug_mesh_shape
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import partitioning, placement
+    from repro_torch.train import step as TS
+    from repro_torch.tree import leaves
+
+    mesh = debug_mesh_shape(multi_pod=True)
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    pods, pod = sizes["pod"], rank // (sizes["data"] * sizes["model"])
+    size = 4 if options.num_microbatches > 1 else getattr(torch, cfg.param_dtype).itemsize
+    specs = [s.spec for s in leaves(placement.spec_leaves(
+        partitioning.param_specs(cfg, T.model_skel(cfg), mesh, options.sharding)))]
+    hops = 0
+    for p, spec in zip(leaves(T.model_skel(cfg)), specs):
+        split = math.prod(sizes[a] for entry in spec for a in ((entry,) if isinstance(entry, str) else entry or ()))
+        hops += C.hop_launches(TS.POD_SYNC_METHODS[options.pod_sync], pods, pod,
+                               math.prod(p.shape) // split * size, C.HOST_STAGED_CONFIG)
+    return dict(expected_train_launches(cfg, options), chunk_reduce=hops)
+
+
+def _collectives_line(ranks) -> str:
+    """Each kind's calls, GB and seconds, summed over the ranks' records."""
+    total = {}
+    for r in ranks:
+        for kind, c in r["collectives"].items():
+            t = total.setdefault(kind, {"calls": 0, "bytes": 0, "seconds": 0.0})
+            for k in t:
+                t[k] += c[k]
+    return "; ".join(f"{k} {v['calls']} calls {v['bytes'] / 1e9:.3f} GB {v['seconds']:.2f} s"
+                     for k, v in sorted(total.items()))
+
+
+def mesh_fits(torch, per_rank: int, what: str) -> None:
+    """Fail unless the card has room for MESH_RANKS ranks of ``per_rank``
+    bytes each (the dry run's peak) and their CUDA contexts
+    (MESH_CONTEXT_BYTES each)."""
+    free, total = torch.cuda.mem_get_info()
+    need = MESH_RANKS * (per_rank + MESH_CONTEXT_BYTES)
+    log(f"[mesh] {what}: {MESH_RANKS} ranks need about {need / 1e9:.2f} GB ({per_rank / 1e9:.3f} GB predicted a "
+        f"rank, {MESH_CONTEXT_BYTES / 1e9:.1f} GB a context); the card has {free / 1e9:.2f} of {total / 1e9:.2f} "
+        f"GB free, this process {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    if need > free:
+        raise AssertionError(f"mesh {what}: {MESH_RANKS} ranks need about {need / 1e9:.2f} GB; {free / 1e9:.2f} free")
+
+
+def mesh_train(torch, card: str, cfg, layers: int, multi_pod: bool, syncs, add) -> dict:
+    """``launch.train.run`` on the debug mesh (with ``multi_pod``, (pod 2,
+    data 2, model 2)) for each pod sync of ``syncs``, after one process took
+    the same steps on the card; each rank's launches a step, peak against
+    the dry run's prediction, the metrics against one process's.  ``add``
+    takes each rank's launches.  Returns the metrics by sync."""
+    import dataclasses
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import train as LT
+    from repro_torch.train import step as TS
+
+    cfg = dataclasses.replace(cfg, num_layers=layers)
+    shape = ShapeSpec("mesh train", MESH_SEQ, MESH_BATCH, "train")
+    where = "(pod 2, data 2, model 2)" if multi_pod else "(data 4, model 2)"
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    one_opts = TS.TrainOptions(num_microbatches=MESH_MICRO, remat="full", pod_sync="gspmd")
+    state, one = LT.run(cfg, shape, one_opts, "cuda", steps=MESH_STEPS, seed=SEED, log_every=MESH_STEPS,
+                        log=lambda _: None)
+    del state  # the ranks need the card
+    log(f"[mesh] {cfg.name}, {layers} layers, one process on the card: {time.perf_counter() - t0:.1f} s; "
+        + ", ".join(f"step {r['step']} loss {r['loss']!r} gnorm {r['grad_norm']!r} {r['ms']:.1f} ms" for r in one)
+        + f"; peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+    for sync in syncs:
+        opts = TS.TrainOptions(num_microbatches=MESH_MICRO, remat="full", pod_sync=sync)
+        t0 = time.perf_counter()
+        pred = mesh_peak_prediction(torch, cfg, shape, opts, multi_pod)
+        trace_s = time.perf_counter() - t0
+        mesh_fits(torch, pred, f"{where} {sync}")
+        t0 = time.perf_counter()
+        _, recs = LT.run(cfg, shape, opts, "cuda", steps=MESH_STEPS, seed=SEED, log_every=1,
+                         log=lambda m: log(f"[mesh] {sync} rank 0: {m}"), mesh=LT.mesh_for(MESH_RANKS, multi_pod),
+                         return_state=False)  # the main path: launch/train.py --devices 8
+        run_s = time.perf_counter() - t0
+        want = [expected_mesh_pod_launches(cfg, opts, i) if multi_pod and sync != "gspmd"
+                else expected_train_launches(cfg, opts) for i in range(MESH_RANKS)]
+        for r in recs:
+            log(f"[mesh] {where} {sync}, step {r['step']}: loss {r['loss']!r} gnorm {r['grad_norm']!r}, "
+                f"{r['ms']:.1f} ms on rank 0; the staged collectives, summed over the ranks: "
+                f"{_collectives_line(r['ranks'])}")
+            for i, rank in enumerate(r["ranks"]):
+                sync_ms = f" (the pods' sync {rank['sync_ms']:.1f} ms)" if "sync_ms" in rank else ""
+                log(f"[mesh] {sync} step {r['step']} rank {i}: {rank['ms']:.1f} ms{sync_ms}, launches "
+                    f"{rank['launches']} (expected {want[i]}), max_memory_allocated {rank['peak_bytes'] / 1e9:.3f} GB")
+                add(rank["launches"])
+        peaks = [rank["peak_bytes"] for rank in recs[-1]["ranks"]]
+        ratio = [p / pred for p in peaks]
+        rel = {k: [abs(r[k] - o[k]) / abs(o[k]) for r, o in zip(recs, one)] for k in ("loss", "grad_norm")}
+        hops = [sum(r["ranks"][i]["launches"]["chunk_reduce"] for r in recs) for i in range(MESH_RANKS)]
+        log(f"[mesh] {cfg.name} at the layer widths, {layers} layers, {where}, {sync}: {run_s:.1f} s with the "
+            f"ranks' start; each rank's max_memory_allocated over the dry run's {pred / 1e9:.3f} GB (traced in "
+            f"{trace_s:.1f} s): {', '.join(f'{x:.4f}' for x in ratio)} (tol {MESH_MEM_RTOL}), {sum(peaks) / 1e9:.2f} "
+            f"GB summed; against one process, relative: {rel} (tol {MESH_RTOL}); chunk_reduce launches per rank "
+            f"{hops}; on {card}")
+        if any(r["ranks"][i]["launches"] != want[i] for r in recs for i in range(MESH_RANKS)):
+            raise AssertionError(f"mesh {sync}: launches {[[k['launches'] for k in r['ranks']] for r in recs]}, "
+                                 f"expected {want}")
+        if any(abs(x - 1) > MESH_MEM_RTOL for x in ratio):
+            raise AssertionError(f"mesh {sync}: peaks {peaks} against the prediction {pred}: {ratio}")
+        if any(v > MESH_RTOL for vals in rel.values() for v in vals):
+            raise AssertionError(f"mesh {sync}: the metrics differ from one process's by {rel}")
+        out[sync] = {"layers": layers, "predicted_peak_bytes": pred, "peak_bytes": peaks, "peak_ratio": ratio,
+                     "loss": [r["loss"] for r in recs], "grad_norm": [r["grad_norm"] for r in recs], "rel": rel,
+                     "one_process": {"loss": [r["loss"] for r in one], "grad_norm": [r["grad_norm"] for r in one],
+                                     "ms": [r["ms"] for r in one]},
+                     "step_ms": [[k["ms"] for k in r["ranks"]] for r in recs],
+                     "sync_ms": [[k.get("sync_ms") for k in r["ranks"]] for r in recs],
+                     "collectives_rank0": [r["ranks"][0]["collectives"] for r in recs], "chunk_reduce": hops,
+                     "run_s": run_s, "trace_s": trace_s}
+    return out
+
+
+def mesh(torch, card: str):
+    """The launchers over the debug mesh, as ``--devices 8``: MESH_RANKS rank
+    processes share the card and exchange through the staged backend.
+
+    Train (``mesh_train``): qwen3-14b's layer widths with the vocabulary cut
+    to MESH_VOCAB, on (data 4, model 2) and on (pod 2, data 2, model 2)
+    under ``hoplite_chain`` (each rank's ``chunk_reduce`` launches as
+    ``expected_mesh_pod_launches``; ``run`` fails unless the pods' blocks
+    are bit for bit the same after every step) and ``gspmd``.  Each rank's
+    launches a step are predicted, its ``max_memory_allocated`` held within
+    MESH_MEM_RTOL of the dry run's prediction, the losses and gradient norms
+    within MESH_RTOL of one process's.  Serve: ``launch.serve.serve(devices=
+    8)`` on qwen3-14b at full width cut to MESH_SERVE_LAYERS, each rank's
+    launches as ``expected_launches``, its peak against the dry run's
+    prefill, the logits within MESH_LOGITS_TOL of one process's (relative
+    L2) and the first tokens equal."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as LS
+    from repro_torch.serving.engine import ServeOptions
+
+    t_phase = time.perf_counter()
+    full = get_config(ARCH)
+    counts = {"rmsnorm": 0, "flash_attention_tc": 0, "flash_attention_cores": 0, "chunk_reduce": 0, "dequant_add": 0}
+
+    def add(launches):
+        for k, v in launches.items():
+            counts[k] += v
+
+    cut = dataclasses.replace(full, vocab_size=MESH_VOCAB)
+    log(f"[mesh] train: {ARCH}'s layer widths (d={full.d_model}, {full.num_heads} q / {full.num_kv_heads} kv heads, "
+        f"head dim {full.head_dim}, d_ff {full.d_ff}), vocabulary cut from {full.vocab_size} to {MESH_VOCAB}, "
+        f"{MESH_BATCH} x {MESH_SEQ} tokens in {MESH_MICRO} microbatches, full remat, {MESH_STEPS} steps, "
+        f"{MESH_RANKS} rank processes on the one card")
+    train = mesh_train(torch, card, cut, MESH_LAYERS, False, ("gspmd",), add)
+    pods = mesh_train(torch, card, cut, MESH_POD_LAYERS, True, ("hoplite_chain", "gspmd"), add)
+
+    bsz, prompt, new, max_seq = MESH_SERVE
+    scfg = dataclasses.replace(full, num_layers=MESH_SERVE_LAYERS)
+    host = LS.random_batch(scfg, bsz, prompt, SEED)
+    sopts = ServeOptions(max_seq=max_seq, batch_size=bsz)
+    pred = mesh_serve_prediction(torch, scfg, bsz, prompt, max_seq)
+    gc.collect()
+    torch.cuda.empty_cache()
+    (toks1, logits1), one_s, _ = LS.serve(scfg, "cuda", SEED, sopts, host, new, return_logits=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_fits(torch, pred, "serve")
+    t0 = time.perf_counter()
+    (toks, logits), gen_s, sranks = LS.serve(scfg, "cuda", SEED, sopts, host, new, devices=MESH_RANKS,
+                                             return_logits=True)  # the main path: launch/serve.py --devices 8
+    serve_s = time.perf_counter() - t0
+    want = expected_launches(scfg, new - 1)
+    rel_l2 = float(((logits - logits1) ** 2).sum() ** 0.5 / (logits1 ** 2).sum() ** 0.5)
+    max_abs = float(abs(logits - logits1).max() / abs(logits1).max())
+    ratio = [r["peak_bytes"] / pred for r in sranks]
+    for i, r in enumerate(sranks):
+        log(f"[mesh] serve rank {i}: generate {r['seconds']:.2f} s, launches {r['launches']} (expected {want}), "
+            f"max_memory_allocated {r['peak_bytes'] / 1e9:.3f} GB ({ratio[i]:.4f}x the dry run's prefill)")
+        add(r["launches"])
+    log(f"[mesh] serve {scfg.name} at full width, {MESH_SERVE_LAYERS} of {full.num_layers} layers, {bsz} x {prompt} "
+        f"tokens and {new} greedy tokens on (data 4, model 2): generate {gen_s:.2f} s (one process {one_s:.2f} s; "
+        f"{serve_s:.1f} s with the ranks' start); the dry run's prefill {pred / 1e9:.3f} GB a rank; logits against "
+        f"one process's: relative L2 {rel_l2:.3e} (tol {MESH_LOGITS_TOL}), max abs {max_abs:.3e} of the largest; "
+        f"tokens equal {int((toks == toks1).sum())} of {toks.size}; staged collectives: {_collectives_line(sranks)}; "
+        f"on {card}")
+    if any(r["launches"] != want for r in sranks):
+        raise AssertionError(f"mesh serve: launches {[r['launches'] for r in sranks]}, expected {want}")
+    if not rel_l2 <= MESH_LOGITS_TOL or toks.shape != (bsz, new) or not (toks[:, 0] == toks1[:, 0]).all():
+        raise AssertionError(f"mesh serve: logits {rel_l2} from one process's, tokens {toks[:, 0]} {toks1[:, 0]}")
+    if any(abs(x - 1) > MESH_MEM_RTOL for x in ratio):
+        raise AssertionError(f"mesh serve: peaks {[r['peak_bytes'] for r in sranks]} against {pred}: {ratio}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[mesh] phase {phase_s:.1f} s; launches over the ranks {counts}")
+    return counts, {"vocab": MESH_VOCAB, "seq": MESH_SEQ, "batch": MESH_BATCH, "microbatches": MESH_MICRO,
+                    "train": train, "pods": pods,
+                    "serve": {"layers": MESH_SERVE_LAYERS, "generate_s": gen_s, "one_process_s": one_s,
+                              "predicted_peak_bytes": pred, "peak_bytes": [r["peak_bytes"] for r in sranks],
+                              "logits_rel_l2": rel_l2, "logits_max_abs": max_abs,
+                              "collectives": [r["collectives"] for r in sranks]},
+                    "phase_s": phase_s}
+
+
 def mem_available_bytes() -> int:
     """The host memory the kernel says is available (/proc/meminfo)."""
     for line in Path("/proc/meminfo").read_text().splitlines():
@@ -2080,6 +2376,12 @@ def main() -> int:
     # Phase 5c: the launcher's multi-pod training, each pod a rank process.
     pod_counts, pod_metrics = pods(torch, card)
     log(f"[pods] metrics {json.dumps(pod_metrics)} on {card}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Phase 5d: the launchers over the debug mesh, 8 rank processes on the card.
+    mesh_counts, mesh_metrics = mesh(torch, card)
+    log(f"[mesh] metrics {json.dumps(mesh_metrics)} on {card}")
 
     stop_resource_tracker()
     check_no_children()
@@ -2087,7 +2389,7 @@ def main() -> int:
     # launches of each kernel on each main path (each flash record: its route's)
     by_path = {"serve": counts, "serve_moe": moe_counts, "serve_dense": dense_counts, "serve_ssm": ssm_counts,
                "serve_encdec": encdec_counts, "sync": {"chunk_reduce": sum(summary["methods"]["hoplite_chain"]["chunk_reduce"])},
-               "train": train_counts, "ckpt": ckpt_counts, "pods": pod_counts}
+               "train": train_counts, "ckpt": ckpt_counts, "pods": pod_counts, "mesh": mesh_counts}
     for r in records:
         name = "flash_attention_tc" if r["name"] == "flash_attention" else r["name"]
         r["launches_by_path"] = {path: c.get(name, 0) for path, c in by_path.items()}

@@ -32,7 +32,14 @@ its header says.
   * ELASTIC -- ``restore`` places each leaf on the device it is given: a
     checkpoint written from the card restores onto the CPU and the other way
     round, and ``tree_like`` may lie on ``meta``
-    (``train.step.abstract_state``).
+    (``train.step.abstract_state``).  Given ``placements`` (a tree of
+    ``placement.Sharding``, the counterpart of the JAX package's
+    ``shardings``), each rank reads only its block of each file, in place,
+    onto whatever mesh the shardings name; no rank holds a whole leaf.
+  * PLACED -- a tree of DTensors (a state on a mesh) is saved by every rank
+    of the mesh together: rank 0 gathers it leaf by leaf
+    (``placement.gather_to_root``) and alone writes, the same files as one
+    process's.
   * SELF-DESCRIBING -- the manifest holds every leaf's shape and type;
     ``restore`` holds them to ``tree_like``'s and raises on a mismatch.
 """
@@ -49,8 +56,11 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.device import resolve_device
+from repro_torch.sharding import placement
 
 # The .npy header's type of a bfloat16 leaf: what numpy writes for ml_dtypes' bfloat16.
 _BF16_DESCR = "<V2"
@@ -140,10 +150,20 @@ class Checkpointer:
 
     # -- save ------------------------------------------------------------------
 
-    def _snapshot(self, step: int, tree, is_async: bool) -> Tuple[HostLeaves, Dict[str, Any]]:
+    def _snapshot(self, step: int, tree, is_async: bool) -> Tuple[Optional[HostLeaves], Dict[str, Any]]:
+        """Every leaf on the host; for a placed tree, on rank 0 (``None`` on
+        the others, which send their blocks and write nothing)."""
         t0 = time.perf_counter()
-        host = [(name, _to_host(leaf), _dtype_name(leaf.dtype)) for name, leaf in named_leaves(tree)]
-        rec = {"step": step, "async": is_async, "bytes": sum(a.nbytes for _, a, _ in host),
+        if not any(isinstance(t, DTensor) for _, t in named_leaves(tree)):
+            host = [(name, _to_host(leaf), _dtype_name(leaf.dtype)) for name, leaf in named_leaves(tree)]
+        else:
+            host = []
+            for name, leaf in named_leaves(tree):
+                whole = placement.gather_to_root(leaf)
+                if whole is not None:
+                    host.append((name, _to_host(whole), _dtype_name(leaf.dtype)))
+            host = host if dist.get_rank() == 0 else None
+        rec = {"step": step, "async": is_async, "bytes": sum(a.nbytes for _, a, _ in host or []),
                "snapshot_s": time.perf_counter() - t0}
         self.history.append(rec)
         return host, rec
@@ -154,18 +174,21 @@ class Checkpointer:
         rec["write_s"] = time.perf_counter() - t0
         return path
 
-    def save(self, step: int, tree) -> str:
-        """Write ``tree`` as step ``step`` now; returns its directory."""
+    def save(self, step: int, tree) -> Optional[str]:
+        """Write ``tree`` as step ``step`` now; returns its directory (``None``
+        on a rank other than 0 of a placed tree, which writes nothing)."""
         self.wait()  # serialize with any write in flight
         step = int(step)
         host, rec = self._snapshot(step, tree, is_async=False)
-        return self._timed_write(step, host, rec)
+        return None if host is None else self._timed_write(step, host, rec)
 
     def save_async(self, step: int, tree) -> None:
         """Copy ``tree`` to host memory now; write it on a background thread."""
         self.wait()
         step = int(step)
         host, rec = self._snapshot(step, tree, is_async=True)
+        if host is None:
+            return
 
         def run():
             try:
@@ -236,12 +259,15 @@ class Checkpointer:
         steps = self.list_steps()
         return steps[-1] if steps else None
 
-    def restore(self, tree_like, step: Optional[int] = None, device=None) -> Tuple[int, Any]:
+    def restore(self, tree_like, step: Optional[int] = None, device=None, placements=None) -> Tuple[int, Any]:
         """Step ``step`` (default: the latest) in the structure of
         ``tree_like``, each leaf on ``device`` (the card unless ``"cpu"`` is
-        asked for).  Every leaf of ``tree_like`` must be in the checkpoint
-        with its shape and type; a mismatch raises ``ValueError``."""
-        dev = resolve_device(device)
+        asked for; with ``placements``, their meshes' device).  Every leaf of
+        ``tree_like`` must be in the checkpoint with its shape and type; a
+        mismatch raises ``ValueError``.  ``placements``: a tree like
+        ``tree_like`` of ``placement.Sharding``; each leaf comes back as a
+        DTensor of it, every rank reading its own block of the file."""
+        dev = resolve_device(device) if placements is None else None
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -260,22 +286,33 @@ class Checkpointer:
             got = {"shape": entry["shape"], "dtype": entry["dtype"]}
             if got != want:
                 raise ValueError(f"{name}: the checkpoint holds {got}, the tree wants {want}")
-            t = time.perf_counter()
-            arr = np.load(os.path.join(d, entry["file"]))
-            read_s += time.perf_counter() - t
+            arr = np.load(os.path.join(d, entry["file"]), mmap_mode="r")  # nothing read yet
             if list(arr.shape) != want["shape"]:
                 raise ValueError(f"{name}: {entry['file']} holds shape {arr.shape}, its manifest {want['shape']}")
             if want["dtype"] == "bfloat16":
                 if arr.dtype.itemsize != 2:
                     raise ValueError(f"{name}: {entry['file']} holds {arr.dtype}, not 2-byte bfloat16 bits")
-                t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
             elif arr.dtype.name != want["dtype"]:
                 raise ValueError(f"{name}: {entry['file']} holds {arr.dtype}, its manifest {want['dtype']}")
-            else:
-                t = torch.from_numpy(arr)
-            nbytes += arr.nbytes
-            return t.to(dev)
 
+            def read(block=()):
+                nonlocal nbytes, read_s
+                t = time.perf_counter()
+                part = np.array(arr[block])  # the block's bytes, read from the file
+                read_s += time.perf_counter() - t
+                nbytes += part.nbytes
+                if want["dtype"] == "bfloat16":
+                    return torch.from_numpy(part.view(np.int16)).view(torch.bfloat16)
+                return torch.from_numpy(part)
+
+            if placements is None:
+                return read().to(dev)
+            sh = shardings[name]
+            dev_of = torch.device(sh.mesh.device_type)
+            return placement.place(like, sh.spec, sh.mesh, lambda block: read(block).to(dev_of), source="block",
+                                   on=sh.on)
+
+        shardings = dict(named_leaves(placements)) if placements is not None else {}
         tree = _map_named(load, tree_like)
         self.history.append({"step": step, "bytes": nbytes, "restore_s": time.perf_counter() - t0,
                              "read_s": read_s})

@@ -13,6 +13,17 @@ A rank's place in a collective is ``dist.get_rank(group)`` in the process
 group the caller passes (``None`` is the world), as ``lax.axis_index`` is
 its place on a mesh axis, and ``dist.get_world_size(group)`` is
 ``lax.psum(1, axis)``.
+
+A DTensor program on a mesh of such ranks (``run_ranks(..., staged=True)``)
+issues all-gathers, reduce-scatters, all-reduces and all-to-alls of CUDA
+tensors, which gloo does not take (it takes ``broadcast`` and
+``all_reduce`` only) and NCCL will not run with two ranks on one card.  The
+``staged`` backend (``StagedGroup``) carries them: each collective copies
+its blocks into reused host buffers (pinned for the card's tensors), runs
+gloo's own collective on them and copies the result back.  It stages CPU
+tensors the same way, so that the CPU tests run the path the card runs, and
+it gives gloo's bits on either device.  CUDA IPC between the ranks, which
+would skip the host, is later work.
 """
 
 from __future__ import annotations
@@ -29,6 +40,8 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 import torch.distributed as dist
+from torch._C._distributed_c10d import (AllgatherOptions, AllreduceCoalescedOptions, AllreduceOptions,
+                                       AllToAllOptions, BarrierOptions, BroadcastOptions, ReduceScatterOptions)
 
 from repro_torch.device import resolve_device
 
@@ -38,6 +51,12 @@ PG_TIMEOUT_S = 60.0
 
 # Seconds run_ranks waits, after the last result, for the processes to exit.
 _EXIT_GRACE_S = 30.0
+
+# The name ``StagedGroup`` is registered under, with ``dist.Backend.register_backend``.
+STAGED_BACKEND = "staged"
+
+# The device run_ranks gave this process (``rank_device``); None outside its ranks.
+_RANK_DEVICE: List[Optional[torch.device]] = [None]
 
 
 # What this process sent through ``exchange`` since the last reset: bytes and
@@ -122,6 +141,180 @@ def psum(x: torch.Tensor, group: Optional[dist.ProcessGroup] = None) -> torch.Te
     return host.to(device=x.device, dtype=x.dtype)
 
 
+# What this process's staged collectives moved since the last reset, per kind:
+# calls, the bytes handed to gloo (this rank's input) and the wall seconds of
+# the calls, staging included (``collective_counts``, ``reset_collective_counts``).
+_COLLECTIVES: Dict[str, Dict[str, float]] = {}
+
+
+def collective_counts() -> Dict[str, Dict[str, float]]:
+    """Calls, bytes and seconds of this process's ``StagedGroup`` collectives
+    since the last reset, per kind."""
+    return {k: dict(v) for k, v in _COLLECTIVES.items()}
+
+
+def reset_collective_counts() -> None:
+    _COLLECTIVES.clear()
+
+
+def _nbytes(ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _done(result) -> "dist.Work":
+    """A finished ``Work`` whose result is ``result``."""
+    from torch._C._distributed_c10d import _create_work_from_future
+    from torch.futures import Future
+
+    fut = Future()
+    fut.set_result(result)
+    return _create_work_from_future(fut)
+
+
+class StagedGroup(dist.ProcessGroup):
+    """A process group whose collectives go through host buffers and gloo.
+
+    torch makes a process group of a Python class stand for the whole group,
+    whatever the device, so this one takes host tensors too: it hands their
+    ``send`` and ``recv`` to its gloo group as they are (``exchange`` stages
+    the card's bytes itself), and stages every collective's blocks, host or
+    card, through its own reused buffers.  Each collective is finished when
+    the call returns; the ``Work`` it returns is done.  An operation it does
+    not list raises ``NotImplementedError``."""
+
+    def __init__(self, store, rank: int, size: int, timeout: datetime.timedelta):
+        super().__init__(rank, size)
+        self._gloo = dist.ProcessGroupGloo(dist.PrefixStore(STAGED_BACKEND, store), rank, size, timeout)
+        self._staging = Staging()
+
+    def getBackendName(self) -> str:
+        return STAGED_BACKEND
+
+    @property
+    def group_name(self) -> str:
+        return dist.distributed_c10d._world.pg_names[self]
+
+    # -- staging ---------------------------------------------------------------
+
+    def _host(self, role: str, like: torch.Tensor) -> torch.Tensor:
+        """A host buffer shaped and typed like ``like``, pinned for the card's."""
+        buf = self._staging.buffer(role, like.numel() * like.element_size(), like.device.type == "cuda")
+        return buf.view(like.dtype).view(like.shape)
+
+    def _staged_in(self, role: str, t: torch.Tensor) -> torch.Tensor:
+        host = self._host(role, t)
+        host.copy_(t)  # synchronous from the card: the bytes are on the host before gloo reads them
+        return host
+
+    def _run(self, kind: str, ins, outs, call: Callable, in_place: bool = False) -> "dist.Work":
+        """Stage ``ins`` (and buffers for ``outs``, or, ``in_place``, the
+        staged ins), ``call(host ins, host outs)`` on gloo and wait for it,
+        copy the host outs back."""
+        t0 = time.perf_counter()
+        hin = [self._staged_in(f"in{i}", t) for i, t in enumerate(ins)]
+        hout = hin if in_place else [self._host(f"out{i}", t) for i, t in enumerate(outs)]
+        call(hin, hout).wait()
+        for t, h in zip(outs, hout):
+            t.copy_(h)
+        rec = _COLLECTIVES.setdefault(kind, {"calls": 0, "bytes": 0, "seconds": 0.0})
+        rec["calls"] += 1
+        rec["bytes"] += _nbytes(ins)
+        rec["seconds"] += time.perf_counter() - t0
+        return _done(list(outs))
+
+    def _in_place(self, kind: str, tensors, call: Callable) -> "dist.Work":
+        """A collective that writes its inputs (all-reduce, broadcast)."""
+        return self._run(kind, tensors, tensors, lambda hin, hout: call(hin), in_place=True)
+
+    # -- the collectives a DTensor program issues -------------------------------
+
+    def allreduce(self, tensors, opts=AllreduceOptions()):
+        return self._in_place("all_reduce", tensors, lambda h: self._gloo.allreduce(h, opts))
+
+    def allreduce_coalesced(self, tensors, opts=AllreduceCoalescedOptions()):
+        return self._in_place("all_reduce", tensors, lambda h: self._gloo.allreduce_coalesced(h, opts))
+
+    def broadcast(self, tensors, opts=BroadcastOptions()):
+        return self._in_place("broadcast", tensors, lambda h: self._gloo.broadcast(h, opts))
+
+    def _allgather_base(self, out, inp, opts=AllgatherOptions()):
+        return self._run("all_gather", [inp], [out], lambda i, o: self._gloo._allgather_base(o[0], i[0], opts))
+
+    def allgather_into_tensor_coalesced(self, outs, inps, opts=AllgatherOptions()):
+        for out, inp in zip(outs, inps):
+            self._allgather_base(out, inp, opts)
+        return _done(list(outs))
+
+    def allgather(self, out_lists, inps, opts=AllgatherOptions()):
+        (outs,), (inp,) = out_lists, inps
+        return self._run("all_gather", [inp], outs,
+                         lambda i, o: self._gloo.allgather([o], i, opts))
+
+    def _reduce_scatter_base(self, out, inp, opts=ReduceScatterOptions()):
+        return self._run("reduce_scatter", [inp], [out],
+                         lambda i, o: self._gloo._reduce_scatter_base(o[0], i[0], opts))
+
+    def reduce_scatter_tensor_coalesced(self, outs, inps, opts=ReduceScatterOptions()):
+        for out, inp in zip(outs, inps):
+            self._reduce_scatter_base(out, inp, opts)
+        return _done(list(outs))
+
+    def alltoall_base(self, out, inp, out_splits, in_splits, opts=AllToAllOptions()):
+        return self._run("all_to_all", [inp], [out],
+                         lambda i, o: self._gloo.alltoall_base(o[0], i[0], out_splits, in_splits, opts))
+
+    def barrier(self, opts=BarrierOptions()):
+        return self._gloo.barrier(opts)
+
+    # the names torch's Python process groups also go by (its bindings call one or the other)
+    all_gather_single = _allgather_base
+    all_gather_single_coalesced = allgather_into_tensor_coalesced
+    reduce_scatter_single = _reduce_scatter_base
+    reduce_scatter_single_coalesced = reduce_scatter_tensor_coalesced
+    all_to_all_single = alltoall_base
+
+    # -- point to point: host tensors as they are, the card's staged -------------
+
+    def send(self, tensors, dst: int, tag: int = 0):
+        if all(t.device.type == "cpu" for t in tensors):
+            return self._gloo.send(tensors, dst, tag)
+        return self._run("send", tensors, [], lambda hin, _: self._gloo.send(hin, dst, tag))
+
+    def recv(self, tensors, src: int, tag: int = 0):
+        if all(t.device.type == "cpu" for t in tensors):
+            return self._gloo.recv(tensors, src, tag)
+        return self._run("recv", [], tensors, lambda _, hout: self._gloo.recv(hout, src, tag))
+
+
+def _lacks(name: str):
+    def refuse(self, *args, **kwargs):
+        raise NotImplementedError(f"the {STAGED_BACKEND} process group has no {name}")
+
+    refuse.__name__ = name
+    return refuse
+
+
+for _name in ("gather", "scatter", "reduce", "alltoall", "reduce_scatter", "recv_anysource",
+              "allgather_coalesced"):
+    setattr(StagedGroup, _name, _lacks(_name))
+
+
+def _create_staged(store, rank: int, size: int, timeout: datetime.timedelta) -> StagedGroup:
+    return StagedGroup(store, rank, size, timeout)
+
+
+def register_staged() -> None:
+    """Register ``StagedGroup`` as the backend ``staged`` in this process
+    (once), for host and card tensors."""
+    if STAGED_BACKEND.upper() not in dist.Backend._plugins:
+        dist.Backend.register_backend(STAGED_BACKEND, _create_staged, devices=["cpu", "cuda"])
+
+
+def rank_device() -> Optional[torch.device]:
+    """The device ``run_ranks`` gave this rank process; ``None`` elsewhere."""
+    return _RANK_DEVICE[0]
+
+
 def _to_cpu(obj):
     if isinstance(obj, torch.Tensor):
         return obj.detach().cpu()
@@ -132,14 +325,17 @@ def _to_cpu(obj):
     return obj
 
 
-def _rank_main(r: int, n: int, init_method: str, device: str, fn: Callable, args: tuple,
+def _rank_main(r: int, n: int, init_method: str, device: str, staged: bool, fn: Callable, args: tuple,
                results: "mp.Queue") -> None:
     try:
         dev = resolve_device(device)
         if dev.type == "cuda":
             torch.cuda.set_device(dev.index or 0)
-        dist.init_process_group("gloo", init_method=init_method, rank=r, world_size=n,
-                                timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
+        _RANK_DEVICE[0] = dev
+        if staged:
+            register_staged()
+        dist.init_process_group(STAGED_BACKEND if staged else "gloo", init_method=init_method, rank=r,
+                                world_size=n, timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
         try:
             out = fn(dev, *args)
             if dev.type == "cuda":
@@ -153,8 +349,10 @@ def _rank_main(r: int, n: int, init_method: str, device: str, fn: Callable, args
         results.put((r, False, traceback.format_exc()))
 
 
-def run_ranks(fn: Callable, n: int, device=None, *args, timeout: float = 600.0) -> List[Any]:
-    """Run ``fn(device, *args)`` in ``n`` new processes joined in one gloo group.
+def run_ranks(fn: Callable, n: int, device=None, *args, timeout: float = 600.0, staged: bool = False) -> List[Any]:
+    """Run ``fn(device, *args)`` in ``n`` new processes joined in one gloo
+    group, or, with ``staged``, in one ``StagedGroup`` (the collectives of a
+    DTensor program, on either device).
 
     Every rank uses the same ``device``: the card unless ``"cpu"`` is asked for
     (``resolve_device``; with no device and no CUDA this raises before any
@@ -172,7 +370,7 @@ def run_ranks(fn: Callable, n: int, device=None, *args, timeout: float = 600.0) 
         init = "file://" + os.path.join(tmp, "rendezvous")
         results = ctx.Queue()
         procs = [ctx.Process(target=_rank_main, daemon=True,
-                             args=(r, n, init, str(dev), fn, args, results))
+                             args=(r, n, init, str(dev), staged, fn, args, results))
                  for r in range(n)]
         got: Dict[int, Any] = {}
         deadline = time.monotonic() + timeout

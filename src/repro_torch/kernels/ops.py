@@ -32,11 +32,13 @@ blocks under the forward's placements (``sharding.regions.local_region``).
 
 from __future__ import annotations
 
+import inspect
 import math
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import chunk_reduce as _cr
@@ -189,11 +191,14 @@ def register_rule(op, n_out: int, singles: Callable, valid: Optional[Callable] =
     from torch.distributed.tensor._op_schema import OpStrategy, RuntimeSchemaInfo
     from torch.distributed.tensor._ops.utils import expand_to_full_mesh_op_strategy
 
+    # torch 2.13 refuses uneven splits here unless asked; torch 2.11 has no such check
+    uneven = ({"allow_uneven_sharding": True}
+              if "allow_uneven_sharding" in inspect.signature(expand_to_full_mesh_op_strategy).parameters else {})
+
     def strategy(op_schema):
         specs = [a.strategies[0].output_spec if isinstance(a, OpStrategy) else a for a in op_schema.args_schema]
         full = expand_to_full_mesh_op_strategy(op_schema.get_mesh_from_args(), op_schema, singles(*specs),
-                                               input_index=n_out, is_valid_strategy_cb=valid,
-                                               allow_uneven_sharding=True)
+                                               input_index=n_out, is_valid_strategy_cb=valid, **uneven)
         own = [s for s in full.strategies if s.input_specs[0].placements == specs[0].placements]
         if own:
             full.strategies = own
@@ -282,7 +287,12 @@ def rmsnorm(x: Tensor, w: Tensor, eps: float = 1e-6) -> Tensor:
 
 def chunk_reduce(dst: Tensor, src: Tensor, alpha: float = 1.0, out: Optional[Tensor] = None) -> Tensor:
     """``dst + alpha * src`` (f32 math, dst's type), into ``out`` when given;
-    ``out`` may be ``dst``: the chain hop accumulates in place."""
+    ``out`` may be ``dst``: the chain hop accumulates in place.  Under
+    ``FakeTensorMode`` (the dry run's trace: shapes, no storage) it returns
+    what the kernel would write, as the custom ops' fake implementations do;
+    a kernel given a fake tensor's address would read no memory of its own."""
+    if isinstance(dst, FakeTensor):
+        return torch.empty_like(dst) if out is None else out
     if dst.device.type == "cpu":
         res = _ref.chunk_reduce_ref(dst, src, alpha)
         return res if out is None else out.copy_(res)

@@ -65,8 +65,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import common as C
 from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
-from repro_torch.sharding import partitioning
-from repro_torch.sharding.partitioning import local_slices, placements, tree_map_specs
+from repro_torch.sharding import partitioning, placement
 from repro_torch.train import step as TS
 from repro_torch.tree import leaves, tree_map
 
@@ -118,42 +117,28 @@ def _empty(shape, dtype) -> torch.Tensor:
 
 
 def _place(t: torch.Tensor, spec, full_mesh, on_mesh, make: Callable) -> DTensor:
-    """A DTensor on ``on_mesh`` holding this device's block of a tensor shaped
-    like ``t`` under ``spec`` on ``full_mesh``: made by ``make(shape, dtype)``
-    (whole, then cut; under ``FakeTensorMode`` nothing is allocated).  On a
-    sub-mesh the pod's share is the global tensor."""
-    places = placements(spec, full_mesh)
-    block = local_slices(tuple(t.shape), places, full_mesh, full_mesh.get_coordinate())
-    local = make(tuple(t.shape), t.dtype)[block].contiguous()
-    keep = [p for name, p in zip(full_mesh.mesh_dim_names, places) if name in on_mesh.mesh_dim_names]
-    return DTensor.from_local(local, on_mesh, keep, run_check=False)
+    """``placement.place`` with every rank making the whole tensor by
+    ``make(shape, dtype)`` (under ``FakeTensorMode`` nothing is allocated)."""
+    return placement.place(t, spec, full_mesh, lambda: make(tuple(t.shape), t.dtype), source="each", on=on_mesh)
 
 
-class _SpecLeaf:
-    """A spec as a leaf of ``tree.tree_map``, which would walk its tuple."""
-
-    def __init__(self, spec):
-        self.spec = spec
+def _place_tree(tree, specs, full_mesh, on_mesh, make):
+    return placement.place_tree(tree, specs, full_mesh, lambda t: make(tuple(t.shape), t.dtype), source="each",
+                                on=on_mesh)
 
 
-def _spec_tree(specs):
-    return tree_map_specs(_SpecLeaf, specs)
-
-
-def _place_tree(tree, spec_leaves, full_mesh, on_mesh, make):
-    return tree_map(lambda t, s: _place(t, s.spec, full_mesh, on_mesh, make), tree, spec_leaves)
-
-
-def build_cell(cfg, shape, mesh, pod_sync: str, variant: str = "", make: Optional[Callable] = None):
+def build_cell(cfg, shape, mesh, pod_sync: str, variant: str = "", make: Optional[Callable] = None,
+               microbatches: Optional[int] = None):
     """(step function, its inputs) of one cell on ``mesh``: DTensors placed by
     the JAX rules, made by ``make(shape, dtype)`` (``torch.empty`` by
     default: fakes under ``FakeTensorMode``).  The function is the port's
-    own step on them: ``make_train_step``, ``prefill`` or ``decode_step``."""
+    own step on them: ``make_train_step``, ``prefill`` or ``decode_step``.
+    ``microbatches`` overrides ``micro_batches_for`` (a run's own count)."""
     make = make or _empty
     shopts = partitioning.ShardingOptions()
     multi = "pod" in mesh.mesh_dim_names
     if shape.kind == "train":
-        micro = micro_batches_for(cfg, shape)
+        micro = microbatches or micro_batches_for(cfg, shape)
         for flag, n in (("micro4", 4), ("micro8", 8), ("micro32", 32)):
             if flag in variant:
                 micro = n
@@ -166,14 +151,14 @@ def build_cell(cfg, shape, mesh, pod_sync: str, variant: str = "", make: Optiona
         pspecs = partitioning.param_specs(cfg, T.model_skel(cfg), mesh, shopts)
         scalar = partitioning.P()
         st_specs = {"params": pspecs, "opt": {"m": pspecs, "v": pspecs, "count": scalar}, "step": scalar}
-        state = _place_tree(state, _spec_tree(st_specs), mesh, on, make)
+        state = _place_tree(state, st_specs, mesh, on, make)
         bspecs = partitioning.batch_specs(cfg, mesh, shape, shopts)
         batch = {k: _place(v, bspecs[k], mesh, on, make) for k, v in batch.items()}
         step = TS.make_train_step(cfg, opts, pod=mesh.get_group("pod") if manual_pod else None)
         return step, (state, batch)
     b_axes = partitioning._batch_axes(mesh, shape.global_batch, shopts)
     T.set_activation_sharding(b_axes, shopts.tp_axis)
-    pspecs = _spec_tree(partitioning.param_specs(cfg, T.model_skel(cfg), mesh, shopts))
+    pspecs = partitioning.param_specs(cfg, T.model_skel(cfg), mesh, shopts)
     if shape.kind == "prefill":
         params, batch = S.prefill_inputs(cfg, shape)
         params = _place_tree(params, pspecs, mesh, mesh, make)
@@ -183,8 +168,7 @@ def build_cell(cfg, shape, mesh, pod_sync: str, variant: str = "", make: Optiona
     params, token, t, caches = S.decode_inputs(cfg, shape)
     params = _place_tree(params, pspecs, mesh, mesh, make)
     token = _place(token, partitioning.token_batch_spec(mesh, shape.global_batch, shopts), mesh, mesh, make)
-    caches = _place_tree(caches, _spec_tree(partitioning.cache_specs(cfg, mesh, shape.global_batch, shopts)),
-                         mesh, mesh, make)
+    caches = _place_tree(caches, partitioning.cache_specs(cfg, mesh, shape.global_batch, shopts), mesh, mesh, make)
     # the position of the new token: the last slot of the cache (a python int in the port's decode_step)
     pos = shape.seq_len - 1
     return (lambda params, token, caches: T.decode_step(cfg, params, token, pos, caches)), (params, token, caches)

@@ -7,7 +7,14 @@ process group and touches no device.
 over the default process group, which must already hold as many ranks as
 the mesh has devices: (data=16, model=16), or (pod=2, data=16, model=16)
 with ``multi_pod``; the debug meshes are (4, 2) and (2, 2, 2) with the same
-axis names.  ``AbstractMesh`` is the shape alone (the counterpart of
+axis names; ``make_mesh`` takes any shape, as ``jax.make_mesh`` does.  The
+mesh is on the ranks' device (``mesh_device``): the one
+``core.group.run_ranks`` gave them, the host for the ``fake`` backend's, else
+the card unless ``device="cpu"`` is asked for.  torch's
+``DTensor.from_local`` would move a block on another device to the mesh's
+without a word, so ``check_on_mesh`` holds every block to it.
+
+``AbstractMesh`` is the shape alone (the counterpart of
 ``jax.sharding.AbstractMesh``), which the partitioning rules read as they
 read a ``DeviceMesh``.  ``fake_mesh`` holds a whole production or debug
 mesh in one process through torch's ``fake`` backend, whose collectives do
@@ -22,8 +29,12 @@ import dataclasses
 import math
 from typing import Iterator, Tuple
 
+import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
+
+from repro_torch.core import group as G
+from repro_torch.device import resolve_device
 
 AXES = ("data", "model")
 POD_AXES = ("pod", "data", "model")
@@ -49,29 +60,54 @@ def debug_mesh_shape(*, multi_pod: bool = False) -> AbstractMesh:
     return AbstractMesh((2, 2, 2), POD_AXES) if multi_pod else AbstractMesh((4, 2), AXES)
 
 
-def _device_mesh(shape: AbstractMesh):
+def mesh_device(device=None) -> torch.device:
+    """The device of a mesh's ranks: ``device`` if given, else the one
+    ``run_ranks`` gave this rank, else the host for the ``fake`` backend's
+    ranks (which hold no device), else the card (``resolve_device``)."""
+    if device is None and G.rank_device() is not None:
+        return G.rank_device()
+    if device is None and dist.is_initialized() and dist.get_backend() == "fake":
+        return torch.device("cpu")
+    return resolve_device(device)
+
+
+def _device_mesh(shape: AbstractMesh, device=None):
     n = dist.get_world_size() if dist.is_initialized() else 0
     if n != shape.size():
         raise RuntimeError(f"a {shape.shape} mesh needs a default process group of {shape.size()} ranks; "
                            f"it has {n or 'none'}")
-    # a mesh of host ranks: the gloo and fake backends; no partitioner runs on the card yet
-    return init_device_mesh("cpu", shape.shape, mesh_dim_names=shape.mesh_dim_names)
+    return init_device_mesh(mesh_device(device).type, shape.shape, mesh_dim_names=shape.mesh_dim_names)
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    return _device_mesh(production_mesh_shape(multi_pod=multi_pod))
+def check_on_mesh(t: torch.Tensor, mesh) -> torch.Tensor:
+    """``t`` (a local block) if it lies on ``mesh``'s device type; raises
+    where ``DTensor.from_local`` would move it there."""
+    if t.device.type != mesh.device_type:
+        raise RuntimeError(f"a block on {t.device} for a mesh on {mesh.device_type}: "
+                           "it would be moved, not computed where it was asked for")
+    return t
 
 
-def make_debug_mesh(*, multi_pod: bool = False):
-    return _device_mesh(debug_mesh_shape(multi_pod=multi_pod))
+def make_mesh(shape: Tuple[int, ...], names: Tuple[str, ...], device=None):
+    """A mesh of any shape over the default process group (``jax.make_mesh``)."""
+    return _device_mesh(AbstractMesh(tuple(shape), tuple(names)), device)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None):
+    return _device_mesh(production_mesh_shape(multi_pod=multi_pod), device)
+
+
+def make_debug_mesh(*, multi_pod: bool = False, device=None):
+    return _device_mesh(debug_mesh_shape(multi_pod=multi_pod), device)
 
 
 @contextlib.contextmanager
-def fake_mesh(*, multi_pod: bool = False, debug: bool = False, rank: int = 0) -> Iterator:
+def fake_mesh(*, multi_pod: bool = False, debug: bool = False, rank: int = 0, device: str = "cpu") -> Iterator:
     """A production (or, with ``debug``, a debug) ``DeviceMesh`` held by this
     one process as rank ``rank`` of the ``fake`` backend; the process group
     is destroyed on exit.  One default group per process: a fake mesh cannot
-    be opened inside another, nor beside a real group."""
+    be opened inside another, nor beside a real group.  ``device``: the
+    mesh's device type (``cuda`` to trace fake tensors of the card)."""
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
     shape = (debug_mesh_shape if debug else production_mesh_shape)(multi_pod=multi_pod)
@@ -79,6 +115,6 @@ def fake_mesh(*, multi_pod: bool = False, debug: bool = False, rank: int = 0) ->
         raise RuntimeError("fake_mesh: a default process group is already initialised")
     dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=shape.size())
     try:
-        yield _device_mesh(shape)
+        yield _device_mesh(shape, device)
     finally:
         dist.destroy_process_group()

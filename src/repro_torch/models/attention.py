@@ -26,6 +26,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 from repro_torch.kernels import ops
 from repro_torch.models.common import Param, apply_mrope, apply_rope, dense, rmsnorm
 from repro_torch.sharding.partitioning import block_start
+from repro_torch.sharding.regions import local_region
 
 NEG_INF = -1e30
 
@@ -163,7 +164,11 @@ def decode_attend(
     t: int,  # position of the new token
     window: int = 0,
 ) -> torch.Tensor:
-    """One-token attention over the cache, scores and softmax in f32."""
+    """One-token attention over the cache, scores and softmax in f32.  On
+    DTensors, each device's rows and heads against the whole cache length
+    (``_decode_attend_local``)."""
+    if isinstance(q, DTensor):
+        return _decode_attend_local(q, k_cache, v_cache, kv_positions, t, window)
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bkgqd,bskd->bkgqs", q.float(), k_cache.float()) * scale
     mask = (kv_positions >= 0) & (kv_positions <= t)
@@ -173,6 +178,23 @@ def decode_attend(
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqs,bskd->bkgqd", p.to(v_cache.dtype).float(), v_cache.float())
     return out.to(q.dtype)
+
+
+def _decode_attend_local(q, k_cache, v_cache, kv_positions, t: int, window: int):
+    """``decode_attend`` on each device's block: q's batch and head splits
+    kept (a kv-head split of q takes the caches' kv heads, a split within
+    the groups takes them whole), every slot of the cache gathered to each
+    device, which then attends exactly as one device does.  (DTensor's own
+    einsum flattens two split dims into one, which some torch versions
+    refuse.)"""
+    q_in, kv_in = [], []
+    for p in q.placements:
+        d = p.dim if isinstance(p, Shard) else None
+        q_in.append(p if d in (0, 1, 2) else Replicate())
+        kv_in.append(Shard(0) if d == 0 else Shard(2) if d == 1 else Replicate())
+    fn = local_region(lambda q_, k_, v_: decode_attend(q_, k_, v_, kv_positions, t, window), q_in,
+                      (q_in, kv_in, kv_in), q.device_mesh)
+    return fn(q, k_cache, v_cache)
 
 
 def attention_decode(

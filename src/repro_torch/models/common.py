@@ -48,6 +48,19 @@ def tree_map_params(fn: Callable[[Param], Any], skel):
     raise TypeError(f"unexpected skeleton node {type(skel).__name__}")
 
 
+def draw_param(p: Param, generator: torch.Generator, device: torch.device, dtype_override=None) -> torch.Tensor:
+    """One parameter drawn on ``device`` by ``init_params``' rule."""
+    dtype = getattr(torch, dtype_override or p.dtype)
+    if p.init == "zeros":
+        return torch.zeros(p.shape, dtype=dtype, device=device)
+    if p.init == "ones":
+        return torch.ones(p.shape, dtype=dtype, device=device)
+    fan_in = p.shape[-2] if len(p.shape) >= 2 else p.shape[-1]
+    std = p.scale / math.sqrt(max(1, fan_in))
+    # drawn in place in the target type: no f32 copy of a stacked leaf
+    return torch.empty(p.shape, dtype=dtype, device=device).normal_(0.0, std, generator=generator)
+
+
 def init_params(skel, generator: torch.Generator, device=None, dtype_override=None):
     """Draw every parameter on ``device`` (the card unless ``"cpu"`` is asked for).
 
@@ -55,22 +68,11 @@ def init_params(skel, generator: torch.Generator, device=None, dtype_override=No
     RMSNorm weights and LayerNorm biases zero, LayerNorm scales one.
     ``generator`` must live on the same device; its stream is not
     ``jax.random``'s, so the values differ from the JAX package's for the same
-    seed (``convert.params_from_jax`` carries those across).
+    seed (``convert.params_from_jax`` carries those across).  The leaves are
+    drawn one after another in the skeleton's order (``draw_param``).
     """
     dev = resolve_device(device)
-
-    def draw(p: Param) -> torch.Tensor:
-        dtype = getattr(torch, dtype_override or p.dtype)
-        if p.init == "zeros":
-            return torch.zeros(p.shape, dtype=dtype, device=dev)
-        if p.init == "ones":
-            return torch.ones(p.shape, dtype=dtype, device=dev)
-        fan_in = p.shape[-2] if len(p.shape) >= 2 else p.shape[-1]
-        std = p.scale / math.sqrt(max(1, fan_in))
-        # drawn in place in the target type: no f32 copy of a stacked leaf
-        return torch.empty(p.shape, dtype=dtype, device=dev).normal_(0.0, std, generator=generator)
-
-    return tree_map_params(draw, skel)
+    return tree_map_params(lambda p: draw_param(p, generator, dev, dtype_override), skel)
 
 
 def _leaves_of(skel):

@@ -443,8 +443,26 @@ def stage_decode(cfg, pattern, stage_params, x, t: int, caches):
 # ---------------------------------------------------------------------------
 
 
+def gather_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``.  On DTensors whose table is whole over the vocab,
+    each device gathers from its block of the table with its own tokens: the
+    rows split as the tokens are, the features as the table's, the table's
+    gradient summed over the devices that split the tokens (``local_region``).
+    DTensor's own rule for the gather refuses tokens split over two mesh dims
+    (the batch over pod and data) in some torch versions; this one takes any."""
+    if not isinstance(table, DTensor) or not isinstance(tokens, DTensor):
+        return table[tokens]
+    out = []
+    for pt, pi in zip(table.placements, tokens.placements):
+        if isinstance(pt, Shard) and (pt.dim == 0 or isinstance(pi, Shard)):
+            return table[tokens]  # a vocab split, or both split on one mesh dim: DTensor's rule
+        out.append(pi if isinstance(pi, Shard) else Shard(tokens.ndim) if isinstance(pt, Shard) else Replicate())
+    fn = local_region(lambda t, i: t[i], out, (table.placements, tokens.placements), table.device_mesh)
+    return fn(table, tokens)
+
+
 def _embed(cfg, params, tokens):
-    return params["embed"][tokens].to(getattr(torch, cfg.dtype))
+    return gather_rows(params["embed"], tokens).to(getattr(torch, cfg.dtype))
 
 
 def _unembed(cfg, params, x):

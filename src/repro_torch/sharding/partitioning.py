@@ -231,6 +231,12 @@ def _batch_axes(mesh, batch: int, opts: ShardingOptions) -> Optional[Tuple[str, 
     return tuple(axes) or None
 
 
+def batch_dim(name: str) -> int:
+    """The batch dim of a batch array: dim 1 of ``positions_3d`` (3, B, S),
+    dim 0 of the rest."""
+    return 1 if name == "positions_3d" else 0
+
+
 def batch_specs(cfg: ModelConfig, mesh, shape, opts: ShardingOptions = ShardingOptions()):
     """PartitionSpec dict for a training/prefill batch."""
     b_ax = _batch_axes(mesh, shape.global_batch, opts)

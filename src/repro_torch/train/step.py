@@ -31,6 +31,7 @@ from typing import Any, Callable, Dict, List
 import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import implicit_replication
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import ModelConfig
@@ -41,7 +42,7 @@ from repro_torch.models import transformer as T
 from repro_torch.models.common import init_params, tree_map_params
 from repro_torch.optim import adamw, compression
 from repro_torch.optim.adamw import AdamWConfig
-from repro_torch.sharding import partitioning
+from repro_torch.sharding import partitioning, placement
 from repro_torch.sharding.partitioning import ShardingOptions
 from repro_torch.sharding.regions import local_region
 from repro_torch.tree import leaves, tree_map, unflatten_like
@@ -97,10 +98,6 @@ def _local_rows(x: torch.Tensor, dim: int) -> int:
     return x.to_local().shape[dim] if isinstance(x, DTensor) else x.shape[dim]
 
 
-def _batch_dim(name: str) -> int:
-    return 1 if name == "positions_3d" else 0
-
-
 def _split_micro(batch: Dict[str, torch.Tensor], n: int, pad: int = 0) -> List[Dict[str, torch.Tensor]]:
     """The global batch as n microbatches (dim 1 of ``positions_3d``, dim 0 of
     the rest): of consecutive rows on one device; on DTensors, of each
@@ -111,10 +108,10 @@ def _split_micro(batch: Dict[str, torch.Tensor], n: int, pad: int = 0) -> List[D
     padded by ``pad`` rows that the loss masks (labels -1, zeros elsewhere)
     and split again, evenly, as GSPMD pads an uneven split."""
     for name, x in batch.items():
-        if x.shape[_batch_dim(name)] % n:
-            raise ValueError(f"{name}: a batch of {x.shape[_batch_dim(name)]} rows does not split into {n} "
+        if x.shape[partitioning.batch_dim(name)] % n:
+            raise ValueError(f"{name}: a batch of {x.shape[partitioning.batch_dim(name)]} rows does not split into {n} "
                              "microbatches")
-    parts = {name: _chunks(x, n, _batch_dim(name), pad, -1 if name == "labels" else 0)
+    parts = {name: _chunks(x, n, partitioning.batch_dim(name), pad, -1 if name == "labels" else 0)
              for name, x in batch.items()}
     return [{name: p[i] for name, p in parts.items()} for i in range(n)]
 
@@ -245,7 +242,7 @@ def make_train_step(cfg: ModelConfig, options: TrainOptions = TrainOptions(), po
             raise NotImplementedError("microbatches with tied embeddings: the JAX step does not run them either")
         tokens = batch["tokens"]
         table = params["embed"]
-        x_emb = table[tokens]
+        x_emb = T.gather_rows(table, tokens)
         pad = _micro_pad(x_emb, n)
         micro = _split_micro(dict({k: v for k, v in batch.items() if k != "tokens"}, x_embed=x_emb), n, pad)
         # the tokens as the microbatches hold their rows: gathered where they were
@@ -311,7 +308,10 @@ def _activation_sharding(params, options: TrainOptions):
     """``transformer.set_activation_sharding`` for a step on DTensor
     parameters, as the JAX step sets it while it traces: the batch over the
     data-parallel axes of the parameters' mesh (a pod's sub-mesh has none
-    but "data"), the rest over the model axis."""
+    but "data"), the rest over the model axis; and DTensor's
+    ``implicit_replication``, under which the dry run traces the step (a
+    plain tensor the step makes, such as a microbatch's padding, counts as
+    replicated)."""
     p = next(iter(leaves(params)))
     if not isinstance(p, DTensor):
         yield
@@ -320,9 +320,27 @@ def _activation_sharding(params, options: TrainOptions):
     prev = dict(T.ACTIVATION_SHARDING)
     T.set_activation_sharding(tuple(a for a in options.sharding.dp_axes if a in names), options.sharding.tp_axis)
     try:
-        yield
+        with implicit_replication():
+            yield
     finally:
         T.ACTIVATION_SHARDING.update(prev)
+
+
+def state_mesh(mesh, options: TrainOptions = TrainOptions()):
+    """The mesh the state lives on: ``mesh``, or under a Hoplite pod sync on
+    a mesh with a pod axis the pod's (data, model) sub-mesh, each pod a
+    replica (the JAX step's ``shard_map`` over "pod")."""
+    if "pod" in mesh.mesh_dim_names and options.pod_sync != "gspmd":
+        return mesh[tuple(n for n in mesh.mesh_dim_names if n != "pod")]
+    return mesh
+
+
+def state_specs(cfg: ModelConfig, mesh, options: TrainOptions = TrainOptions()):
+    """The state's tree of ``PartitionSpec``: the parameters and both AdamW
+    moments by ``partitioning.param_specs``, the count and the step whole."""
+    ps = partitioning.param_specs(cfg, T.model_skel(cfg), mesh, options.sharding)
+    scalar = partitioning.P()
+    return {"params": ps, "opt": {"m": ps, "v": ps, "count": scalar}, "step": scalar}
 
 
 def state_shardings(cfg: ModelConfig, mesh, options: TrainOptions = TrainOptions()):
@@ -348,14 +366,32 @@ def abstract_state(cfg: ModelConfig):
             "step": meta((), torch.int32)}
 
 
-def init_state(cfg: ModelConfig, seed: int = 0, device=None) -> Dict[str, Any]:
+def init_state(cfg: ModelConfig, seed: int = 0, device=None, mesh=None,
+               options: TrainOptions = TrainOptions()) -> Dict[str, Any]:
     """Parameters of ``cfg.param_dtype`` drawn on ``device`` (the card unless
     ``"cpu"`` is asked for) from ``seed``, zero moments, step 0.  The draws
     are torch's, not ``jax.random``'s (``convert.state_from_jax`` carries a
-    JAX state across)."""
-    dev = resolve_device(device)
+    JAX state across).
+
+    With ``mesh`` (a ``DeviceMesh`` on ``device``'s type) the state comes
+    back placed by ``state_specs`` on ``state_mesh(mesh, options)``: rank 0
+    draws each parameter whole, from the same stream as one process, and
+    sends every rank its block before it draws the next
+    (``placement.place``); the moments and counts are made where they lie."""
+    if mesh is None:
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params = init_params(T.model_skel(cfg), gen, dev, dtype_override=cfg.param_dtype)
+        return {"params": params, "opt": adamw.init_opt_state(params),
+                "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    dev = torch.device(mesh.device_type) if device is None else resolve_device(device)
+    on, specs = state_mesh(mesh, options), state_specs(cfg, mesh, options)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    params = init_params(T.model_skel(cfg), gen, dev, dtype_override=cfg.param_dtype)
-    return {"params": params, "opt": adamw.init_opt_state(params),
-            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    params = placement.init_params(T.model_skel(cfg), specs["params"], mesh, gen, dev, cfg.param_dtype, on=on)
+    zeros = lambda like: placement.place(like, partitioning.P(), mesh, lambda sl: torch.zeros((), dtype=like.dtype,
+                                                                                                device=dev),
+                                         source="block", on=on)
+    opt = adamw.init_opt_state(params)
+    like = torch.empty((), dtype=torch.int32, device="meta")
+    return {"params": params, "opt": dict(opt, count=zeros(like)), "step": zeros(like)}
 

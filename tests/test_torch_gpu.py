@@ -899,3 +899,57 @@ def test_ranks_on_the_card_launch_the_hop_and_match_the_cpu(cuda):
 def test_run_ranks_on_the_card_by_default(cuda):
     out = G.run_ranks(cases.card_cases, 2, None, np.ones((2, 1536), np.float32), timeout=300)
     assert all(p["calls"]["rs_ag_allreduce"]["devices"] == ["cuda"] for p in out)
+
+
+# ---------------------------------------------------------------------------
+# the partitioner within a pod on the card: 8 rank processes, the staged backend
+# ---------------------------------------------------------------------------
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return torch.equal(a, b)
+
+
+def test_the_staged_backend_on_the_card_gives_gloos_bits(cuda):
+    """Every collective a DTensor program issues, on CUDA tensors through the
+    staged backend, against gloo's own on host copies of the same inputs:
+    the same bits (f32, bf16, uneven all-to-all, an uneven DTensor)."""
+    out = G.run_ranks(cases.staged_collective_cases, 8, "cuda", 0, staged=True, timeout=600)
+    for r, o in enumerate(out):
+        bad = [k for k, (got, want) in o["cases"].items() if not _same_bits(got, want)]
+        assert not bad, (r, bad)
+        assert {"all_gather", "reduce_scatter", "all_reduce", "all_to_all"} <= set(o["counts"]), o["counts"]
+
+
+def test_every_local_block_of_state_batch_and_caches_lies_on_cuda(cuda):
+    out = G.run_ranks(cases.placed_devices, 8, "cuda", "qwen3-14b", staged=True, timeout=600)
+    for r, o in enumerate(out):
+        assert o["mesh_device"] == "cuda" and o["refused"], (r, o)
+        assert o["types"] == {"state": ["cuda"], "batch": ["cuda"], "caches": ["cuda"]}, (r, o["types"])
+    assert [o["whole_leaves_held"] for o in out] == [1] + [0] * 7
+
+
+def test_two_train_steps_on_the_card_mesh_match_one_process_on_the_card(cuda):
+    """``launch.train.run`` on the card's (4, 2) mesh of 8 rank processes
+    against one process on the card, reduced qwen3-14b in f32, 2
+    microbatches: loss and gradient norm within 1e-5 relative, every
+    parameter within 1e-4 of its largest magnitude; every rank launched the
+    flash and RMSNorm kernels."""
+    cfg = reduced_config(get_config("qwen3-14b"))
+    shape = ShapeSpec("t", 16, 4, "train")
+    opts = TS.TrainOptions(num_microbatches=2, remat="full", pod_sync="gspmd")
+    state, recs = LT.run(cfg, shape, opts, "cuda", steps=2, log_every=1, log=lambda _: None, mesh=LT.mesh_for(8))
+    one_state, one = LT.run(cfg, shape, opts, "cuda", steps=2, log_every=1, log=lambda _: None)
+    for r, w in zip(recs, one):
+        for key in ("loss", "grad_norm", "lr"):
+            np.testing.assert_allclose(r[key], w[key], rtol=1e-5, err_msg=f"step {r['step']} {key}")
+        for rank in r["ranks"]:
+            assert rank["launches"]["rmsnorm"] > 0 and rank["launches"]["flash_attention_cores"] > 0, rank
+            assert rank["peak_bytes"] > 0
+    for (a, b) in zip(leaves(state["params"]), leaves(one_state["params"])):
+        b = b.cpu()
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-4 * float(b.abs().max()))

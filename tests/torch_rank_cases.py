@@ -281,3 +281,141 @@ def _as_numpy(tree):
     from repro_torch.tree import tree_map
 
     return tree_map(lambda t: t.detach().float().cpu().numpy() if isinstance(t, torch.Tensor) else t, tree)
+
+
+# ---------------------------------------------------------------------------
+# the staged backend and the mesh program (run_ranks(..., staged=True))
+# ---------------------------------------------------------------------------
+
+STAGED_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _a2a_splits(n: int, r: int):
+    """Uneven all-to-all: rank r sends (i + r) % 3 + 1 rows to rank i."""
+    send = [(i + r) % 3 + 1 for i in range(n)]
+    recv = [(r + i) % 3 + 1 for i in range(n)]
+    return send, recv
+
+
+def staged_collective_cases(dev, seed: int):
+    """Every kind of collective a DTensor program issues, through the
+    ``staged`` world group on ``dev``'s tensors (the functional collectives
+    DTensor calls, and ``dist``'s), and the same on gloo's own group over
+    host copies of the same inputs: f32 and bf16, blocks of 7 rows and an
+    uneven all-to-all.  Also a DTensor split unevenly (13 rows on 4 ranks)
+    made whole.  Returns {case: (staged, gloo)} as host tensors, and the
+    staged group's counts."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.device_mesh import init_device_mesh
+
+    r, n = dist.get_rank(), dist.get_world_size()
+    gloo = dist.new_group(backend="gloo")
+    world = dist.group.WORLD
+    rng = np.random.default_rng(seed + r)
+    out = {}
+    G.reset_collective_counts()
+    for dt in STAGED_DTYPES:
+        name = str(dt).removeprefix("torch.")
+        x = torch.from_numpy(rng.standard_normal((7 * n, 5)).astype(np.float32)).to(dt)
+        xd, xh = x.to(dev), x.clone()
+
+        ag = funcol.all_gather_tensor(xd, 0, world).wait()
+        want = torch.empty((7 * n * n, 5), dtype=dt)
+        dist.all_gather_into_tensor(want, xh, group=gloo)
+        out[f"all_gather/{name}"] = (ag.cpu(), want)
+
+        rs = funcol.reduce_scatter_tensor(xd, "sum", 0, world).wait()
+        want = torch.empty((7, 5), dtype=dt)
+        dist.reduce_scatter_tensor(want, xh, group=gloo)
+        out[f"reduce_scatter/{name}"] = (rs.cpu(), want)
+
+        ar = funcol.all_reduce(xd, "sum", world).wait()
+        want = xh.clone()
+        dist.all_reduce(want, group=gloo)
+        out[f"all_reduce/{name}"] = (ar.cpu(), want)
+
+        send, recv = _a2a_splits(n, r)
+        y = torch.from_numpy(rng.standard_normal((sum(send), 3)).astype(np.float32)).to(dt)
+        a2a = funcol.all_to_all_single(y.to(dev), recv, send, world).wait()
+        want = torch.empty((sum(recv), 3), dtype=dt)
+        dist.all_to_all_single(want, y, recv, send, group=gloo)
+        out[f"all_to_all/{name}"] = (a2a.cpu(), want)
+
+        inplace = xd.clone()
+        dist.all_reduce(inplace)  # dist's own call on the staged group
+        out[f"dist.all_reduce/{name}"] = (inplace.cpu(), out[f"all_reduce/{name}"][1])
+        lst = [torch.empty_like(xd) for _ in range(n)]
+        dist.all_gather(lst, xd)
+        out[f"dist.all_gather/{name}"] = (torch.cat(lst).cpu(), out[f"all_gather/{name}"][1])
+        b = xd.clone()
+        dist.broadcast(b, src=3)
+        want = xh.clone()
+        dist.broadcast(want, src=3, group=gloo)
+        out[f"broadcast/{name}"] = (b.cpu(), want)
+
+    mesh = init_device_mesh(dev.type, (n // 2, 2), mesh_dim_names=("data", "model"))
+    whole = torch.from_numpy(np.random.default_rng(seed).standard_normal((13, 6)).astype(np.float32))
+    d = DTensor.from_local(whole.chunk(n // 2)[mesh.get_coordinate()[0]].to(dev), mesh,
+                           [Shard(0), Replicate()], run_check=False, shape=whole.shape,
+                           stride=whole.stride())
+    out["dtensor_uneven/float32"] = (d.full_tensor().cpu(), whole)
+    try:  # an operation the staged group lacks
+        dist.gather(xd, [torch.empty_like(xd) for _ in range(n)] if r == 0 else None, dst=0)
+        refused = ""
+    except NotImplementedError as e:
+        refused = str(e)
+    return {"cases": out, "counts": G.collective_counts(), "refused": refused}
+
+
+def restore_gathered(dev, directory: str, arch: str, mesh_dims):
+    """Reduced ``arch``'s train state restored from ``directory`` onto a mesh
+    of ``mesh_dims`` (data, model), each rank reading its own blocks, then
+    gathered whole to rank 0 (``launch.train.gather_state``): rank 0 returns
+    (step, state), the others ``None``."""
+    from repro_torch.checkpoint.checkpoint import Checkpointer
+    from repro_torch.launch import train as LT
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding import placement
+    from repro_torch.train import step as TS
+
+    cfg = reduced_config(get_config(arch))
+    mesh = make_mesh(tuple(mesh_dims), ("data", "model"), dev)
+    step, state = Checkpointer(directory).restore(TS.abstract_state(cfg),
+                                                  placements=placement.shardings(TS.state_specs(cfg, mesh), mesh))
+    whole = LT.gather_state(state)
+    return (step, whole) if dist.get_rank() == 0 else None
+
+
+def placed_devices(dev, arch: str):
+    """Reduced ``arch`` on the (4, 2) debug mesh of ``dev``: the state placed
+    by ``init_state``, a batch by the pipeline, the caches of a prefill; the
+    device types of every local block, the most whole leaves a rank held
+    while the state was placed, and whether ``check_on_mesh`` refused a block
+    from the other device."""
+    from repro_torch.launch.mesh import check_on_mesh, make_debug_mesh
+    from repro_torch.data import pipeline
+    from repro_torch.serving.engine import Engine, ServeOptions
+    from repro_torch.sharding import partitioning, placement
+    from repro_torch.train import step as TS
+
+    cfg = reduced_config(get_config(arch))
+    mesh = make_debug_mesh(device=dev)
+    placement.reset_whole_leaves()
+    state = TS.init_state(cfg, 0, dev, mesh=mesh)
+    held = placement.whole_leaves_held()["most"]
+    shape = ShapeSpec("t", 8, 4, "train")
+    batch = pipeline.device_batch(cfg, shape, 0, dev, mesh=mesh,
+                                  specs=partitioning.batch_specs(cfg, mesh, shape))
+    eng = Engine(cfg, state["params"], ServeOptions(max_seq=16, batch_size=4), mesh=mesh)
+    with eng._program(4):
+        _, caches = eng.prefill_fn(eng._inputs({"tokens": np.zeros((4, 8), np.int32)}))
+    types = {name: sorted({(t.to_local() if isinstance(t, DTensor) else t).device.type
+                           for t in leaves(tree) if isinstance(t, torch.Tensor)})
+             for name, tree in (("state", state), ("batch", batch), ("caches", caches))}
+    other = torch.zeros(2, device="cpu" if dev.type == "cuda" else "meta")
+    try:
+        check_on_mesh(other, mesh)
+        refused = False
+    except RuntimeError:
+        refused = True
+    return {"types": types, "whole_leaves_held": held, "refused": refused, "mesh_device": mesh.device_type}
