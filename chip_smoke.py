@@ -123,11 +123,12 @@ mask), then drives these paths:
   (``launch.train.run(mesh=...)``, 4 x 2048 tokens in 2 microbatches, full
   remat, 2 steps) on qwen3-14b's layer widths with its vocabulary cut to
   32,768: at 151,936 the embedding, split over the model axis only, holds
-  3.89 GB of weights and f32 moments a rank, and 8 ranks do not fit the
-  card at any depth (the dry run: 97-113 GB; 1 layer in 1 microbatch ran
-  out of the card).  4 layers on (data 4, model 2); 2 layers on (pod 2, data
-  2, model 2) under ``hoplite_chain`` (the hop kernel on each rank's local
-  blocks, the pods' blocks bit for bit the same) and ``gspmd``.  Serve
+  3.89 GB of weights and f32 moments a rank, and 8 ranks run out of the card
+  even at 1 layer in 1 microbatch (``chip_mesh_fit.py``).  4 layers on (data
+  4, model 2); 2 layers on (pod 2, data 2, model 2) under ``hoplite_chain``
+  (the hop kernel on each rank's local blocks, the pods' blocks bit for bit
+  the same) and ``gspmd``; sampled parameters' updates held against one
+  process's.  Serve
   (``launch.serve.serve(devices=8)``) qwen3-14b at full width cut to 4
   layers, 4 x 512 tokens and 4 greedy tokens.  Each rank's launches are
   predicted, its ``max_memory_allocated`` held within 10% of the dry run's
@@ -1695,14 +1696,14 @@ def pods(torch, card: str):
 
 # The mesh phase: the launchers over the debug mesh, MESH_RANKS rank processes
 # on the one card.  Train: qwen3-14b's layer widths with its vocabulary cut to
-# MESH_VOCAB (at 151,936 the embedding, split over the model axis only, with
-# its f32 moments is 3.89 GB a rank: 8 ranks do not fit the card at any depth,
-# see mesh()), MESH_BATCH rows of MESH_SEQ tokens (one row a data shard) in
-# MESH_MICRO microbatches, full remat, MESH_STEPS steps: MESH_LAYERS on (data
-# 4, model 2), MESH_POD_LAYERS on (pod 2, data 2, model 2); the largest depths
-# whose 8 predicted peaks and CUDA contexts stay under about 70 GB.  Serve:
-# qwen3-14b at full width cut to MESH_SERVE_LAYERS on (data 4, model 2),
-# MESH_SERVE (batch, prompt, greedy tokens, max_seq).
+# MESH_VOCAB: at 151,936 the embedding, split over the model axis only, holds
+# 3.89 GB of bf16 weights and f32 moments a rank, and 8 ranks run out of the
+# card at 1 layer in 1 microbatch on either mesh (chip_mesh_fit.py).
+# MESH_BATCH rows of MESH_SEQ tokens (one row a data shard) in MESH_MICRO
+# microbatches, full remat, MESH_STEPS steps: MESH_LAYERS on (data 4, model 2),
+# MESH_POD_LAYERS on (pod 2, data 2, model 2).  Serve: qwen3-14b at full width
+# cut to MESH_SERVE_LAYERS on (data 4, model 2), MESH_SERVE (batch, prompt,
+# greedy tokens, max_seq).
 MESH_VOCAB, MESH_LAYERS, MESH_POD_LAYERS = 32768, 4, 2
 MESH_SEQ, MESH_BATCH, MESH_MICRO, MESH_STEPS = 2048, 4, 2, 2
 MESH_SERVE_LAYERS, MESH_SERVE = 4, (4, 512, 4, 1024)
@@ -1713,9 +1714,20 @@ MESH_RANKS = 8
 # an H100); its logits against one process's, relative L2 (bf16: the tests'
 # bf16 tolerance).
 MESH_MEM_RTOL = 0.10
-MESH_RTOL = 1e-3
-# A rank's CUDA context and torch's own allocations outside its tensors.
-MESH_CONTEXT_BYTES = 0.6e9
+MESH_RTOL = 1e-4
+# The parameters after the last step against one process's: MESH_SAMPLES
+# elements of each leaf (``launch.train.param_samples``), each leaf's update
+# (final - initial) within MESH_UPDATE_RTOL of one process's in relative L2.
+# The weights are bf16, and at the warmup's lr (6e-6, 9e-6) most updates
+# round away; an element whose update lies near half an ulp rounds one way
+# on the mesh and the other in one process, which puts the gap at
+# 0.011-0.131 (on an H100).  A mesh that skipped or reversed the update is at 1 or 2.
+MESH_SAMPLES = 1 << 18
+MESH_UPDATE_RTOL = 0.25
+# A rank's CUDA context and torch's own allocations outside its tensors: what
+# the card had in use beside 8 ranks' reserved memory when they ran out of
+# it, about 1.6 GB a rank (chip_mesh_fit.py on an H100).
+MESH_CONTEXT_BYTES = 1.6e9
 MESH_LOGITS_TOL = 2e-2
 
 
@@ -1809,12 +1821,28 @@ def mesh_fits(torch, per_rank: int, what: str) -> None:
         raise AssertionError(f"mesh {what}: {MESH_RANKS} ranks need about {need / 1e9:.2f} GB; {free / 1e9:.2f} free")
 
 
-def mesh_train(torch, card: str, cfg, layers: int, multi_pod: bool, syncs, add) -> dict:
+def update_gaps(init, got, want) -> dict:
+    """Each leaf's update in ``got`` (final - ``init``) against ``want``'s, in
+    relative L2 over the sampled elements (``launch.train.param_samples``);
+    raises if ``want`` did not move a sampled element of a leaf."""
+    import numpy as np
+
+    gaps = {}
+    for name, p0 in init.items():
+        du, dw = got[name] - p0, want[name] - p0
+        if not np.abs(dw).max() > 0:
+            raise AssertionError(f"{name}: one process's update moved none of {p0.size} sampled elements")
+        gaps[name] = float(np.linalg.norm(du - dw) / np.linalg.norm(dw))
+    return gaps
+
+
+def mesh_train(torch, card: str, cfg, layers: int, micro: int, multi_pod: bool, syncs, add) -> dict:
     """``launch.train.run`` on the debug mesh (with ``multi_pod``, (pod 2,
     data 2, model 2)) for each pod sync of ``syncs``, after one process took
     the same steps on the card; each rank's launches a step, peak against
-    the dry run's prediction, the metrics against one process's.  ``add``
-    takes each rank's launches.  Returns the metrics by sync."""
+    the dry run's prediction, the metrics and the sampled parameters'
+    updates against one process's.  ``add`` takes each rank's launches.
+    Returns the metrics by sync."""
     import dataclasses
 
     from repro_torch.configs.base import ShapeSpec
@@ -1828,9 +1856,12 @@ def mesh_train(torch, card: str, cfg, layers: int, multi_pod: bool, syncs, add) 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    one_opts = TS.TrainOptions(num_microbatches=MESH_MICRO, remat="full", pod_sync="gspmd")
+    state = TS.init_state(cfg, SEED, "cuda")
+    init = LT.param_samples(state["params"], MESH_SAMPLES, SEED)
+    del state
+    one_opts = TS.TrainOptions(num_microbatches=micro, remat="full", pod_sync="gspmd")
     state, one = LT.run(cfg, shape, one_opts, "cuda", steps=MESH_STEPS, seed=SEED, log_every=MESH_STEPS,
-                        log=lambda _: None)
+                        log=lambda _: None, samples=MESH_SAMPLES)
     del state  # the ranks need the card
     log(f"[mesh] {cfg.name}, {layers} layers, one process on the card: {time.perf_counter() - t0:.1f} s; "
         + ", ".join(f"step {r['step']} loss {r['loss']!r} gnorm {r['grad_norm']!r} {r['ms']:.1f} ms" for r in one)
@@ -1839,7 +1870,7 @@ def mesh_train(torch, card: str, cfg, layers: int, multi_pod: bool, syncs, add) 
     torch.cuda.empty_cache()
     out = {}
     for sync in syncs:
-        opts = TS.TrainOptions(num_microbatches=MESH_MICRO, remat="full", pod_sync=sync)
+        opts = TS.TrainOptions(num_microbatches=micro, remat="full", pod_sync=sync)
         t0 = time.perf_counter()
         pred = mesh_peak_prediction(torch, cfg, shape, opts, multi_pod)
         trace_s = time.perf_counter() - t0
@@ -1847,7 +1878,7 @@ def mesh_train(torch, card: str, cfg, layers: int, multi_pod: bool, syncs, add) 
         t0 = time.perf_counter()
         _, recs = LT.run(cfg, shape, opts, "cuda", steps=MESH_STEPS, seed=SEED, log_every=1,
                          log=lambda m: log(f"[mesh] {sync} rank 0: {m}"), mesh=LT.mesh_for(MESH_RANKS, multi_pod),
-                         return_state=False)  # the main path: launch/train.py --devices 8
+                         return_state=False, samples=MESH_SAMPLES)  # the main path: launch/train.py --devices 8
         run_s = time.perf_counter() - t0
         want = [expected_mesh_pod_launches(cfg, opts, i) if multi_pod and sync != "gspmd"
                 else expected_train_launches(cfg, opts) for i in range(MESH_RANKS)]
@@ -1864,11 +1895,13 @@ def mesh_train(torch, card: str, cfg, layers: int, multi_pod: bool, syncs, add) 
         ratio = [p / pred for p in peaks]
         rel = {k: [abs(r[k] - o[k]) / abs(o[k]) for r, o in zip(recs, one)] for k in ("loss", "grad_norm")}
         hops = [sum(r["ranks"][i]["launches"]["chunk_reduce"] for r in recs) for i in range(MESH_RANKS)]
-        log(f"[mesh] {cfg.name} at the layer widths, {layers} layers, {where}, {sync}: {run_s:.1f} s with the "
-            f"ranks' start; each rank's max_memory_allocated over the dry run's {pred / 1e9:.3f} GB (traced in "
-            f"{trace_s:.1f} s): {', '.join(f'{x:.4f}' for x in ratio)} (tol {MESH_MEM_RTOL}), {sum(peaks) / 1e9:.2f} "
-            f"GB summed; against one process, relative: {rel} (tol {MESH_RTOL}); chunk_reduce launches per rank "
-            f"{hops}; on {card}")
+        gaps = update_gaps(init, recs[-1]["param_samples"], one[-1]["param_samples"])
+        log(f"[mesh] {cfg.name}, vocabulary {cfg.vocab_size}, {layers} layers, {micro} microbatch(es), {where}, {sync}: "
+            f"{run_s:.1f} s with the ranks' start; each rank's max_memory_allocated over the dry run's "
+            f"{pred / 1e9:.3f} GB (traced in {trace_s:.1f} s): {', '.join(f'{x:.4f}' for x in ratio)} (tol "
+            f"{MESH_MEM_RTOL}), {sum(peaks) / 1e9:.2f} GB summed; against one process, relative: {rel} (tol "
+            f"{MESH_RTOL}); each leaf's update over {MESH_SAMPLES} sampled elements against one process's, relative "
+            f"L2: {gaps} (tol {MESH_UPDATE_RTOL}); chunk_reduce launches per rank {hops}; on {card}")
         if any(r["ranks"][i]["launches"] != want[i] for r in recs for i in range(MESH_RANKS)):
             raise AssertionError(f"mesh {sync}: launches {[[k['launches'] for k in r['ranks']] for r in recs]}, "
                                  f"expected {want}")
@@ -1876,7 +1909,9 @@ def mesh_train(torch, card: str, cfg, layers: int, multi_pod: bool, syncs, add) 
             raise AssertionError(f"mesh {sync}: peaks {peaks} against the prediction {pred}: {ratio}")
         if any(v > MESH_RTOL for vals in rel.values() for v in vals):
             raise AssertionError(f"mesh {sync}: the metrics differ from one process's by {rel}")
-        out[sync] = {"layers": layers, "predicted_peak_bytes": pred, "peak_bytes": peaks, "peak_ratio": ratio,
+        if any(not g <= MESH_UPDATE_RTOL for g in gaps.values()):
+            raise AssertionError(f"mesh {sync}: the parameters' updates differ from one process's by {gaps}")
+        out[sync] = {"layers": layers, "microbatches": micro, "update_gaps": gaps, "predicted_peak_bytes": pred, "peak_bytes": peaks, "peak_ratio": ratio,
                      "loss": [r["loss"] for r in recs], "grad_norm": [r["grad_norm"] for r in recs], "rel": rel,
                      "one_process": {"loss": [r["loss"] for r in one], "grad_norm": [r["grad_norm"] for r in one],
                                      "ms": [r["ms"] for r in one]},
@@ -1892,13 +1927,13 @@ def mesh(torch, card: str):
     processes share the card and exchange through the staged backend.
 
     Train (``mesh_train``): qwen3-14b's layer widths with the vocabulary cut
-    to MESH_VOCAB, on (data 4, model 2) and on (pod 2, data 2, model 2)
-    under ``hoplite_chain`` (each rank's ``chunk_reduce`` launches as
-    ``expected_mesh_pod_launches``; ``run`` fails unless the pods' blocks
-    are bit for bit the same after every step) and ``gspmd``.  Each rank's
-    launches a step are predicted, its ``max_memory_allocated`` held within
-    MESH_MEM_RTOL of the dry run's prediction, the losses and gradient norms
-    within MESH_RTOL of one process's.  Serve: ``launch.serve.serve(devices=
+    to MESH_VOCAB, depth cut, on (data 4, model 2) and on (pod 2, data 2, model 2) under ``hoplite_chain`` (each
+    rank's ``chunk_reduce`` launches as ``expected_mesh_pod_launches``;
+    ``run`` fails unless the pods' blocks are bit for bit the same after
+    every step) and ``gspmd``.  Each rank's launches a step are predicted,
+    its ``max_memory_allocated`` held within MESH_MEM_RTOL of the dry run's
+    prediction, the losses and gradient norms within MESH_RTOL of one
+    process's, each parameter's sampled update within MESH_UPDATE_RTOL.  Serve: ``launch.serve.serve(devices=
     8)`` on qwen3-14b at full width cut to MESH_SERVE_LAYERS, each rank's
     launches as ``expected_launches``, its peak against the dry run's
     prefill, the logits within MESH_LOGITS_TOL of one process's (relative
@@ -1922,8 +1957,8 @@ def mesh(torch, card: str):
         f"head dim {full.head_dim}, d_ff {full.d_ff}), vocabulary cut from {full.vocab_size} to {MESH_VOCAB}, "
         f"{MESH_BATCH} x {MESH_SEQ} tokens in {MESH_MICRO} microbatches, full remat, {MESH_STEPS} steps, "
         f"{MESH_RANKS} rank processes on the one card")
-    train = mesh_train(torch, card, cut, MESH_LAYERS, False, ("gspmd",), add)
-    pods = mesh_train(torch, card, cut, MESH_POD_LAYERS, True, ("hoplite_chain", "gspmd"), add)
+    train = mesh_train(torch, card, cut, MESH_LAYERS, MESH_MICRO, False, ("gspmd",), add)
+    pods = mesh_train(torch, card, cut, MESH_POD_LAYERS, MESH_MICRO, True, ("hoplite_chain", "gspmd"), add)
 
     bsz, prompt, new, max_seq = MESH_SERVE
     scfg = dataclasses.replace(full, num_layers=MESH_SERVE_LAYERS)

@@ -278,7 +278,7 @@ class Checkpointer:
         t0, nbytes, read_s = time.perf_counter(), 0, 0.0
 
         def load(name: str, like: torch.Tensor) -> torch.Tensor:
-            nonlocal nbytes, read_s
+            nonlocal read_s
             entry = manifest["leaves"].get(name)
             if entry is None:
                 raise ValueError(f"{name}: no such leaf in {d}")
@@ -286,7 +286,11 @@ class Checkpointer:
             got = {"shape": entry["shape"], "dtype": entry["dtype"]}
             if got != want:
                 raise ValueError(f"{name}: the checkpoint holds {got}, the tree wants {want}")
-            arr = np.load(os.path.join(d, entry["file"]), mmap_mode="r")  # nothing read yet
+            path = os.path.join(d, entry["file"])
+            t = time.perf_counter()
+            # one process reads the whole file; a rank of a mesh maps it and reads its block
+            arr = np.load(path) if placements is None else np.load(path, mmap_mode="r")
+            read_s += time.perf_counter() - t
             if list(arr.shape) != want["shape"]:
                 raise ValueError(f"{name}: {entry['file']} holds shape {arr.shape}, its manifest {want['shape']}")
             if want["dtype"] == "bfloat16":
@@ -295,18 +299,23 @@ class Checkpointer:
             elif arr.dtype.name != want["dtype"]:
                 raise ValueError(f"{name}: {entry['file']} holds {arr.dtype}, its manifest {want['dtype']}")
 
-            def read(block=()):
-                nonlocal nbytes, read_s
-                t = time.perf_counter()
-                part = np.array(arr[block])  # the block's bytes, read from the file
-                read_s += time.perf_counter() - t
+            def tensor(part: np.ndarray) -> torch.Tensor:
+                nonlocal nbytes
                 nbytes += part.nbytes
                 if want["dtype"] == "bfloat16":
                     return torch.from_numpy(part.view(np.int16)).view(torch.bfloat16)
                 return torch.from_numpy(part)
 
             if placements is None:
-                return read().to(dev)
+                return tensor(arr).to(dev)
+
+            def read(block):
+                nonlocal read_s
+                t = time.perf_counter()
+                part = np.array(arr[block])  # the block's bytes, read from the file
+                read_s += time.perf_counter() - t
+                return tensor(part)
+
             sh = shardings[name]
             dev_of = torch.device(sh.mesh.device_type)
             return placement.place(like, sh.spec, sh.mesh, lambda block: read(block).to(dev_of), source="block",

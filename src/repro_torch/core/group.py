@@ -2,10 +2,10 @@
 ``shard_map`` over a named mesh axis (``repro.launch.mesh``) and of
 ``lax.ppermute`` / ``lax.psum`` inside it.
 
-``run_ranks`` starts n processes that join one gloo process group and all
-hold their tensors on the same device, by default the card: the n ranks share
-one GPU (NCCL will not put two ranks on one card; CUDA processes can share
-it).  Gloo carries the bytes between the processes through host buffers.  The
+``run_ranks`` starts n processes that join one process group and all hold
+their tensors on the same device, by default the card: the n ranks share one
+GPU (NCCL will not put two ranks on one card; CUDA processes can share it).
+Gloo carries the bytes between the processes through host buffers.  The
 staging is the transport, not a fallback: the tensors, and the hop kernel that
 accumulates what arrives, stay on the card.
 
@@ -14,10 +14,10 @@ group the caller passes (``None`` is the world), as ``lax.axis_index`` is
 its place on a mesh axis, and ``dist.get_world_size(group)`` is
 ``lax.psum(1, axis)``.
 
-A DTensor program on a mesh of such ranks (``run_ranks(..., staged=True)``)
-issues all-gathers, reduce-scatters, all-reduces and all-to-alls of CUDA
-tensors, which gloo does not take (it takes ``broadcast`` and
-``all_reduce`` only) and NCCL will not run with two ranks on one card.  The
+A DTensor program on a mesh of such ranks issues all-gathers,
+reduce-scatters, all-reduces and all-to-alls of CUDA tensors, which gloo
+does not take (it takes ``broadcast`` and ``all_reduce`` only) and NCCL
+will not run with two ranks on one card.  The
 ``staged`` backend (``StagedGroup``) carries them: each collective copies
 its blocks into reused host buffers (pinned for the card's tensors), runs
 gloo's own collective on them and copies the result back.  It stages CPU
@@ -325,17 +325,16 @@ def _to_cpu(obj):
     return obj
 
 
-def _rank_main(r: int, n: int, init_method: str, device: str, staged: bool, fn: Callable, args: tuple,
+def _rank_main(r: int, n: int, init_method: str, device: str, fn: Callable, args: tuple,
                results: "mp.Queue") -> None:
     try:
         dev = resolve_device(device)
         if dev.type == "cuda":
             torch.cuda.set_device(dev.index or 0)
         _RANK_DEVICE[0] = dev
-        if staged:
-            register_staged()
-        dist.init_process_group(STAGED_BACKEND if staged else "gloo", init_method=init_method, rank=r,
-                                world_size=n, timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
+        register_staged()
+        dist.init_process_group(STAGED_BACKEND, init_method=init_method, rank=r, world_size=n,
+                                timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
         try:
             out = fn(dev, *args)
             if dev.type == "cuda":
@@ -349,10 +348,10 @@ def _rank_main(r: int, n: int, init_method: str, device: str, staged: bool, fn: 
         results.put((r, False, traceback.format_exc()))
 
 
-def run_ranks(fn: Callable, n: int, device=None, *args, timeout: float = 600.0, staged: bool = False) -> List[Any]:
-    """Run ``fn(device, *args)`` in ``n`` new processes joined in one gloo
-    group, or, with ``staged``, in one ``StagedGroup`` (the collectives of a
-    DTensor program, on either device).
+def run_ranks(fn: Callable, n: int, device=None, *args, timeout: float = 600.0) -> List[Any]:
+    """Run ``fn(device, *args)`` in ``n`` new processes joined in one
+    ``StagedGroup`` (gloo's collectives through host buffers, on either
+    device; point to point of host tensors handed to gloo as they are).
 
     Every rank uses the same ``device``: the card unless ``"cpu"`` is asked for
     (``resolve_device``; with no device and no CUDA this raises before any
@@ -370,7 +369,7 @@ def run_ranks(fn: Callable, n: int, device=None, *args, timeout: float = 600.0, 
         init = "file://" + os.path.join(tmp, "rendezvous")
         results = ctx.Queue()
         procs = [ctx.Process(target=_rank_main, daemon=True,
-                             args=(r, n, init, str(dev), staged, fn, args, results))
+                             args=(r, n, init, str(dev), fn, args, results))
                  for r in range(n)]
         got: Dict[int, Any] = {}
         deadline = time.monotonic() + timeout

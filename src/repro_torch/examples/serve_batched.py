@@ -64,7 +64,7 @@ def main(argv=None):
     ap.add_argument("--device", default=None, help="default: cuda (raises when absent)")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
-    out = G.run_ranks(_rank, 8, dev, args.requests, staged=True, timeout=900.0)[0]
+    out = G.run_ranks(_rank, 8, dev, args.requests, timeout=900.0)[0]
     print("prefill/decode == full forward on the first generated token")
     total = sum(len(o) for _, _, o in out["completed"])
     print(f"continuous batching: {len(out['completed'])} requests, {total} tokens in {out['seconds']:.2f}s "

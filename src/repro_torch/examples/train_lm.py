@@ -112,7 +112,7 @@ def main(argv=None) -> List[float]:
     def run_until(stop: int) -> List[float]:
         """New rank processes, from the latest checkpoint to ``stop``."""
         out = G.run_ranks(_run_until, n, dev, stop, args.steps, args.warmup_steps, args.ckpt_dir, args.layers,
-                          staged=True, timeout=600.0 + 60.0 * args.steps)[0]
+                          timeout=600.0 + 60.0 * args.steps)[0]
         for line in out["log"]:
             print(line)
         return out["losses"]

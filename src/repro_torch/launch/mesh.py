@@ -8,11 +8,12 @@ over the default process group, which must already hold as many ranks as
 the mesh has devices: (data=16, model=16), or (pod=2, data=16, model=16)
 with ``multi_pod``; the debug meshes are (4, 2) and (2, 2, 2) with the same
 axis names; ``make_mesh`` takes any shape, as ``jax.make_mesh`` does.  The
-mesh is on the ranks' device (``mesh_device``): the one
+mesh is on the ranks' device (``sharding.placement.mesh_device``): the one
 ``core.group.run_ranks`` gave them, the host for the ``fake`` backend's, else
 the card unless ``device="cpu"`` is asked for.  torch's
 ``DTensor.from_local`` would move a block on another device to the mesh's
-without a word, so ``check_on_mesh`` holds every block to it.
+without a word, so ``sharding.placement.check_on_mesh`` holds every block
+to it.
 
 ``AbstractMesh`` is the shape alone (the counterpart of
 ``jax.sharding.AbstractMesh``), which the partitioning rules read as they
@@ -29,12 +30,10 @@ import dataclasses
 import math
 from typing import Iterator, Tuple
 
-import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 
-from repro_torch.core import group as G
-from repro_torch.device import resolve_device
+from repro_torch.sharding.placement import mesh_device
 
 AXES = ("data", "model")
 POD_AXES = ("pod", "data", "model")
@@ -60,32 +59,12 @@ def debug_mesh_shape(*, multi_pod: bool = False) -> AbstractMesh:
     return AbstractMesh((2, 2, 2), POD_AXES) if multi_pod else AbstractMesh((4, 2), AXES)
 
 
-def mesh_device(device=None) -> torch.device:
-    """The device of a mesh's ranks: ``device`` if given, else the one
-    ``run_ranks`` gave this rank, else the host for the ``fake`` backend's
-    ranks (which hold no device), else the card (``resolve_device``)."""
-    if device is None and G.rank_device() is not None:
-        return G.rank_device()
-    if device is None and dist.is_initialized() and dist.get_backend() == "fake":
-        return torch.device("cpu")
-    return resolve_device(device)
-
-
 def _device_mesh(shape: AbstractMesh, device=None):
     n = dist.get_world_size() if dist.is_initialized() else 0
     if n != shape.size():
         raise RuntimeError(f"a {shape.shape} mesh needs a default process group of {shape.size()} ranks; "
                            f"it has {n or 'none'}")
     return init_device_mesh(mesh_device(device).type, shape.shape, mesh_dim_names=shape.mesh_dim_names)
-
-
-def check_on_mesh(t: torch.Tensor, mesh) -> torch.Tensor:
-    """``t`` (a local block) if it lies on ``mesh``'s device type; raises
-    where ``DTensor.from_local`` would move it there."""
-    if t.device.type != mesh.device_type:
-        raise RuntimeError(f"a block on {t.device} for a mesh on {mesh.device_type}: "
-                           "it would be moved, not computed where it was asked for")
-    return t
 
 
 def make_mesh(shape: Tuple[int, ...], names: Tuple[str, ...], device=None):

@@ -114,7 +114,7 @@ def serve(cfg, device, seed: int, options: ServeOptions, batch, new_tokens: int,
 
         _build.build()  # once here, not in every rank at once
     ranks = G.run_ranks(_serve_rank, devices, dev, cfg, seed, options, batch, new_tokens, shape, ckpt_dir,
-                        return_logits, staged=True, timeout=MESH_TIMEOUT_S)
+                        return_logits, timeout=MESH_TIMEOUT_S)
     return ranks[0]["out"], ranks[0]["seconds"], [{k: v for k, v in r.items() if k != "out"} for r in ranks]
 
 

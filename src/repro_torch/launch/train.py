@@ -62,6 +62,7 @@ from __future__ import annotations
 import argparse
 import functools
 import hashlib
+import math
 import os
 import time
 from typing import Callable, Dict, List, Optional, Tuple
@@ -141,6 +142,24 @@ def local_blocks(tree):
     return tree_map(lambda t: t.to_local() if isinstance(t, DTensor) else t, tree)
 
 
+def param_samples(params, n: int, seed: int = 0) -> Optional[Dict[str, np.ndarray]]:
+    """Up to ``n`` elements of each parameter, as f32 on the host, at flat
+    indices drawn from ``seed`` and the leaf's place in the tree, so that a
+    run on a mesh and one process sample the same elements.  A DTensor leaf
+    is gathered whole on rank 0 one leaf at a time (every rank must call);
+    ``None`` on the other ranks."""
+    out: Dict[str, np.ndarray] = {}
+    for i, (name, t) in enumerate(named_leaves(params)):
+        numel = math.prod(t.shape)
+        idx = np.arange(numel) if numel <= n else np.unique(np.random.default_rng([seed, i]).integers(0, numel, n))
+        whole = placement.gather_to_root(t) if isinstance(t, DTensor) else t.detach()
+        if whole is not None:
+            flat = whole.reshape(-1)
+            out[name] = flat[torch.from_numpy(idx).to(flat.device)].float().cpu().numpy()
+        del whole
+    return out if not dist.is_initialized() or dist.get_rank() == 0 else None
+
+
 def metric_value(v) -> float:
     """A metric of the step as a float: a DTensor's whole value (a partial
     sum reduced), not its local block."""
@@ -149,12 +168,13 @@ def metric_value(v) -> float:
 
 def _train(cfg: ModelConfig, shape: ShapeSpec, options: TS.TrainOptions, dev: torch.device, steps: int,
            seed: int, log_every: int, log: Callable[[str], None], ckpt_dir: Optional[str], ckpt_every: int,
-           pod=None, share=None, writes: bool = True, mesh=None) -> Tuple[Dict, List[Dict]]:
+           pod=None, share=None, writes: bool = True, mesh=None, samples: int = 0) -> Tuple[Dict, List[Dict]]:
     """The training loop of one process: a single pod, one rank of the
     ``pod`` group that takes ``share`` of each global batch, or one rank of
     ``mesh`` (a DeviceMesh), whose state and batches are placed on it.  Only
     a process that ``writes`` saves checkpoints (on a mesh every rank takes
-    part in a save, and rank 0 writes)."""
+    part in a save, and rank 0 writes).  With ``samples``, the last record
+    holds ``param_samples`` of the final parameters (rank 0's)."""
     ckpt = Checkpointer(ckpt_dir) if ckpt_dir else None
     on = specs = None
     if mesh is not None:
@@ -211,6 +231,10 @@ def _train(cfg: ModelConfig, shape: ShapeSpec, options: TS.TrainOptions, dev: to
         ckpt.save(steps, state)
         ckpt.wait()
         log(f"[ckpt] final checkpoint at step {steps}")
+    if samples and records:
+        got = param_samples(state["params"], samples, seed)
+        if got is not None:
+            records[-1]["param_samples"] = got
     if records:
         log(f"done: {steps} steps, loss={records[-1]['loss']:.4f}")
     return state, records
@@ -235,7 +259,7 @@ def gather_state(state):
 
 
 def _mesh_rank(dev: torch.device, cfg, shape, options, steps, seed, log_every, ckpt_dir, ckpt_every,
-               mesh_shape: AbstractMesh, return_state: bool):
+               mesh_shape: AbstractMesh, return_state: bool, samples: int):
     """One rank of a run on a mesh, in a rank process of ``run_ranks``."""
     mesh = make_mesh(mesh_shape.shape, mesh_shape.mesh_dim_names, dev)
     r = dist.get_rank()
@@ -243,7 +267,8 @@ def _mesh_rank(dev: torch.device, cfg, shape, options, steps, seed, log_every, c
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // mesh.size()))
     lines: List[str] = []
     state, records = _train(cfg, shape, options, dev, steps, seed, log_every,
-                            lines.append if r == 0 else (lambda _: None), ckpt_dir, ckpt_every, mesh=mesh)
+                            lines.append if r == 0 else (lambda _: None), ckpt_dir, ckpt_every, mesh=mesh,
+                            samples=samples)
     whole = gather_state(state) if return_state else None
     return {"records": records, "log": lines, "state": whole, "coordinate": mesh.get_coordinate()}
 
@@ -273,15 +298,14 @@ def _pods_agree(records: List[Dict], coords: List[Tuple[int, ...]], names: Tuple
 
 def run_mesh(cfg: ModelConfig, shape: ShapeSpec, options: TS.TrainOptions, dev: torch.device, steps: int,
              seed: int, log_every: int, log: Callable[[str], None], ckpt_dir: Optional[str], ckpt_every: int,
-             mesh_shape: AbstractMesh, return_state: bool) -> Tuple[Optional[Dict], List[Dict]]:
+             mesh_shape: AbstractMesh, return_state: bool, samples: int = 0) -> Tuple[Optional[Dict], List[Dict]]:
     """``run`` on ``mesh_shape``'s ranks (see ``run``)."""
     if dev.type == "cuda":
         from repro_torch.kernels import _build
 
         _build.build()  # once here, not in every rank at once
     out = G.run_ranks(_mesh_rank, mesh_shape.size(), dev, cfg, shape, options, steps, seed, log_every, ckpt_dir,
-                      ckpt_every, mesh_shape, return_state, staged=True,
-                      timeout=RANK_START_S + MESH_STEP_S * steps)
+                      ckpt_every, mesh_shape, return_state, samples, timeout=RANK_START_S + MESH_STEP_S * steps)
     for line in out[0]["log"]:
         log(line)
     records = out[0]["records"]
@@ -298,7 +322,7 @@ def run(cfg: ModelConfig, shape: ShapeSpec, options: TS.TrainOptions = TS.TrainO
         steps: int = 100, seed: int = 0, log_every: int = 10,
         log: Callable[[str], None] = print, ckpt_dir: Optional[str] = None,
         ckpt_every: int = 50, pods: int = 1, return_state: bool = True,
-        mesh: Optional[AbstractMesh] = None) -> Tuple[Optional[Dict], List[Dict]]:
+        mesh: Optional[AbstractMesh] = None, samples: int = 0) -> Tuple[Optional[Dict], List[Dict]]:
     """Train ``cfg`` up to step ``steps`` on ``shape``'s global batch from a
     state drawn from ``seed``, or from the latest checkpoint in ``ckpt_dir``
     (saved every ``ckpt_every`` steps and at the end, as the JAX driver
@@ -324,13 +348,17 @@ def run(cfg: ModelConfig, shape: ShapeSpec, options: TS.TrainOptions = TS.TrainO
     every rank's ms, launches, peak device bytes, staged collectives
     (``group.collective_counts``: calls, bytes, seconds by kind) and, under
     a Hoplite pod sync, sync_ms.  The state comes back whole on the CPU with
-    ``return_state``.  Raises if two pods' blocks differ."""
+    ``return_state``.  Raises if two pods' blocks differ.
+
+    With ``samples`` (one process or a mesh), the last record also holds
+    ``param_samples``: that many elements of each final parameter, at
+    indices drawn from ``seed``, to hold a run's update against another's."""
     dev = resolve_device(device)
     if mesh is not None:
         return run_mesh(cfg, shape, options, dev, steps, seed, log_every, log, ckpt_dir, ckpt_every, mesh,
-                        return_state)
+                        return_state, samples)
     if pods == 1:
-        return _train(cfg, shape, options, dev, steps, seed, log_every, log, ckpt_dir, ckpt_every)
+        return _train(cfg, shape, options, dev, steps, seed, log_every, log, ckpt_dir, ckpt_every, samples=samples)
     out = G.run_ranks(_pod_rank, pods, dev, cfg, shape, options, steps, seed, log_every, ckpt_dir, ckpt_every,
                       return_state, timeout=RANK_START_S + RANK_STEP_S * steps)
     for line in out[0]["log"]:

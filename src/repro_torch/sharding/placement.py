@@ -22,7 +22,8 @@ from, by ``source``:
 
 ``gather_to_root`` is the other way: a DTensor whole on the root, on the
 host, one leaf at a time (a checkpoint's write).  Every block is checked to
-lie on the mesh's device (``launch.mesh.check_on_mesh``).
+lie on the mesh's device (``check_on_mesh``): torch's ``DTensor.from_local``
+would move it there without a word.
 """
 
 from __future__ import annotations
@@ -36,7 +37,8 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 
-from repro_torch.launch.mesh import check_on_mesh
+from repro_torch.core import group as G
+from repro_torch.device import resolve_device
 from repro_torch.models.common import draw_param
 from repro_torch.sharding import partitioning
 from repro_torch.sharding.partitioning import local_slices, tree_map_specs
@@ -62,6 +64,26 @@ def _held(t: torch.Tensor) -> torch.Tensor:
     _WHOLE["live"] += 1
     _WHOLE["most"] = max(_WHOLE["most"], _WHOLE["live"])
     weakref.finalize(t, lambda: _WHOLE.__setitem__("live", _WHOLE["live"] - 1))
+    return t
+
+
+def mesh_device(device=None) -> torch.device:
+    """The device of a mesh's ranks: ``device`` if given, else the one
+    ``run_ranks`` gave this rank, else the host for the ``fake`` backend's
+    ranks (which hold no device), else the card (``resolve_device``)."""
+    if device is None and G.rank_device() is not None:
+        return G.rank_device()
+    if device is None and dist.is_initialized() and dist.get_backend() == "fake":
+        return torch.device("cpu")
+    return resolve_device(device)
+
+
+def check_on_mesh(t: torch.Tensor, mesh) -> torch.Tensor:
+    """``t`` (a local block) if it lies on ``mesh``'s device type; raises
+    where ``DTensor.from_local`` would move it there."""
+    if t.device.type != mesh.device_type:
+        raise RuntimeError(f"a block on {t.device} for a mesh on {mesh.device_type}: "
+                           "it would be moved, not computed where it was asked for")
     return t
 
 

@@ -918,7 +918,7 @@ def test_the_staged_backend_on_the_card_gives_gloos_bits(cuda):
     """Every collective a DTensor program issues, on CUDA tensors through the
     staged backend, against gloo's own on host copies of the same inputs:
     the same bits (f32, bf16, uneven all-to-all, an uneven DTensor)."""
-    out = G.run_ranks(cases.staged_collective_cases, 8, "cuda", 0, staged=True, timeout=600)
+    out = G.run_ranks(cases.staged_collective_cases, 8, "cuda", 0, timeout=600)
     for r, o in enumerate(out):
         bad = [k for k, (got, want) in o["cases"].items() if not _same_bits(got, want)]
         assert not bad, (r, bad)
@@ -926,7 +926,7 @@ def test_the_staged_backend_on_the_card_gives_gloos_bits(cuda):
 
 
 def test_every_local_block_of_state_batch_and_caches_lies_on_cuda(cuda):
-    out = G.run_ranks(cases.placed_devices, 8, "cuda", "qwen3-14b", staged=True, timeout=600)
+    out = G.run_ranks(cases.placed_devices, 8, "cuda", "qwen3-14b", timeout=600)
     for r, o in enumerate(out):
         assert o["mesh_device"] == "cuda" and o["refused"], (r, o)
         assert o["types"] == {"state": ["cuda"], "batch": ["cuda"], "caches": ["cuda"]}, (r, o["types"])
@@ -936,9 +936,12 @@ def test_every_local_block_of_state_batch_and_caches_lies_on_cuda(cuda):
 def test_two_train_steps_on_the_card_mesh_match_one_process_on_the_card(cuda):
     """``launch.train.run`` on the card's (4, 2) mesh of 8 rank processes
     against one process on the card, reduced qwen3-14b in f32, 2
-    microbatches: loss and gradient norm within 1e-5 relative, every
-    parameter within 1e-4 of its largest magnitude; every rank launched the
-    flash and RMSNorm kernels."""
+    microbatches: loss and gradient norm within 1e-5 relative; each
+    parameter's update (final - initial) within 1e-3 of one process's in
+    relative L2 and every element within lr (AdamW moves a weight by up to lr
+    a step whatever its gradient's size, so an element whose gradient is at
+    the f32 noise of sums in another order moves by a noisy fraction of lr);
+    every rank launched the flash and RMSNorm kernels."""
     cfg = reduced_config(get_config("qwen3-14b"))
     shape = ShapeSpec("t", 16, 4, "train")
     opts = TS.TrainOptions(num_microbatches=2, remat="full", pod_sync="gspmd")
@@ -950,6 +953,11 @@ def test_two_train_steps_on_the_card_mesh_match_one_process_on_the_card(cuda):
         for rank in r["ranks"]:
             assert rank["launches"]["rmsnorm"] > 0 and rank["launches"]["flash_attention_cores"] > 0, rank
             assert rank["peak_bytes"] > 0
-    for (a, b) in zip(leaves(state["params"]), leaves(one_state["params"])):
-        b = b.cpu()
-        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-4 * float(b.abs().max()))
+    init = TS.init_state(cfg, 0, "cuda")["params"]  # the launcher's draw (seed 0) on the card
+    lr = max(r["lr"] for r in one)  # the warmup's largest step
+    for a, b, p0 in zip(leaves(state["params"]), leaves(one_state["params"]), leaves(init)):
+        a, b, p0 = a.numpy(), b.cpu().numpy(), p0.cpu().numpy()
+        du, dw = a - p0, b - p0
+        assert np.abs(dw).max() > lr  # every leaf moved
+        assert np.linalg.norm(du - dw) <= 1e-3 * np.linalg.norm(dw)
+        np.testing.assert_allclose(a, b, rtol=0, atol=lr)

@@ -2,8 +2,8 @@
 of rank processes against the JAX package on its mesh.
 
 Every run is spawned once, in a module-scoped fixture, on the CPU
-(``run_ranks(..., "cpu", staged=True)``: the ``staged`` backend takes the
-path it takes on the card, host buffers and gloo).  The JAX side runs once
+(``run_ranks(..., "cpu")``: the ``staged`` backend takes the path it takes
+on the card, host buffers and gloo).  The JAX side runs once
 in a subprocess with 8 host devices (the test process keeps one).
 
 reduced qwen3-14b in f32 (2 layers, d=64, 4 heads, 1 kv head): the JAX
@@ -20,6 +20,7 @@ staged backend, restores and pods bit for bit.
 
 import contextlib
 import dataclasses
+import importlib.util
 import io
 import json
 import os
@@ -55,6 +56,7 @@ ARCH = "qwen3-14b"
 CFG = reduced_config(get_config(ARCH))
 SHAPE = ShapeSpec("mesh", 16, 4, "train")
 STEPS = 2
+SAMPLES = 64  # elements of each parameter that ``param_samples`` takes (fewer than most leaves hold)
 ADAMW = dict(lr=3e-3, warmup_steps=2)
 OPTS = TS.TrainOptions(num_microbatches=2, remat="full", pod_sync="gspmd",
                        adamw=dataclasses.replace(TS.TrainOptions().adamw, **ADAMW))
@@ -179,12 +181,13 @@ def trains(jax_ref, tmp_path_factory):
     quiet = lambda _: None
     out = {}
     out["mesh"] = LT.run(CFG, SHAPE, OPTS, "cpu", steps=STEPS, log_every=1, log=quiet,
-                         ckpt_dir=_copy_init(jax_ref, tmp, "mesh"), mesh=LT.mesh_for(8))
+                         ckpt_dir=_copy_init(jax_ref, tmp, "mesh"), mesh=LT.mesh_for(8), samples=SAMPLES)
     out["one"] = LT.run(CFG, SHAPE, OPTS, "cpu", steps=STEPS, log_every=1, log=quiet,
-                        ckpt_dir=_copy_init(jax_ref, tmp, "one"))
+                        ckpt_dir=_copy_init(jax_ref, tmp, "one"), samples=SAMPLES)
     hoplite = dataclasses.replace(OPTS, pod_sync="hoplite_chain")
     out["hoplite"] = LT.run(CFG, SHAPE, hoplite, "cpu", steps=STEPS, log_every=1, log=quiet,
-                            ckpt_dir=_copy_init(jax_ref, tmp, "hoplite"), mesh=LT.mesh_for(8, multi_pod=True))
+                            ckpt_dir=_copy_init(jax_ref, tmp, "hoplite"), mesh=LT.mesh_for(8, multi_pod=True),
+                            samples=SAMPLES)
     argv = ["--arch", ARCH, "--reduced", "--device", "cpu", "--steps", str(STEPS), "--log-every", "1",
             "--seq-len", str(SHAPE.seq_len), "--global-batch", str(SHAPE.global_batch), "--microbatches", "2"]
     out["gspmd_main"] = run_main(LT.main, argv + ["--devices", "8", "--multi-pod", "--pod-sync", "gspmd",
@@ -205,7 +208,7 @@ STAGED_CASES = [f"{kind}/{dt}" for dt in ("float32", "bfloat16")
 
 @pytest.fixture(scope="module")
 def staged():
-    return G.run_ranks(cases.staged_collective_cases, 8, "cpu", 0, staged=True, timeout=300)
+    return G.run_ranks(cases.staged_collective_cases, 8, "cpu", 0, timeout=300)
 
 
 @pytest.mark.parametrize("case", STAGED_CASES)
@@ -234,7 +237,7 @@ def test_the_staged_backend_counts_what_it_carries_and_refuses_what_it_lacks(sta
 
 @pytest.fixture(scope="module")
 def placed():
-    return G.run_ranks(cases.placed_devices, 8, "cpu", ARCH, staged=True, timeout=300)
+    return G.run_ranks(cases.placed_devices, 8, "cpu", ARCH, timeout=300)
 
 
 def test_no_rank_holds_more_than_one_whole_leaf_while_the_state_is_placed(placed):
@@ -253,15 +256,15 @@ def test_check_on_mesh_refuses_a_block_from_another_device():
     mesh = M.AbstractMesh((4, 2), M.AXES)
     fake = type("Mesh", (), {"device_type": "cuda", "mesh_dim_names": mesh.mesh_dim_names})()
     with pytest.raises(RuntimeError, match="would be moved"):
-        M.check_on_mesh(torch.zeros(2), fake)
-    assert M.check_on_mesh(torch.zeros(2), type("Mesh", (), {"device_type": "cpu"})()) is not None
+        placement.check_on_mesh(torch.zeros(2), fake)
+    assert placement.check_on_mesh(torch.zeros(2), type("Mesh", (), {"device_type": "cpu"})()) is not None
 
 
 def test_the_mesh_takes_the_card_unless_the_cpu_is_asked_for(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        M.mesh_device()
-    assert M.mesh_device("cpu") == torch.device("cpu")
+        placement.mesh_device()
+    assert placement.mesh_device("cpu") == torch.device("cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -308,6 +311,31 @@ def test_the_mesh_train_step_matches_one_process(trains, jax_ref):
             np.testing.assert_allclose(r[key], w[key], rtol=1e-5, err_msg=f"step {r['step']} {key}")
     _, init = Checkpointer(str(jax_ref / "init")).restore(TS.abstract_state(CFG), device="cpu")
     assert_updates_agree(state["params"], one_state["params"], init["params"], "one process")
+
+
+@pytest.mark.parametrize("run", ["mesh", "one", "hoplite"])
+def test_the_last_record_samples_the_same_elements_of_the_final_parameters(trains, run):
+    """``param_samples`` on a mesh (gathered on rank 0) and in one process
+    take the same elements: those of the final state, bit for bit."""
+    state, recs = trains[run]
+    got, want = recs[-1]["param_samples"], LT.param_samples(state["params"], SAMPLES, 0)
+    assert got.keys() == want.keys()
+    for name in want:
+        assert np.array_equal(got[name], want[name]), name
+    assert any(v.size == SAMPLES for v in want.values()) and any(v.size < SAMPLES for v in want.values())
+
+
+def test_the_smokes_update_check_passes_the_mesh_and_fails_a_state_left_unchanged(trains, jax_ref):
+    """chip_smoke.py's ``update_gaps`` on the samples: the mesh's updates
+    within 1e-3 of one process's, the initial state's at 1 (no update)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    CS = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(CS)
+    _, init = Checkpointer(str(jax_ref / "init")).restore(TS.abstract_state(CFG), device="cpu")
+    p0 = LT.param_samples(init["params"], SAMPLES, 0)
+    one = trains["one"][1][-1]["param_samples"]
+    assert max(CS.update_gaps(p0, trains["mesh"][1][-1]["param_samples"], one).values()) <= 1e-3
+    assert set(CS.update_gaps(p0, p0, one).values()) == {1.0}
 
 
 def test_every_rank_records_its_step_and_the_staged_collectives(trains):
@@ -373,7 +401,7 @@ def restored(trains):
     """The mesh run's final checkpoint (written from (4, 2)) restored onto a
     (2, 2) mesh of 4 ranks and gathered back."""
     d = str(trains["dirs"]["mesh"])
-    return G.run_ranks(cases.restore_gathered, 4, "cpu", d, ARCH, (2, 2), staged=True, timeout=300)[0]
+    return G.run_ranks(cases.restore_gathered, 4, "cpu", d, ARCH, (2, 2), timeout=300)[0]
 
 
 def test_a_checkpoint_from_4x2_restores_onto_2x2_and_one_process_bit_for_bit(trains, restored):

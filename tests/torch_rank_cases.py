@@ -284,7 +284,7 @@ def _as_numpy(tree):
 
 
 # ---------------------------------------------------------------------------
-# the staged backend and the mesh program (run_ranks(..., staged=True))
+# the staged backend and the mesh program
 # ---------------------------------------------------------------------------
 
 STAGED_DTYPES = (torch.float32, torch.bfloat16)
@@ -392,7 +392,8 @@ def placed_devices(dev, arch: str):
     device types of every local block, the most whole leaves a rank held
     while the state was placed, and whether ``check_on_mesh`` refused a block
     from the other device."""
-    from repro_torch.launch.mesh import check_on_mesh, make_debug_mesh
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.sharding.placement import check_on_mesh
     from repro_torch.data import pipeline
     from repro_torch.serving.engine import Engine, ServeOptions
     from repro_torch.sharding import partitioning, placement
