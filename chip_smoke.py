@@ -8,9 +8,32 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
 shapes and the sweeps of tests/test_kernels.py (flash attention's output and
 log-sum-exp on both routes, at every head dim of the tensor-core route, its
 autograd backward against the CPU's, and the flash at every serve run's
-prefill shape), times RMSNorm against ``F.rms_norm``, the flash forward at
-the serve, train and prefill shapes against SDPA (with a window as a boolean
-mask), then drives these paths:
+prefill shape; ``chunk_reduce`` in f32, bf16 and f16), times RMSNorm against
+``F.rms_norm``, the flash forward at the serve, train and prefill shapes
+against SDPA (with a window as a boolean mask), ``chunk_reduce`` at the
+sync's hop and in f16 at the data plane's fold windows against
+``torch.add``, then drives these paths (``--only a,b`` drives the named
+ones alone):
+
+- dataplane: Hoplite's data plane (``core/local.LocalCluster``, 8 nodes
+  whose stores lie on the card, inproc): at the paper's object sizes (1 KB,
+  32 KB, 1 MB, 32 MB, 1 GiB) a broadcast from node 0 to the other 7, a
+  reduce of one object a node and an allreduce, in f32 with integer-valued
+  data, each exact; a random f32 reduce at 32 MB against an f64 sum; bf16
+  and f16 reduces at 32 MB with every fold window's ``chunk_reduce`` held
+  bit for bit to its plain version on that window; at 1 GiB a paced chain
+  whose tail is killed past half the target's watermark, which must
+  re-splice and stay exact; the socket backend's broadcast and reduce at 32
+  MB on 4 nodes.  Each operation prints its wall ms, GB/s, windows, peak
+  memory and the SUM folds the cluster counted against the change in
+  ``chunk_reduce``'s launches, which must be equal.
+- asgd: the asynchronous parameter server
+  (``repro_torch.examples.async_parameter_server``) at the JAX example's
+  defaults (its losses must fall below 0.7 of the first), then on 8 nodes
+  and 8 workers at 25,557,032 parameters (102.2 MB objects, ResNet-50's
+  count), 16 samples a shard drawn on the card, the first 4 finishers
+  reduced each round, 12 rounds and a node killed after round 6: the loss
+  must fall below 0.7 of the first with at least one task re-executed.
 
 - serve: qwen3-14b at full width (40 layers, d=5120, bf16 weights drawn on
   the card from seed 0), 4 prompts of 512 tokens, 32 greedy tokens each, with
@@ -124,13 +147,15 @@ mask), then drives these paths:
   remat, 2 steps) on qwen3-14b's layer widths with its vocabulary cut to
   32,768: at 151,936 the embedding, split over the model axis only, holds
   3.89 GB of weights and f32 moments a rank, and 8 ranks run out of the card
-  even at 1 layer in 1 microbatch (``chip_mesh_fit.py``).  4 layers on (data
+  even at 1 layer in 1 microbatch (``chip_mesh_fit.py``).  2 layers on (data
   4, model 2); 2 layers on (pod 2, data 2, model 2) under ``hoplite_chain``
   (the hop kernel on each rank's local blocks, the pods' blocks bit for bit
   the same) and ``gspmd``; sampled parameters' updates held against one
   process's.  Serve
   (``launch.serve.serve(devices=8)``) qwen3-14b at full width cut to 4
-  layers, 4 x 512 tokens and 4 greedy tokens.  Each rank's launches are
+  layers, 4 x 512 tokens and 4 greedy tokens (the training on (data 4,
+  model 2) ran 4 layers before the dataplane and asgd phases came).  Each
+  rank's launches are
   predicted, its ``max_memory_allocated`` held within 10% of the dry run's
   per-device prediction (fake ``cuda`` tensors on a fake mesh), and the
   metrics, logits and first tokens against one process's on the card; the
@@ -170,6 +195,7 @@ SPIN_CYCLES = 200_000
 # tests/test_kernels.py:16-17, used as both rtol and atol; the log-sum-exp
 # (f32 from either type) is held to the same numbers, absolute
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+TOL["float16"] = 1e-3  # f16's 10-bit mantissa; chunk_reduce is held bit for bit anyway
 
 FLASH_CASES = [
     # (B, H, Kh, Sq, Skv, D, causal, window): tests/test_kernels.py:24-32
@@ -633,7 +659,7 @@ def check_chunk_reduce(torch, cr, ref, gen, nchunks: int, chunk: int):
             raise AssertionError(f"chunk_reduce {what}: not bit for bit the plain version")
 
     for n in (17, 4096, 100_000):
-        for dtype in ("float32", "bfloat16"):
+        for dtype in ("float32", "bfloat16", "float16"):
             dt = getattr(torch, dtype)
             for alpha in (1.0, 0.5):
                 for into in ("new", "dst"):
@@ -643,7 +669,7 @@ def check_chunk_reduce(torch, cr, ref, gen, nchunks: int, chunk: int):
                     got = cr.chunk_reduce(dst, src, alpha, out=dst if into == "dst" else None)
                     compare(torch, f"chunk_reduce n={n} {dtype} alpha={alpha} out={into}", got, want, dtype)
                     same(f"n={n} {dtype}", got, want)
-    for dtype in ("float32", "bfloat16"):
+    for dtype in ("float32", "bfloat16", "float16"):
         dt = getattr(torch, dtype)
         rows = torch.randn(8, 10_007, generator=gen, device="cuda").to(dt)
         for k in range(8):
@@ -657,7 +683,7 @@ def check_chunk_reduce(torch, cr, ref, gen, nchunks: int, chunk: int):
         for off in range(16 // dst.element_size()):
             src = big[off : off + 10_007]
             same(f"src offset {off} {dtype}", cr.chunk_reduce(dst, src, 0.5), ref.chunk_reduce_ref(dst, src, 0.5))
-    log("[kernels] chunk_reduce: bit for bit at every row of (8, 10007) and every src offset, bf16 and f32")
+    log("[kernels] chunk_reduce: bit for bit at every row of (8, 10007) and every src offset, f32, bf16 and f16")
 
     buf = torch.randn(nchunks, chunk, generator=gen, device="cuda").to(torch.bfloat16)
     dst = buf[1]
@@ -688,6 +714,34 @@ def check_chunk_reduce(torch, cr, ref, gen, nchunks: int, chunk: int):
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
         "aligned_ms": aligned, "aligned_library_ms": aligned_lib,
     }
+
+
+def check_chunk_reduce_f16(torch, cr, ref, gen):
+    """The f16 instance at the data plane's fold windows: a window of the
+    32 MB object (2 MB: ``max(chunk, size/16)`` rounded to 64 bytes) and of
+    the 1 GiB one (64 MB), folded in place as a fold writes its output
+    window, against the plain version and ``torch.add(out=dst)``."""
+    out = {}
+    for obj, nbytes in (("32 MB", 2 << 20), ("1 GiB", 64 << 20)):
+        n = nbytes // 2
+        dst = torch.randn(n, generator=gen, device="cuda").half()
+        src = torch.randn(n, generator=gen, device="cuda").half()
+        want = ref.chunk_reduce_ref(dst, src, 1.0)
+        got = cr.chunk_reduce(dst, src, 1.0, out=dst)
+        err = compare(torch, f"chunk_reduce f16 window of the {obj} object ({n},) out=dst", got, want, "float16")
+        if not torch.equal(got, want):
+            raise AssertionError("chunk_reduce f16: not bit for bit the plain version")
+        ms = time_ms(torch, lambda: cr.chunk_reduce(dst, src, 1.0, out=dst))
+        plain = time_ms(torch, lambda: ref.chunk_reduce_ref(dst, src, 1.0))
+        lib = time_ms(torch, lambda: torch.add(dst, src, out=dst))
+        b_ms, b_by = bound(3 * nbytes, 2 * n, "float32")
+        log(f"[kernels] chunk_reduce f16 ({n},) in place, a fold window of the {obj} object: kernel {ms:.4f} ms, "
+            f"plain {plain:.4f} ms, torch.add(out=dst) {lib:.4f} ms ({ms / lib:.3f}x), bound {b_ms:.4f} ms ({b_by})")
+        key = "f16" if obj == "32 MB" else "f16_1gib_window"
+        out.update({f"{key}_shape": f"({n},) f16 in place", f"{key}_ms": ms, f"{key}_plain_ms": plain,
+                    f"{key}_library_ms": lib, f"{key}_bound_ms": b_ms, f"{key}_bound_by": b_by,
+                    f"{key}_max_abs_err": err})
+    return out
 
 
 def check_dequant_add(torch, cr, ref, compression, gen, leaf: int):
@@ -1704,7 +1758,7 @@ def pods(torch, card: str):
 # MESH_POD_LAYERS on (pod 2, data 2, model 2).  Serve: qwen3-14b at full width
 # cut to MESH_SERVE_LAYERS on (data 4, model 2), MESH_SERVE (batch, prompt,
 # greedy tokens, max_seq).
-MESH_VOCAB, MESH_LAYERS, MESH_POD_LAYERS = 32768, 4, 2
+MESH_VOCAB, MESH_LAYERS, MESH_POD_LAYERS = 32768, 2, 2
 MESH_SEQ, MESH_BATCH, MESH_MICRO, MESH_STEPS = 2048, 4, 2, 2
 MESH_SERVE_LAYERS, MESH_SERVE = 4, (4, 512, 4, 1024)
 MESH_RANKS = 8
@@ -2269,6 +2323,362 @@ def device_profile(torch, fn, label: str, wall_ms: float, top: int = 6):
     return busy, {k: t / 1e3 for k, t in kinds.items()}
 
 
+# The data plane (core/local.py) on the card: LocalCluster's nodes are host
+# threads whose stores all lie on the card.  DP_SIZES are the paper's object
+# sizes (benchmarks/common.py:15, PAPER_SIZES: read, not imported), each
+# broadcast from node 0 to the other DP_NODES - 1, reduced (one object a
+# node) and allreduced in f32 with integer-valued data drawn from SEED, so
+# that any arrival order sums them exactly.  A random f32 reduce at
+# DP_CHECK_BYTES is held to an f64 sum at DP_RANDOM_RTOL; bf16 and f16
+# reduces at DP_CHECK_BYTES hold every fold window's chunk_reduce bit for bit
+# to chunk_reduce_ref at the window the data plane gave it.  At
+# DP_KILL_BYTES a 1-D chain of DP_NODES - 2 sources is paced (DP_KILL_PACE
+# seconds a chunk window) and its tail killed once the target's watermark
+# passes half: the reduce must re-splice and stay exact.  The socket backend
+# broadcasts and reduces DP_SOCKET_BYTES on DP_SOCKET_NODES nodes.
+DP_NODES = 8
+DP_SIZES = (1 << 10, 32 << 10, 1 << 20, 32 << 20, 1 << 30)
+DP_CHECK_BYTES = 32 << 20
+DP_RANDOM_RTOL = 2e-5
+DP_KILL_BYTES, DP_KILL_PACE = 1 << 30, 0.002
+DP_SOCKET_NODES, DP_SOCKET_BYTES = 4, 32 << 20
+DP_UNIT_ROUNDOFF = {"bfloat16": 2.0 ** -8, "float16": 2.0 ** -11}
+
+
+def dp_ints(torch, gen, nbytes: int):
+    return torch.randint(-1000, 1000, (nbytes // 4,), generator=gen, device="cuda").float()
+
+
+def dp_min_folds(c, nbytes: int, sources: int) -> int:
+    """The fewest SUM folds a reduce of ``sources`` objects of ``nbytes``
+    can take: ``sources - 1`` for each window of the object, windows being
+    ``max(chunk, size/16)`` rounded up to 64 bytes (``local._stream_fold``);
+    a window splits where an input's watermark lags."""
+    from repro_torch.core.local import PIPELINE_MIN_WINDOWS
+
+    cap = max(c.chunk_size_for(nbytes), -(-nbytes // PIPELINE_MIN_WINDOWS))
+    cap += (-cap) % 64
+    return (sources - 1) * -(-nbytes // cap)
+
+
+def dp_measure(torch, c, what: str, nbytes: int, moved: int, fn, card: str, min_folds: int = 0) -> dict:
+    """Run ``fn`` (one data-plane operation on ``c``) and report: wall ms
+    (host clock, the device synchronised after), GB/s (``moved`` bytes over
+    the wall time), the windows (copy and fold), the SUM folds the cluster
+    counted (``fold_ops``: each one ``chunk_reduce`` launch for f32, bf16 and
+    f16, and at least ``min_folds``) against the kernel's launches, and the
+    peak memory."""
+    from repro_torch.core.api import SUM
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    s0 = c.stats
+    ops.reset_launch_counts()
+    SUM.reset_counts()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    s1 = c.stats
+    launches = ops.launch_counts()["chunk_reduce"]
+    folds = s1["fold_ops"] - s0["fold_ops"]
+    rec = {"bytes": nbytes, "wall_ms": wall * 1e3, "GBps": moved / wall / 1e9, "windows": s1["windows"] - s0["windows"],
+           "sum_folds": folds, "chunk_reduce": launches, "resplices": s1["resplices"] - s0["resplices"],
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    log(f"[dataplane] {what}: {rec['wall_ms']:.3f} ms, {rec['GBps']:.3f} GB/s ({moved} bytes moved), "
+        f"{rec['windows']} windows, SUM folds {folds} (at least {min_folds}) against chunk_reduce launches "
+        f"{launches}, max_memory_allocated {rec['peak_bytes'] / 1e9:.3f} GB, on {card}")
+    if launches != folds or SUM.counts.get("chunk_reduce", 0) != folds or folds < min_folds:
+        raise AssertionError(f"dataplane {what}: {folds} SUM folds, {launches} kernel launches, SUM {SUM.counts}")
+    return rec
+
+
+def dp_paper_sizes(torch, gen, card: str) -> dict:
+    from repro_torch.core.api import SUM
+    from repro_torch.core.local import LocalCluster
+
+    out = {}
+    for nbytes in DP_SIZES:
+        c = LocalCluster(DP_NODES, device="cuda")
+        recv = DP_NODES - 1
+        c.put(0, "b", dp_ints(torch, gen, nbytes))
+
+        def bcast():
+            for f in [c.prefetch_async(i, "b") for i in range(1, DP_NODES)]:
+                f.result(timeout=600)
+
+        rec = {"broadcast": dp_measure(torch, c, f"{nbytes} B f32 broadcast, node 0 to {recv}", nbytes,
+                                       recv * nbytes, bcast, card)}
+        src = c.get(0, "b")
+        for i in range(1, DP_NODES):
+            if not torch.equal(c.get(i, "b"), src):
+                raise AssertionError(f"dataplane broadcast of {nbytes} B: node {i}'s copy differs")
+        c.delete("b")
+        ids = [f"g{i}" for i in range(DP_NODES)]
+        want = torch.zeros(nbytes // 4, device="cuda")
+        for i, oid in enumerate(ids):
+            x = dp_ints(torch, gen, nbytes)
+            want += x  # integers under 2^24: exact
+            c.put(i, oid, x)
+            del x
+        least = dp_min_folds(c, nbytes, DP_NODES)
+        rec["reduce"] = dp_measure(torch, c, f"{nbytes} B f32 reduce of {DP_NODES} into node 0", nbytes,
+                                   DP_NODES * nbytes, lambda: c.reduce(0, "r", ids, SUM, timeout=600), card, least)
+        if not torch.equal(c.get(0, "r"), want):
+            raise AssertionError(f"dataplane reduce of {nbytes} B: not the exact sum")
+        c.delete("r")
+        nodes = list(range(DP_NODES))
+        rec["allreduce"] = dp_measure(torch, c, f"{nbytes} B f32 allreduce over {DP_NODES}", nbytes,
+                                      2 * DP_NODES * nbytes,
+                                      lambda: c.allreduce(nodes, "ar", ids, SUM, timeout=600), card, least)
+        for i in nodes:
+            if not torch.equal(c.get(i, "ar"), want):
+                raise AssertionError(f"dataplane allreduce of {nbytes} B: node {i} not the exact sum")
+        c.shutdown()
+        del c, src, want
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[nbytes] = rec
+    return out
+
+
+def dp_checked_sum(torch, ref, checks: list):
+    """A reduce op that folds with SUM and holds each of its ``chunk_reduce``
+    launches bit for bit to the plain version on the same window (computed
+    first: ``out`` may be ``a``)."""
+    from repro_torch.core import api
+
+    def checked(a, b, out=None):
+        want = ref.chunk_reduce_ref(a, b, 1.0)
+        got = api.SUM(a, b) if out is None else api.SUM.into(a, b, out)
+        ok = torch.equal(got, want)
+        checks.append((a.storage_offset() * a.element_size() % 16, a.numel(), ok))
+        if not ok:
+            raise AssertionError(f"chunk_reduce on a {a.dtype} window of {a.numel()}: not the plain version")
+        return got
+
+    return api.ReduceOp("sum, each window checked", checked, into=checked)
+
+
+def dp_mixed(torch, ref, gen, card: str) -> dict:
+    """The random f32 reduce against f64, and bf16 and f16 reduces whose
+    every fold window is held to the plain version."""
+    from repro_torch.core import api
+    from repro_torch.core.local import LocalCluster
+
+    out = {}
+    n = DP_CHECK_BYTES // 4
+    c = LocalCluster(DP_NODES, device="cuda")
+    want = torch.zeros(n, dtype=torch.float64, device="cuda")
+    for i in range(DP_NODES):
+        x = torch.randn(n, generator=gen, device="cuda")
+        want += x.double()
+        c.put(i, f"f{i}", x)
+    ids = [f"f{i}" for i in range(DP_NODES)]
+    out["float32_random"] = dp_measure(torch, c, f"{DP_CHECK_BYTES} B random f32 reduce", DP_CHECK_BYTES,
+                                       DP_NODES * DP_CHECK_BYTES,
+                                       lambda: c.reduce(0, "r", ids, api.SUM, timeout=600), card)
+    got = c.get(0, "r").double()
+    err = float((got - want).abs().max())
+    log(f"[dataplane] random f32 reduce against the f64 sum: max abs err {err:.3e} (rtol = atol = {DP_RANDOM_RTOL})")
+    if not torch.allclose(got, want, rtol=DP_RANDOM_RTOL, atol=DP_RANDOM_RTOL):
+        raise AssertionError(f"dataplane random f32 reduce: {err} from the f64 sum")
+    out["float32_random"]["max_abs_err_vs_f64"] = err
+    c.shutdown()
+    for dtype in ("bfloat16", "float16"):
+        dt = getattr(torch, dtype)
+        n = DP_CHECK_BYTES // 2
+        c = LocalCluster(DP_NODES, device="cuda")
+        xs = [torch.randn(n, generator=gen, device="cuda").to(dt) for _ in range(DP_NODES)]
+        for i, x in enumerate(xs):
+            c.put(i, f"h{i}", x)
+        ids = [f"h{i}" for i in range(DP_NODES)]
+        checks = []
+        op = dp_checked_sum(torch, ref, checks)
+        rec = dp_measure(torch, c, f"{DP_CHECK_BYTES} B {dtype} reduce, each window checked", DP_CHECK_BYTES,
+                         DP_NODES * DP_CHECK_BYTES, lambda: c.reduce(0, "r", ids, op, timeout=600), card)
+        got = c.get(0, "r").double()
+        exact = torch.stack([x.double() for x in xs]).sum(0)
+        # each of the k - 1 folds rounds once: |error| <= (k - 1) u sum |x_i|
+        slack = (DP_NODES - 1) * DP_UNIT_ROUNDOFF[dtype] * torch.stack([x.double().abs() for x in xs]).sum(0)
+        within = bool(((got - exact).abs() <= slack).all())
+        offsets = sorted({o for o, _, _ in checks})
+        log(f"[dataplane] {dtype}: {len(checks)} fold windows, each bit for bit the plain version (window start "
+            f"offsets from 16 bytes: {offsets}; {len({m for _, m, _ in checks})} window sizes); the result within "
+            f"(k-1) u sum|x| of the exact sum: {within}")
+        if len(checks) != rec["sum_folds"] or not all(ok for _, _, ok in checks) or not within:
+            raise AssertionError(f"dataplane {dtype}: {len(checks)} checked windows, {rec['sum_folds']} folds, "
+                                 f"within the rounding bound {within}")
+        rec["windows_checked"] = len(checks)
+        out[dtype] = rec
+        c.shutdown()
+        del c, xs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_kill(torch, gen, card: str) -> dict:
+    """A paced 1-D chain of DP_NODES - 2 sources at nodes 1.., a second copy
+    of the tail's source at the last node; the tail is killed once the
+    target's watermark passes half."""
+    import threading
+
+    from repro_torch.core.api import SUM
+    from repro_torch.core.local import LocalCluster
+
+    k, nbytes = DP_NODES - 2, DP_KILL_BYTES
+    c = LocalCluster(DP_NODES, device="cuda", pace=DP_KILL_PACE)
+    want = torch.zeros(nbytes // 4, device="cuda")
+    for i in range(k):
+        x = dp_ints(torch, gen, nbytes)
+        want += x
+        c.put(i + 1, f"g{i}", x)
+        if i == k - 1:
+            c.put(DP_NODES - 1, f"g{i}", x)
+        del x
+    victim = k  # node k holds g_{k-1} and the chain's tail
+    killed = {}
+
+    def kill():
+        deadline = time.time() + 300
+        while time.time() < deadline and "at" not in killed:
+            t = c.stores[0].get("r")
+            if t is not None and t.bytes_present > nbytes // 2 and not t.complete:
+                killed["at"] = t.bytes_present
+                c.fail_node(victim)
+            time.sleep(0.0005)
+
+    killer = threading.Thread(target=kill, daemon=True)
+    killer.start()
+    rec = dp_measure(torch, c, f"{nbytes} B f32 reduce of {k}, paced {DP_KILL_PACE} s a window, the tail (node "
+                     f"{victim}) killed past half", nbytes, k * nbytes,
+                     lambda: c.reduce(0, "r", [f"g{i}" for i in range(k)], SUM, timeout=900), card)
+    killer.join(timeout=60)
+    exact = torch.equal(c.get(0, "r"), want)
+    log(f"[dataplane] kill: node {victim} killed at the target's watermark {killed.get('at')} of {nbytes}; "
+        f"resplices {rec['resplices']}; the result exact: {exact}")
+    if "at" not in killed or rec["resplices"] < 1 or not exact:
+        raise AssertionError(f"dataplane kill: killed {killed}, resplices {rec['resplices']}, exact {exact}")
+    rec["killed_at"] = killed["at"]
+    c.shutdown()
+    del c, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def dp_socket(torch, gen, card: str) -> dict:
+    from repro_torch.core.api import SUM
+    from repro_torch.core.local import LocalCluster
+
+    n, nbytes = DP_SOCKET_NODES, DP_SOCKET_BYTES
+    c = LocalCluster(n, device="cuda", comm_backend="socket")
+    try:
+        c.put(0, "b", dp_ints(torch, gen, nbytes))
+
+        def bcast():
+            for f in [c.prefetch_async(i, "b") for i in range(1, n)]:
+                f.result(timeout=600)
+
+        rec = {"broadcast": dp_measure(torch, c, f"socket backend: {nbytes} B f32 broadcast, node 0 to {n - 1}",
+                                       nbytes, (n - 1) * nbytes, bcast, card)}
+        src = c.get(0, "b")
+        if not all(torch.equal(c.get(i, "b"), src) for i in range(1, n)):
+            raise AssertionError("dataplane socket broadcast: a copy differs")
+        want = torch.zeros(nbytes // 4, device="cuda")
+        for i in range(n):
+            x = dp_ints(torch, gen, nbytes)
+            want += x
+            c.put(i, f"g{i}", x)
+        rec["reduce"] = dp_measure(torch, c, f"socket backend: {nbytes} B f32 reduce of {n}", nbytes, n * nbytes,
+                                   lambda: c.reduce(0, "r", [f"g{i}" for i in range(n)], SUM, timeout=600), card)
+        if not torch.equal(c.get(0, "r"), want):
+            raise AssertionError("dataplane socket reduce: not the exact sum")
+    finally:
+        c.shutdown()
+    return rec
+
+
+def dataplane(torch, ref, card: str):
+    """Hoplite's data plane on the card (see DP_SIZES).  Returns the phase's
+    ``chunk_reduce`` launches and its records."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    sizes = dp_paper_sizes(torch, gen, card)
+    mixed = dp_mixed(torch, ref, gen, card)
+    kill = dp_kill(torch, gen, card)
+    sock = dp_socket(torch, gen, card)
+    recs = [r for by_op in sizes.values() for r in by_op.values()] + list(mixed.values()) + [kill] + list(sock.values())
+    launches = sum(r["chunk_reduce"] for r in recs)
+    if not all(r["chunk_reduce"] > 0 for by_op in sizes.values() for op, r in by_op.items() if op != "broadcast"):
+        raise AssertionError("dataplane: a reduce launched no chunk_reduce")
+    phase_s = time.perf_counter() - t0
+    log(f"[dataplane] phase {phase_s:.1f} s; chunk_reduce launches {launches}, each a SUM fold the cluster counted")
+    return launches, {"sizes": {str(k): v for k, v in sizes.items()}, "checked": mixed, "kill": kill,
+                      "socket": sock, "phase_s": phase_s}
+
+
+# The parameter server (repro_torch/examples/async_parameter_server.py), the
+# paper's flagship workload: first at the JAX example's defaults, then at
+# ASGD_NODES nodes and ASGD_WORKERS workers (the first half of finishers
+# reduced each round) with ResNet-50's parameter count in torchvision, so
+# that every parameter and gradient object is 102.2 MB, ASGD_SAMPLES samples
+# a shard drawn on the card, 12 rounds, the node holding the newest
+# parameters killed after round 6.
+ASGD_NODES, ASGD_WORKERS = 8, 8
+ASGD_DIM = 25_557_032
+ASGD_SAMPLES = 16
+
+
+def asgd(torch, card: str):
+    from repro_torch.examples import async_parameter_server as ps
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    ops.reset_launch_counts()
+    small = ps.run(device="cuda", log=lambda m: log(f"[asgd] defaults: {m}"))
+    small_launches = ops.launch_counts()["chunk_reduce"]
+    ls = small["losses"]
+    log(f"[asgd] defaults (dim {ps.DIM}, {ps.NUM_NODES} nodes, {ps.NUM_WORKERS} workers): loss {ls[0]:.4f} -> "
+        f"{ls[-1]:.4f}, tasks {small['tasks_executed']}, re-executed {small['tasks_reexecuted']}, chunk_reduce "
+        f"launches {small_launches}")
+    if not ls[-1] < 0.7 * ls[0]:
+        raise AssertionError(f"asgd at the defaults: loss {ls[0]} -> {ls[-1]}")
+    small["runtime"].cluster.shutdown()
+    del small
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    big = ps.run(ASGD_NODES, ASGD_WORKERS, ASGD_DIM, ASGD_SAMPLES, device="cuda", data="device",
+                 log=lambda m: log(f"[asgd] dim {ASGD_DIM}: {m}"))
+    launches = ops.launch_counts()["chunk_reduce"]
+    folds = big["runtime"].cluster.stats["fold_ops"]
+    peak = torch.cuda.max_memory_allocated()
+    lb = big["losses"]
+    rec = {"dim": ASGD_DIM, "object_bytes": ASGD_DIM * 4, "nodes": ASGD_NODES, "workers": ASGD_WORKERS,
+           "samples": ASGD_SAMPLES, "lr": big["lr"], "losses": lb, "round_s": big["round_s"],
+           "tasks_executed": big["tasks_executed"], "tasks_reexecuted": big["tasks_reexecuted"],
+           "chunk_reduce": launches, "sum_folds": folds, "peak_bytes": peak,
+           "defaults": {"losses": ls, "chunk_reduce": small_launches}}
+    log(f"[asgd] {ASGD_NODES} nodes, {ASGD_WORKERS} workers, dim {ASGD_DIM} ({ASGD_DIM * 4 / 1e6:.1f} MB objects), "
+        f"{ASGD_SAMPLES} samples a shard: loss {lb[0]:.4f} -> {lb[-1]:.4f} ({lb[-1] / lb[0]:.4f}x), rounds "
+        f"{statistics.median(big['round_s']) * 1e3:.1f} ms median ({min(big['round_s']) * 1e3:.1f}-"
+        f"{max(big['round_s']) * 1e3:.1f}), tasks {big['tasks_executed']}, re-executed {big['tasks_reexecuted']}, "
+        f"chunk_reduce launches {launches} (SUM folds {folds}), max_memory_allocated {peak / 1e9:.2f} GB, on {card}")
+    big["runtime"].cluster.shutdown()
+    del big
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not lb[-1] < 0.7 * lb[0] or rec["tasks_reexecuted"] < 1 or launches != folds or launches == 0:
+        raise AssertionError(f"asgd: loss {lb[0]} -> {lb[-1]}, re-executed {rec['tasks_reexecuted']}, "
+                             f"launches {launches} against {folds} folds")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    return small_launches + launches, rec
+
+
 def stop_resource_tracker() -> None:
     """Stop multiprocessing's resource tracker if it runs.  The sync phase's
     spawned ranks start it, and a Python whose tracker has no finalizer lets it
@@ -2297,7 +2707,22 @@ def check_no_children() -> None:
     log("[card] no child process left")
 
 
-def main() -> int:
+PHASES = ("dataplane", "asgd", "serve", "serve_moe", "serve_dense", "serve_ssm", "serve_encdec", "sync", "train",
+          "dryrun", "ckpt", "pods", "mesh")
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    p = argparse.ArgumentParser(description="Smoke run of the port on one NVIDIA GPU (every phase by default).")
+    p.add_argument("--only", default=",".join(PHASES),
+                   help="comma-separated phases to drive after the build and the kernel checks "
+                        f"(default: all of {', '.join(PHASES)}; dryrun needs train)")
+    args = p.parse_args(argv)
+    only = set(args.only.split(","))
+    if not only <= set(PHASES) or ("dryrun" in only and "train" not in only):
+        p.error(f"--only takes phases of {PHASES}, dryrun with train")
+
     import torch
 
     if not torch.cuda.is_available():
@@ -2345,6 +2770,7 @@ def main() -> int:
     records = [check_rmsnorm(torch, rn, ref, gen), *check_flash(torch, fa, ref, gen, spills),
                check_chunk_reduce(torch, cr, ref, gen, *hop_chunks(cfg, C)),
                check_dequant_add(torch, cr, ref, compression, gen, cfg.d_model * cfg.d_ff)]
+    next(r for r in records if r["name"] == "chunk_reduce").update(check_chunk_reduce_f16(torch, cr, ref, gen))
     check_flash_backward(torch, ops, gen)
     t0 = time.perf_counter()
     prefill_shapes = {f"{arch} {attention}": check_flash_at(torch, fa, ref, gen, arch, attention)
@@ -2360,71 +2786,91 @@ def main() -> int:
     records[1]["serve_dense_shapes"] = prefill_shapes
     gc.collect()
     torch.cuda.empty_cache()
+    by_path = {}  # launches of each kernel on each main path
+
+    # Phase 2b: Hoplite's data plane on the card: every SUM fold window is chunk_reduce.
+    if "dataplane" in only:
+        dp_launches, dp_metrics = dataplane(torch, ref, card)
+        by_path["dataplane"] = {"chunk_reduce": dp_launches}
+        log(f"[dataplane] metrics {json.dumps(dp_metrics)} on {card}")
+
+    # Phase 2c: the asynchronous parameter server over the task runtime.
+    if "asgd" in only:
+        asgd_launches, asgd_metrics = asgd(torch, card)
+        by_path["asgd"] = {"chunk_reduce": asgd_launches}
+        log(f"[asgd] metrics {json.dumps(asgd_metrics)} on {card}")
 
     # Phase 3: serve the full-width model through the port's entry points.
-    counts, metrics = serve(torch, card)
-    log(f"[serve] metrics {json.dumps(metrics)} on {card}")
-    gc.collect()
-    torch.cuda.empty_cache()  # the engine's 30 GB go back before the next phase
+    if "serve" in only:
+        by_path["serve"], metrics = serve(torch, card)
+        log(f"[serve] metrics {json.dumps(metrics)} on {card}")
+        gc.collect()
+        torch.cuda.empty_cache()  # the engine's 30 GB go back before the next phase
 
     # Phase 3b: serve the MoE family at full width, depth cut.
-    t0 = time.perf_counter()
-    dispatch = check_moe_dispatch(torch)
-    log(f"[serve_moe] the dispatch check: {time.perf_counter() - t0:.1f} s")
-    gc.collect()
-    torch.cuda.empty_cache()
-    moe_counts, moe_metrics = serve_moe(torch, card)
-    log(f"[serve_moe] metrics {json.dumps(dict(moe_metrics, dispatch=dispatch))} on {card}")
+    if "serve_moe" in only:
+        t0 = time.perf_counter()
+        dispatch = check_moe_dispatch(torch)
+        log(f"[serve_moe] the dispatch check: {time.perf_counter() - t0:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        by_path["serve_moe"], moe_metrics = serve_moe(torch, card)
+        log(f"[serve_moe] metrics {json.dumps(dict(moe_metrics, dispatch=dispatch))} on {card}")
 
     # Phase 3c: serve the rest of the dense-attention family at full width.
-    dense_counts, dense_metrics = serve_dense(torch, card)
-    log(f"[serve_dense] metrics {json.dumps(dense_metrics)} on {card}")
+    if "serve_dense" in only:
+        by_path["serve_dense"], dense_metrics = serve_dense(torch, card)
+        log(f"[serve_dense] metrics {json.dumps(dense_metrics)} on {card}")
 
     # Phase 3d: serve the SSM families at full width.
-    ssm_counts, ssm_metrics = serve_ssm(torch, card)
-    log(f"[serve_ssm] metrics {json.dumps(ssm_metrics)} on {card}")
+    if "serve_ssm" in only:
+        by_path["serve_ssm"], ssm_metrics = serve_ssm(torch, card)
+        log(f"[serve_ssm] metrics {json.dumps(ssm_metrics)} on {card}")
 
     # Phase 3e: serve the encoder-decoder at full width and depth.
-    encdec_counts, encdec_metrics = serve_encdec(torch, card)
-    log(f"[serve_encdec] metrics {json.dumps(encdec_metrics)} on {card}")
+    if "serve_encdec" in only:
+        by_path["serve_encdec"], encdec_metrics = serve_encdec(torch, card)
+        log(f"[serve_encdec] metrics {json.dumps(encdec_metrics)} on {card}")
 
     # Phase 4: the cross-pod gradient sync on rank processes sharing the card.
-    summary = sync(torch, card)
-    log(f"[sync] metrics {json.dumps(summary)} on {card}")
+    if "sync" in only:
+        summary = sync(torch, card)
+        by_path["sync"] = {"chunk_reduce": sum(summary["methods"]["hoplite_chain"]["chunk_reduce"])}
+        log(f"[sync] metrics {json.dumps(summary)} on {card}")
 
     # Phase 5: the train step at full width, depth cut.
-    train_counts, train_metrics = train(torch, card)
-    log(f"[train] metrics {json.dumps(train_metrics)} on {card}")
-    gc.collect()
-    torch.cuda.empty_cache()
+    if "train" in only:
+        by_path["train"], train_metrics = train(torch, card)
+        log(f"[train] metrics {json.dumps(train_metrics)} on {card}")
+        gc.collect()
+        torch.cuda.empty_cache()
 
     # Phase 5a: the dry run's trace of the train step, against the train phase's peak.
-    dry_metrics = dryrun(torch, card, train_metrics)
-    log(f"[dryrun] metrics {json.dumps(dry_metrics)} on {card}")
+    if "dryrun" in only:
+        dry_metrics = dryrun(torch, card, train_metrics)
+        log(f"[dryrun] metrics {json.dumps(dry_metrics)} on {card}")
 
     # Phase 5b: checkpoint and restart of the train state.
-    ckpt_counts, ckpt_metrics = ckpt(torch, card)
-    log(f"[ckpt] metrics {json.dumps(ckpt_metrics)} on {card}")
-    gc.collect()
-    torch.cuda.empty_cache()
+    if "ckpt" in only:
+        by_path["ckpt"], ckpt_metrics = ckpt(torch, card)
+        log(f"[ckpt] metrics {json.dumps(ckpt_metrics)} on {card}")
+        gc.collect()
+        torch.cuda.empty_cache()
 
     # Phase 5c: the launcher's multi-pod training, each pod a rank process.
-    pod_counts, pod_metrics = pods(torch, card)
-    log(f"[pods] metrics {json.dumps(pod_metrics)} on {card}")
-    gc.collect()
-    torch.cuda.empty_cache()
+    if "pods" in only:
+        by_path["pods"], pod_metrics = pods(torch, card)
+        log(f"[pods] metrics {json.dumps(pod_metrics)} on {card}")
+        gc.collect()
+        torch.cuda.empty_cache()
 
     # Phase 5d: the launchers over the debug mesh, 8 rank processes on the card.
-    mesh_counts, mesh_metrics = mesh(torch, card)
-    log(f"[mesh] metrics {json.dumps(mesh_metrics)} on {card}")
+    if "mesh" in only:
+        by_path["mesh"], mesh_metrics = mesh(torch, card)
+        log(f"[mesh] metrics {json.dumps(mesh_metrics)} on {card}")
 
     stop_resource_tracker()
     check_no_children()
-
-    # launches of each kernel on each main path (each flash record: its route's)
-    by_path = {"serve": counts, "serve_moe": moe_counts, "serve_dense": dense_counts, "serve_ssm": ssm_counts,
-               "serve_encdec": encdec_counts, "sync": {"chunk_reduce": sum(summary["methods"]["hoplite_chain"]["chunk_reduce"])},
-               "train": train_counts, "ckpt": ckpt_counts, "pods": pod_counts, "mesh": mesh_counts}
     for r in records:
         name = "flash_attention_tc" if r["name"] == "flash_attention" else r["name"]
         r["launches_by_path"] = {path: c.get(name, 0) for path, c in by_path.items()}

@@ -1,8 +1,9 @@
 """Wrappers of the hand-written CUDA chunk-accumulate kernels (``csrc/chunk_reduce.cu``).
 
 Counterpart of ``repro.kernels.chunk_reduce``: ``chunk_reduce`` is the hop of
-every reduce chain in ``core.collectives`` (``out = dst + alpha * src``, f32
-math, out in dst's type); ``dequant_add`` adds an int8 block-quantized payload
+every reduce chain in ``core.collectives`` and every window of a SUM fold in
+the data plane (``core.local``): ``out = dst + alpha * src``, f32 math, out
+in dst's type, for f32, bf16 and f16; ``dequant_add`` (f32 and bf16) adds an int8 block-quantized payload
 (``optim.compression``'s layout).  Both take CUDA tensors only; the plain
 versions for CPU tensors are in ``ref`` (see ``ops``).  Neither pads: the
 kernels mask the ragged tail.
@@ -12,13 +13,16 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Optional
 
 import torch
 
 from repro_torch.kernels import _build
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_DEQUANT_DTYPES = (torch.float32, torch.bfloat16)
+_count_lock = threading.Lock()  # the data plane launches from many threads
 
 # Launches of each kernel in this process; ``ops.reset_launch_counts`` zeroes them.
 chunk_reduce_launches = 0
@@ -43,11 +47,11 @@ def _fn(name: str):
     return fn
 
 
-def _check_dst(dst: torch.Tensor, what: str) -> None:
+def _check_dst(dst: torch.Tensor, what: str, dtypes) -> None:
     if dst.device.type != "cuda":
         raise ValueError(f"{what} kernel takes CUDA tensors, got dst on {dst.device}")
-    if dst.dtype not in _DTYPES:
-        raise TypeError(f"{what} kernel takes a float32 or bfloat16 dst, got {dst.dtype}")
+    if dst.dtype not in dtypes:
+        raise TypeError(f"{what} kernel takes a dst of {', '.join(map(str, dtypes))}, got {dst.dtype}")
     if not dst.is_contiguous():
         raise ValueError(f"{what} kernel takes contiguous tensors")
 
@@ -56,7 +60,7 @@ def chunk_reduce(dst: torch.Tensor, src: torch.Tensor, alpha: float = 1.0,
                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``dst + alpha * src`` in f32, in dst's type, written to ``out`` (which may be ``dst``)."""
     global chunk_reduce_launches
-    _check_dst(dst, "chunk_reduce")
+    _check_dst(dst, "chunk_reduce", tuple(_DTYPES))
     if src.device != dst.device or src.dtype != dst.dtype or src.shape != dst.shape:
         raise ValueError(f"chunk_reduce kernel: src ({src.dtype} {tuple(src.shape)} on {src.device}) "
                          f"must match dst ({dst.dtype} {tuple(dst.shape)} on {dst.device})")
@@ -71,7 +75,8 @@ def chunk_reduce(dst: torch.Tensor, src: torch.Tensor, alpha: float = 1.0,
                                   float(alpha), _DTYPES[dst.dtype], stream)
     if err != 0:
         raise RuntimeError(f"chunk_reduce kernel launch failed: cudaError {err}")
-    chunk_reduce_launches += 1
+    with _count_lock:
+        chunk_reduce_launches += 1
     return out
 
 
@@ -79,7 +84,7 @@ def dequant_add(dst: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, qblock:
     """``dst + q * scale[block]`` in f32, in dst's type: q int8 flat, padded to a
     multiple of ``qblock`` and at least dst's size; one f32 scale per block."""
     global dequant_add_launches
-    _check_dst(dst, "dequant_add")
+    _check_dst(dst, "dequant_add", _DEQUANT_DTYPES)
     if q.device != dst.device or scale.device != dst.device:
         raise ValueError(f"dequant_add kernel takes CUDA tensors on one device, got {q.device} and {scale.device}")
     if q.dtype != torch.int8 or scale.dtype != torch.float32:

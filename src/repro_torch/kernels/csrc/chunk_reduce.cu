@@ -11,13 +11,16 @@
 // share of a scale in place of src), so the least time is those bytes at
 // 3.35 TB/s, and nothing is kept that could save a pass.
 //
-// Design of chunk_reduce: 16-byte loads and stores, on any alignment.  A chain
+// Design of chunk_reduce: 16-byte loads and stores, on any alignment, for
+// f32, bf16 and f16 alike (4 or 8 elements a word).  The data plane
+// (core/local.py) folds each window of a reduce hop with it, at any
+// element-aligned offset of its buffers, resumed from any watermark.  A chain
 // hop accumulates into row k of a (C, chunk) buffer: with an odd chunk of bf16
 // the row starts 2-byte aligned on every odd k, while src is a fresh, aligned
 // tensor, so the three pointers are aligned independently.  The kernel aligns
 // on `out`: a scalar head brings `out` to a 16-byte boundary, then each thread
 // of a grid-stride loop (at most kMaxBlocks blocks of kThreads) writes
-// 16 aligned bytes of `out` per step (8 bf16 or 4 f32).  dst and src are read
+// 16 aligned bytes of `out` per step (8 bf16 or f16, or 4 f32).  dst and src are read
 // with aligned 16-byte loads of the window that covers those bytes, one load
 // where the pointer shares `out`'s alignment and two otherwise, and realigned
 // in registers with __funnelshift_r.  A scalar tail takes the rest, so any n
@@ -35,6 +38,7 @@
 // C interface (loaded with ctypes): each entry point returns cudaGetLastError().
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -45,17 +49,22 @@ constexpr long long kMaxBlocks = 132 * 16;  // 16 blocks of 256 threads on each 
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_float(__half v) { return __half2float(v); }
 template <typename T> __device__ __forceinline__ T from_float(float v);
 template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, as torch's .to(bfloat16)
 }
+template <> __device__ __forceinline__ __half from_float<__half>(float v) {
+  return __float2half_rn(v);  // round to nearest even, as torch's .to(float16) and numpy
+}
 
-__device__ __forceinline__ void unpack(uint4 w, float (&f)[4]) {
+// The last argument picks the element type of the 16 bytes.
+__device__ __forceinline__ void unpack(uint4 w, float (&f)[4], float) {
   f[0] = __uint_as_float(w.x); f[1] = __uint_as_float(w.y);
   f[2] = __uint_as_float(w.z); f[3] = __uint_as_float(w.w);
 }
-__device__ __forceinline__ void unpack(uint4 w, float (&f)[8]) {
+__device__ __forceinline__ void unpack(uint4 w, float (&f)[8], __nv_bfloat16) {
   const uint32_t u[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {  // bf16 -> f32 is exact: the high half of the f32 bits
@@ -63,15 +72,33 @@ __device__ __forceinline__ void unpack(uint4 w, float (&f)[8]) {
     f[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
   }
 }
-__device__ __forceinline__ uint4 pack(const float (&f)[4]) {
+__device__ __forceinline__ void unpack(uint4 w, float (&f)[8], __half) {
+  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {  // f16 -> f32 is exact
+    const float2 v = __half22float2(*reinterpret_cast<const __half2*>(&u[i]));
+    f[2 * i] = v.x;
+    f[2 * i + 1] = v.y;
+  }
+}
+__device__ __forceinline__ uint4 pack(const float (&f)[4], float) {
   return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
                     __float_as_uint(f[3]));
 }
-__device__ __forceinline__ uint4 pack(const float (&f)[8]) {
+__device__ __forceinline__ uint4 pack(const float (&f)[8], __nv_bfloat16) {
   uint32_t u[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     __nv_bfloat162 v = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);  // round to nearest even
+    u[i] = *reinterpret_cast<uint32_t*>(&v);
+  }
+  return make_uint4(u[0], u[1], u[2], u[3]);
+}
+__device__ __forceinline__ uint4 pack(const float (&f)[8], __half) {
+  uint32_t u[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    __half2 v = __floats2half2_rn(f[2 * i], f[2 * i + 1]);  // round to nearest even
     u[i] = *reinterpret_cast<uint32_t*>(&v);
   }
   return make_uint4(u[0], u[1], u[2], u[3]);
@@ -123,11 +150,11 @@ chunk_reduce_kernel(const T* dst, const T* __restrict__ src, T* out, long long n
   uint4* o4 = reinterpret_cast<uint4*>(out + head);
   for (long long v = first; v < nvec; v += stride) {
     float d[kVec], s[kVec];
-    unpack(load16(d4 + v, dshift), d);
-    unpack(load16(s4 + v, sshift), s);
+    unpack(load16(d4 + v, dshift), d, T());
+    unpack(load16(s4 + v, sshift), s, T());
 #pragma unroll
     for (int e = 0; e < kVec; ++e) d[e] = __fadd_rn(d[e], __fmul_rn(alpha, s[e]));
-    o4[v] = pack(d);
+    o4[v] = pack(d, T());
   }
 }
 
@@ -157,7 +184,8 @@ unsigned grid_for_vec(long long n) {
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16, for dst, src and out alike.  The
+// dtype codes: 0 = float32, 1 = bfloat16, 2 = float16, for dst, src and out
+// alike (chunk_reduce_fwd; dequant_add_fwd takes 0 and 1).  The
 // wrapper has checked devices, types, sizes and contiguity.
 extern "C" int chunk_reduce_fwd(const void* dst, const void* src, void* out, long long n,
                                 float alpha, int dtype, void* stream) {
@@ -171,6 +199,10 @@ extern "C" int chunk_reduce_fwd(const void* dst, const void* src, void* out, lon
       chunk_reduce_kernel<__nv_bfloat16><<<grid_for_vec<__nv_bfloat16>(n), kThreads, 0, s>>>(
           static_cast<const __nv_bfloat16*>(dst), static_cast<const __nv_bfloat16*>(src),
           static_cast<__nv_bfloat16*>(out), n, alpha);
+    else if (dtype == 2)
+      chunk_reduce_kernel<__half><<<grid_for_vec<__half>(n), kThreads, 0, s>>>(
+          static_cast<const __half*>(dst), static_cast<const __half*>(src),
+          static_cast<__half*>(out), n, alpha);
     else return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

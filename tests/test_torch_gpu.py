@@ -844,6 +844,62 @@ def test_chunk_reduce_with_a_misaligned_src(cuda, dtype, into, n):
     assert ops.launch_counts() == dict(NO_LAUNCHES, chunk_reduce=launches)
 
 
+@pytest.mark.parametrize("into", ["new", "dst"])
+@pytest.mark.parametrize("n", [1, 5, 17, 4099, 100_003])
+def test_chunk_reduce_f16_at_unaligned_windows_matches_plain(cuda, into, n):
+    """The f16 instance, bit for bit: dst and src windows of one buffer at
+    every element offset from a 16-byte boundary (the data plane folds
+    windows of its uint8 buffers, resumed from any element-aligned
+    watermark), with alpha 1 and 0.5."""
+    per = 8
+    buf_d = torch.randn(n + per, generator=cuda, device="cuda").half()
+    buf_s = torch.randn(n + per, generator=cuda, device="cuda").half()
+    launches = 0
+    for d in range(per):
+        for s in (d, (d * 3 + 1) % per):
+            for alpha in (1.0, 0.5):
+                dst = buf_d[d: d + n] if into == "new" else buf_d.clone()[d: d + n]  # offset d either way
+                src = buf_s[s: s + n]
+                want = ref.chunk_reduce_ref(dst, src, alpha)
+                got = ops.chunk_reduce(dst, src, alpha, out=dst if into == "dst" else None)
+                torch.cuda.synchronize()
+                launches += 1
+                assert got.dtype == torch.float16 and torch.equal(got, want), (d, s, alpha)
+    assert ops.launch_counts() == dict(NO_LAUNCHES, chunk_reduce=launches)
+
+
+@pytest.mark.parametrize("op", ["reduce", "allreduce"])
+def test_dataplane_on_the_card_is_exact_through_the_kernel(cuda, op):
+    """A 32 MB f32 reduce (or allreduce) over 8 nodes whose stores lie on
+    the card, integer-valued data: the exact sum on every node, each fold
+    window one ``chunk_reduce`` launch (the cluster's ``fold_ops``)."""
+    from repro_torch.core.api import SUM
+    from repro_torch.core.local import LocalCluster
+
+    n, elems = 8, (32 << 20) // 4
+    c = LocalCluster(n)
+    assert c.device.type == "cuda"
+    xs = [torch.randint(-1000, 1000, (elems,), generator=cuda, device="cuda").float() for _ in range(n)]
+    want = torch.stack(xs).sum(0)
+    for i, x in enumerate(xs):
+        c.put(i, f"g{i}", x)
+    SUM.reset_counts()
+    ids = [f"g{i}" for i in range(n)]
+    if op == "reduce":
+        c.reduce(0, "out", ids, SUM, timeout=120.0)
+        nodes = [0]
+    else:
+        c.allreduce(list(range(n)), "out", ids, SUM, timeout=120.0)
+        nodes = list(range(n))
+    for i in nodes:
+        got = c.get(i, "out", timeout=60.0)
+        assert got.device.type == "cuda" and torch.equal(got, want), i
+    folds = c.stats["fold_ops"]
+    assert folds >= (n - 1) * 16 and SUM.counts == {"chunk_reduce": folds}
+    assert ops.launch_counts() == dict(NO_LAUNCHES, chunk_reduce=folds)
+    c.shutdown()
+
+
 @pytest.mark.parametrize("n", [300, 70_000])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_dequant_add_kernel_matches_plain(cuda, n, dtype):
@@ -866,7 +922,10 @@ def test_hop_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="must match"):
         tcr.chunk_reduce(x, x.bfloat16())
     with pytest.raises(TypeError):
-        tcr.chunk_reduce(x.half(), x.half())
+        tcr.chunk_reduce(x.double(), x.double())
+    with pytest.raises(TypeError):  # f16 takes chunk_reduce (the data plane's folds), not dequant_add
+        tcr.dequant_add(torch.zeros(256, device="cuda").half(), torch.zeros(256, dtype=torch.int8, device="cuda"),
+                        torch.ones(1, device="cuda"))
     q = torch.zeros(512, dtype=torch.int8, device="cuda")
     with pytest.raises(ValueError, match="do not fit"):
         tcr.dequant_add(torch.zeros(600, device="cuda"), q, torch.ones(2, device="cuda"))
