@@ -20,6 +20,7 @@ import ml_dtypes
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 from repro.core import api as JA
 from repro.core import local as JL
@@ -692,3 +693,209 @@ def test_socket_heartbeat_detects_silent_death():
         same_bits(TORCH.get(c, 1, "h", timeout=30.0), x)
     finally:
         c.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# more scenarios of the JAX package's tests, on the port
+# ---------------------------------------------------------------------------
+
+
+@settings(max_examples=10, deadline=None)
+@given(n=st.integers(2, 6), seed=st.integers(0, 2**31 - 1), elems=st.integers(100, 5000))
+def test_reduce_is_the_exact_sum_under_any_arrival_order(n, seed, elems):
+    """tests/test_properties.py's property on both packages: the reduce of
+    random f64 objects at random nodes, read at a random node, is numpy's
+    sum within 1e-11, and the two packages agree within it."""
+    rng = np.random.RandomState(seed)
+    vals = [rng.rand(elems) for _ in range(n)]
+    into, read = rng.randint(n), rng.randint(n)
+
+    def run(side):
+        c = side.cluster(n)
+        for i, v in enumerate(vals):
+            c.put(i, f"o{i}", v)
+        c.reduce(into, "sum", [f"o{i}" for i in range(n)])
+        return side.get(c, read, "sum")
+
+    j, t = both(run)
+    np.testing.assert_allclose(t, sum(vals), rtol=1e-11)
+    np.testing.assert_allclose(t, j, rtol=1e-11)
+
+
+def test_get_chases_a_producing_target_until_it_completes():
+    """A receiver at the watermark of a producing partial waits for the
+    producer instead of declaring the object lost."""
+    c = TORCH.cluster(2, chunk_size=16 * KB)
+    payload = np.random.RandomState(0).rand(40_000)
+    raw = torch.from_numpy(payload.view(np.uint8))
+    with c.lock:
+        c.meta["t"] = (torch.float64, (40_000,))
+        buf = c.stores[0].create("t", raw.numel(), pinned=True, chunk_size=16 * KB)
+        c.directory.publish_partial("t", 0, raw.numel(), producing=True)
+    half = raw.numel() // 2 - (raw.numel() // 2) % 64
+    buf.write_chunk(0, raw[:half])
+    with c.lock:
+        c.directory.update_progress("t", 0, half)
+    f = c.get_async(1, "t", timeout=30.0)
+    time.sleep(0.3)
+    assert not f.done(), "the receiver gave up on a producing partial"
+    buf.write_chunk(half, raw[half:])
+    with c.lock:
+        c.directory.publish_complete("t", 0, raw.numel())
+    same_bits(t2n(f.result(timeout=30.0)), payload)
+
+
+def test_mid_broadcast_source_failure_replans_and_resumes():
+    c = TORCH.cluster(6, chunk_size=32 * KB, pace=0.002, max_out_degree=4)
+    x = np.random.RandomState(1).rand(200_000).astype(np.float32)
+    c.put(0, "x", x)
+    f1 = c.get_async(1, "x", timeout=30.0)
+    deadline = time.time() + 10.0
+    while time.time() < deadline:
+        b = c.stores[1].get("x")
+        if b is not None and 0 < b.bytes_present < b.size:
+            break
+        time.sleep(0.001)
+    chasers = [c.get_async(i, "x", timeout=30.0) for i in range(2, 6)]
+    deadline = time.time() + 10.0
+    while time.time() < deadline and not any(c.stores[i].get("x") is not None for i in range(2, 6)):
+        time.sleep(0.001)
+    c.fail_node(1)
+    for f in chasers:
+        same_bits(t2n(f.result(timeout=30.0)), x)
+    with pytest.raises(Exception):
+        f1.result(timeout=5.0)
+
+
+def test_failover_resumes_from_the_watermark_not_zero():
+    c = TORCH.cluster(3, chunk_size=32 * KB, pace=0.002)
+    x = np.random.RandomState(2).rand(200_000).astype(np.float32)
+    c.put(0, "x", x)
+    c.put(2, "x", x)
+    with c.lock:
+        c.directory._outbound[2] = 1_000  # the fetch must start from node 0
+    f = c.get_async(1, "x", timeout=30.0)
+    deadline = time.time() + 10.0
+    while time.time() < deadline:
+        b = c.stores[1].get("x")
+        if b is not None and b.bytes_present > 2 * 32 * KB:
+            break
+        time.sleep(0.001)
+    with c.lock:
+        c.directory._outbound[2] = 0
+        mark = c.stores[1].get("x").bytes_present
+    c.fail_node(0)
+    same_bits(t2n(f.result(timeout=30.0)), x)
+    resumed = c.stats["bytes_served"].get(2, 0)
+    assert 0 < resumed <= x.nbytes - mark + 4 * 32 * KB
+
+
+def test_sibling_gets_share_one_inbound_stream():
+    c = TORCH.cluster(2, chunk_size=32 * KB, pace=0.001)
+    x = np.random.RandomState(3).rand(150_000).astype(np.float32)
+    c.put(0, "x", x)
+    for f in [c.get_async(1, "x", timeout=30.0) for _ in range(4)]:
+        same_bits(t2n(f.result(timeout=30.0)), x)
+    assert len([t for t in c.transfers if t[1] == 1]) == 1
+    assert c.stats["bytes_served"].get(0, 0) == x.nbytes
+
+
+def _wedge(c, node, oid, arr, half, producing):
+    """A copy of ``arr`` at ``node`` whose first ``half`` bytes landed and
+    whose watermark then froze (its sender died silently)."""
+    raw = torch.from_numpy(arr.view(np.uint8))
+    buf = c.stores[node].create(oid, raw.numel(), pinned=False, chunk_size=4096)
+    buf.write_chunk(0, raw[:half])
+    with c.lock:
+        if producing:
+            c.meta[oid] = (torch.float64, arr.shape)
+        c.directory.publish_partial(oid, node, raw.numel(), producing=producing)
+        c.directory.update_progress(oid, node, half)
+
+
+def test_a_stalled_fetch_replans_onto_another_copy():
+    ft = FaultToleranceConfig(stall_timeout=0.3, watermark_recheck_s=0.1, get_timeout=30.0)
+    c = TORCH.cluster(3, chunk_size=4096, pace=0.002, max_out_degree=1, fault_tolerance=ft, trace=True)
+    x = np.random.RandomState(0).rand(40_000)
+    c.put(0, "x", x)
+    half = x.nbytes // 2 - (x.nbytes // 2) % 4096
+    _wedge(c, 1, "x", x, half, producing=False)
+    with c.lock:
+        epoch0 = c.directory.charge_source("x", 0)  # node 0 at its cap: the wedged copy is planned first
+    def free():  # once the fetch has given up on the wedged copy
+        deadline = time.time() + 20.0
+        while time.time() < deadline and c.stats["stall_replans"] < 1:
+            time.sleep(0.01)
+        with c.lock:
+            c.directory.release_source("x", 0, epoch0)
+
+    t = threading.Thread(target=free, daemon=True)
+    t.start()
+    same_bits(TORCH.get(c, 2, "x", timeout=30.0), x)
+    t.join(timeout=30.0)
+    assert c.stats["stall_replans"] >= 1
+    replans = [e for e in c.trace.events() if e[4] == "replan" and (e[7] or {}).get("reason") == "source-stalled"]
+    assert replans and replans[0][7]["src"] == 1
+
+
+def test_a_stalled_fold_input_is_evicted_and_respliced():
+    ft = FaultToleranceConfig(stall_timeout=0.3, watermark_recheck_s=0.1)
+    c = TORCH.cluster(4, chunk_size=4096, pace=0.002, fault_tolerance=ft, trace=True)
+    rng = np.random.RandomState(1)
+    g1, g2 = rng.rand(40_000), rng.rand(40_000)
+    c.put(2, "g2", g2)
+    half = g1.nbytes // 2 - (g1.nbytes // 2) % 4096
+    _wedge(c, 1, "g1", g1, half, producing=True)
+
+    def replica():  # once the fold has consumed the wedged prefix
+        deadline = time.time() + 20.0
+        while time.time() < deadline:
+            b = c.stores[0].get("rsum")
+            if b is not None and b.bytes_present >= half:
+                break
+            time.sleep(0.01)
+        c.put(3, "g1", g1)
+
+    t = threading.Thread(target=replica, daemon=True)
+    t.start()
+    c.reduce(0, "rsum", ["g1", "g2"], TA.SUM, timeout=30.0)
+    t.join(timeout=30.0)
+    same_bits(TORCH.get(c, 0, "rsum"), g1 + g2)
+    assert c.stats["stall_replans"] >= 1 and c.stats["resplices"] >= 1
+
+
+def test_a_drain_hands_off_a_producing_chain_partial():
+    vals = [np.full(32_768, float(i + 1)) for i in range(3)]
+    c = TORCH.cluster(3, chunk_size=2 * KB, pace=0.004, trace=True)
+    for i in range(3):
+        c.put(i, f"g{i}", vals[i])
+    for i in range(3):
+        c.prefetch_async((i + 1) % 3, f"g{i}").result(timeout=10)
+    fut = Future()
+    threading.Thread(target=lambda: fut.set_result(c.reduce(0, "sum", ["g0", "g1", "g2"], TA.SUM, timeout=45.0)),
+                     daemon=True).start()
+    time.sleep(0.15)
+    c.drain_node(2, deadline=0.05)
+    fut.result(timeout=45.0)
+    same_bits(TORCH.get(c, 0, "sum"), sum(vals))
+    assert c.stats["splices_drain"] >= 1 and c.stats["resplices"] == 0
+
+
+def test_a_waiting_reduce_wakes_after_directory_failover():
+    c = TORCH.cluster(2, directory_replicas=1)
+    a, b = np.random.RandomState(5).rand(30_000), np.random.RandomState(6).rand(30_000)
+    c.put(0, "early", a)
+    result = {}
+
+    def blocked():
+        c.reduce(1, "out", ["early", "late"], timeout=15.0)
+        result["val"] = TORCH.get(c, 1, "out", timeout=15.0)
+
+    th = threading.Thread(target=blocked, daemon=True)
+    th.start()
+    time.sleep(0.2)
+    c.fail_directory_primary()
+    c.put(0, "late", b)
+    th.join(timeout=20.0)
+    assert not th.is_alive()
+    same_bits(result["val"], a + b)
