@@ -2481,7 +2481,8 @@ def dp_mixed(torch, ref, gen, card: str) -> dict:
                                        lambda: c.reduce(0, "r", ids, api.SUM, timeout=600), card)
     got = c.get(0, "r").double()
     err = float((got - want).abs().max())
-    log(f"[dataplane] random f32 reduce against the f64 sum: max abs err {err:.3e} (rtol = atol = {DP_RANDOM_RTOL})")
+    log(f"[dataplane] random f32 reduce against the f64 sum: max abs err {err:.3e} (rtol = atol = {DP_RANDOM_RTOL}), "
+        f"on {card}")
     if not torch.allclose(got, want, rtol=DP_RANDOM_RTOL, atol=DP_RANDOM_RTOL):
         raise AssertionError(f"dataplane random f32 reduce: {err} from the f64 sum")
     out["float32_random"]["max_abs_err_vs_f64"] = err
@@ -2506,7 +2507,7 @@ def dp_mixed(torch, ref, gen, card: str) -> dict:
         offsets = sorted({o for o, _, _ in checks})
         log(f"[dataplane] {dtype}: {len(checks)} fold windows, each bit for bit the plain version (window start "
             f"offsets from 16 bytes: {offsets}; {len({m for _, m, _ in checks})} window sizes); the result within "
-            f"(k-1) u sum|x| of the exact sum: {within}")
+            f"(k-1) u sum|x| of the exact sum: {within}, on {card}")
         if len(checks) != rec["sum_folds"] or not all(ok for _, _, ok in checks) or not within:
             raise AssertionError(f"dataplane {dtype}: {len(checks)} checked windows, {rec['sum_folds']} folds, "
                                  f"within the rounding bound {within}")
@@ -2558,7 +2559,7 @@ def dp_kill(torch, gen, card: str) -> dict:
     killer.join(timeout=60)
     exact = torch.equal(c.get(0, "r"), want)
     log(f"[dataplane] kill: node {victim} killed at the target's watermark {killed.get('at')} of {nbytes}; "
-        f"resplices {rec['resplices']}; the result exact: {exact}")
+        f"resplices {rec['resplices']}; the result exact: {exact}; on {card}")
     if "at" not in killed or rec["resplices"] < 1 or not exact:
         raise AssertionError(f"dataplane kill: killed {killed}, resplices {rec['resplices']}, exact {exact}")
     rec["killed_at"] = killed["at"]
@@ -2615,7 +2616,8 @@ def dataplane(torch, ref, card: str):
     if not all(r["chunk_reduce"] > 0 for by_op in sizes.values() for op, r in by_op.items() if op != "broadcast"):
         raise AssertionError("dataplane: a reduce launched no chunk_reduce")
     phase_s = time.perf_counter() - t0
-    log(f"[dataplane] phase {phase_s:.1f} s; chunk_reduce launches {launches}, each a SUM fold the cluster counted")
+    log(f"[dataplane] phase {phase_s:.1f} s; chunk_reduce launches {launches}, each a SUM fold the cluster counted, "
+        f"on {card}")
     return launches, {"sizes": {str(k): v for k, v in sizes.items()}, "checked": mixed, "kill": kill,
                       "socket": sock, "phase_s": phase_s}
 
@@ -2638,12 +2640,12 @@ def asgd(torch, card: str):
 
     t_phase = time.perf_counter()
     ops.reset_launch_counts()
-    small = ps.run(device="cuda", log=lambda m: log(f"[asgd] defaults: {m}"))
+    small = ps.run(device="cuda", log=lambda m: log(f"[asgd] defaults: {m}, on {card}"))
     small_launches = ops.launch_counts()["chunk_reduce"]
     ls = small["losses"]
     log(f"[asgd] defaults (dim {ps.DIM}, {ps.NUM_NODES} nodes, {ps.NUM_WORKERS} workers): loss {ls[0]:.4f} -> "
         f"{ls[-1]:.4f}, tasks {small['tasks_executed']}, re-executed {small['tasks_reexecuted']}, chunk_reduce "
-        f"launches {small_launches}")
+        f"launches {small_launches}, on {card}")
     if not ls[-1] < 0.7 * ls[0]:
         raise AssertionError(f"asgd at the defaults: loss {ls[0]} -> {ls[-1]}")
     small["runtime"].cluster.shutdown()
@@ -2653,7 +2655,7 @@ def asgd(torch, card: str):
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     big = ps.run(ASGD_NODES, ASGD_WORKERS, ASGD_DIM, ASGD_SAMPLES, device="cuda", data="device",
-                 log=lambda m: log(f"[asgd] dim {ASGD_DIM}: {m}"))
+                 log=lambda m: log(f"[asgd] dim {ASGD_DIM}: {m}, on {card}"))
     launches = ops.launch_counts()["chunk_reduce"]
     folds = big["runtime"].cluster.stats["fold_ops"]
     peak = torch.cuda.max_memory_allocated()
