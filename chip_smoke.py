@@ -34,6 +34,24 @@ ones alone):
   count), 16 samples a shard drawn on the card, the first 4 finishers
   reduced each round, 12 rounds and a node killed after round 6: the loss
   must fall below 0.7 of the first with at least one task re-executed.
+- serve_ensemble: Hoplite-Serve (``repro_torch.serve``) over the task
+  runtime, at the sizes of the JAX package's ensemble scenario
+  (``core/simulation.ensemble_serving``'s and ``EnsembleConfig``'s
+  defaults): ``Runtime(num_nodes=8, executors_per_node=4)`` on the card, 8
+  replicas and a quorum of 5, 64 MB f32 weights W (4096 x 4096, drawn from
+  the seed), 256 KB payloads x of (16, 4096) and replies x @ W.  40 requests
+  arrive open loop at 40 rps through ``OpenLoopRouter``; the node of
+  replica 7 is killed at request 10, a second seeded W is published
+  mid-stream at request 20 and a replica is added at request 30 (its
+  weights staged through the broadcast tree).  Every completed value must
+  lie within the rounding bound of the f64 mean of its replies under one
+  version (never a mix), completed + rejected + failed = offered with no
+  failure, the stores and the runtime's tables hold no more of the
+  requests' objects than before the stream, and the SUM folds the cluster
+  and the lineage fallback counted must equal ``chunk_reduce``'s launches,
+  at least k - 1 a completed request.  It prints the latency's p50, p99
+  and max, each version's deploy time, the throughput, the launches and
+  ``max_memory_allocated``.
 
 - serve: qwen3-14b at full width (40 layers, d=5120, bf16 weights drawn on
   the card from seed 0), 4 prompts of 512 tokens, 32 greedy tokens each, with
@@ -2681,6 +2699,191 @@ def asgd(torch, card: str):
     return small_launches + launches, rec
 
 
+# Hoplite-Serve (repro_torch/serve/) on the card, at the sizes of the JAX
+# package's own ensemble scenario: simulation.ensemble_serving's defaults (8
+# replicas, 64 MB weights, 256 KB inputs and replies) and EnsembleConfig's
+# (a quorum of 5 of 8), on Runtime(num_nodes=8, executors_per_node=4).  The
+# weights are a (4096, 4096) f32 matrix W drawn from SEED, the payloads
+# (16, 4096) f32, a replica's reply x @ W.  40 requests arrive open loop at
+# 40 rps (the rate of the JAX benchmark's threaded run); the node of replica
+# 7 is killed at request 10, a second seeded W is published at request 20
+# and one replica is added (its weights staged through the broadcast tree)
+# at request 30, each before that request is offered.  SE_WARMUP requests
+# first run one at a time, with no other in flight: a request's service
+# time alone, beside the open loop's latency.
+SE_NODES, SE_EXECUTORS, SE_REPLICAS, SE_QUORUM = 8, 4, 8, 5
+SE_D, SE_ROWS = 4096, 16
+SE_REQUESTS, SE_RATE, SE_WARMUP = 40, 40.0, 3
+SE_KILL_AT, SE_SWAP_AT, SE_ADD_AT, SE_KILLED_REPLICA = 10, 20, 30, 7
+SE_UNIT_ROUNDOFF = 2.0 ** -24  # f32
+
+
+def se_version_of(torch, value, refs, k: int):
+    """The version whose reference the value lies within, or None.  A
+    reference is the f64 mean of k replies of one product (the replies are
+    the same f32 product y, so it is y in f64); the k - 1 folds round once
+    each and the division once: |got - mean| <= (k-1) u sum|y_i| / k + u |mean|,
+    which is k u |y| for k equal replies."""
+    got = value.double()
+    hits = []
+    for v, y in refs.items():
+        mean = y.double()
+        if bool(((got - mean).abs() <= k * SE_UNIT_ROUNDOFF * mean.abs()).all()):
+            hits.append(v)
+    return hits[0] if len(hits) == 1 else None
+
+
+def se_request_state(rt, weight_ids) -> tuple:
+    """What the requests hold: objects in the stores, refs and lineage
+    entries, the weight objects left out."""
+    return (sum(1 for s in rt.cluster.stores for oid in s.objects if oid not in weight_ids),
+            sum(1 for rid in rt._refs if rid not in weight_ids),
+            sum(1 for rid in rt._lineage if rid not in weight_ids))
+
+
+def se_stream(torch, card: str, device: str = "cuda", d: int = SE_D, rows: int = SE_ROWS,
+              rate: float = SE_RATE) -> dict:
+    """Drive the ensemble through the router as set out above and check it.
+    On the CPU (``device="cpu"``, tests at small ``d``) no kernel launches
+    and the SUM folds go through ``chunk_reduce``'s plain version."""
+    from repro_torch.core.api import SUM
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import Runtime
+    from repro_torch.serve import EnsembleConfig, EnsembleGroup, OpenLoopRouter, RouterConfig, ServeMetrics
+
+    cuda = device == "cuda"
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    weights = [torch.randn(d, d, generator=gen, device=device) / math.sqrt(d) for _ in range(2)]
+    payloads = [torch.randn(rows, d, generator=gen, device=device) for _ in range(SE_REQUESTS)]
+    refs = [{v: torch.matmul(x, w) for v, w in enumerate(weights, 1)} for x in payloads]
+
+    def model(w, x):
+        return torch.matmul(x, w)
+
+    rt = Runtime(num_nodes=SE_NODES, executors_per_node=SE_EXECUTORS, device=device)
+    ens = EnsembleGroup(rt, model, EnsembleConfig(num_replicas=SE_REPLICAS, quorum=SE_QUORUM))
+    k = ens.config.quorum
+    deploy_s = []
+
+    def deploy(w):
+        t0 = time.perf_counter()
+        version = ens.deploy(w)
+        if cuda:
+            torch.cuda.synchronize()
+        deploy_s.append(time.perf_counter() - t0)
+        return version
+
+    deploy(weights[0])
+    weight_ids = {r.id for r in ens.deployment.held_refs()}
+    before = se_request_state(rt, weight_ids)
+    alone_s = []
+    for x in payloads[:SE_WARMUP]:
+        t0 = time.perf_counter()
+        ens.handle_request(x)
+        if cuda:
+            torch.cuda.synchronize()
+        alone_s.append(time.perf_counter() - t0)
+    ens.metrics = metrics = ServeMetrics()  # the stream's own counts
+    added = {}
+
+    def on_arrival(idx: int) -> None:
+        # each before request idx is offered, with the earlier requests in flight
+        if idx == SE_KILL_AT:
+            ens.kill_replica(SE_KILLED_REPLICA)
+        elif idx == SE_SWAP_AT:
+            deploy(weights[1])
+        elif idx == SE_ADD_AT:
+            handle = ens.add_replica()
+            _, wref = ens.deployment.current()
+            added.update(node=handle.node, replica=handle.replica_id,
+                         staged=rt.cluster.stores[handle.node].contains(wref.id))
+
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    SUM.reset_counts()
+    ops.reset_launch_counts()
+    folds0 = rt.cluster.stats["fold_ops"]
+    metrics.capture_bytes(rt.cluster.bytes_sent_per_node)
+    router = OpenLoopRouter(ens, RouterConfig(rate_rps=rate, max_outstanding=64), metrics)
+    t0 = time.perf_counter()
+    router.run_open_loop(payloads, on_arrival=on_arrival, drain_timeout=120.0)
+    if cuda:
+        torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    launches = ops.launch_counts()["chunk_reduce"]
+    folds = rt.cluster.stats["fold_ops"] - folds0 + ens.lineage_folds
+    snap = metrics.snapshot()
+
+    # every value within the rounding bound of the version it captured (the
+    # pointer flipped before request SE_SWAP_AT was offered), never a mix
+    versions = {}
+    for idx, value in router.results:
+        v = se_version_of(torch, value, refs[idx], k)
+        if v != (1 if idx < SE_SWAP_AT else 2):
+            raise AssertionError(f"serve_ensemble request {idx}: version {v} (None: within the bound of no one "
+                                 f"version's reference, a mix or wrong)")
+        versions[v] = versions.get(v, 0) + 1
+
+    # nothing the requests made is left once the stragglers have finished
+    weight_ids = {r.id for r in ens.deployment.held_refs()}
+    deadline = time.time() + 60.0
+    while se_request_state(rt, weight_ids) != before and time.time() < deadline:
+        time.sleep(0.01)
+    after = se_request_state(rt, weight_ids)
+
+    lat = snap["latency"]
+    rec = {"offered": snap["offered"], "completed": snap["completed"], "rejected": snap["rejected"],
+           "failed": snap["failed"], "versions_served": {str(v): n for v, n in sorted(versions.items())},
+           "latency_s": {q: lat[q] for q in ("p50", "p99", "max", "mean")}, "alone_s": alone_s, "deploy_s": deploy_s,
+           "stream_s": stream_s, "throughput_rps": snap["completed"] / stream_s, "sum_folds": folds,
+           "lineage_folds": ens.lineage_folds, "chunk_reduce": launches, "sum_counts": dict(SUM.counts),
+           "peak_bytes": peak, "bytes_moved": sum(metrics.bytes_moved(rt.cluster.bytes_sent_per_node)),
+           "per_replica": {str(r): n for r, n in sorted(snap["per_replica"].items())}, "added": added,
+           "alive_replicas": len(ens.alive_replicas()), "tasks_reexecuted": rt.tasks_reexecuted,
+           "request_state_before": before, "request_state_after": after}
+    log(f"[serve_ensemble] {snap['offered']} requests at {rate} rps, {SE_REPLICAS} replicas, quorum {k}, "
+        f"{d}x{d} f32 weights ({d * d * 4 / 1e6:.1f} MB), ({rows}, {d}) payloads: completed {snap['completed']}, "
+        f"rejected {snap['rejected']}, failed {snap['failed']}; versions served {rec['versions_served']}; "
+        f"latency p50 {lat['p50'] * 1e3:.2f} ms, p99 {lat['p99'] * 1e3:.2f} ms, max {lat['max'] * 1e3:.2f} ms "
+        f"(a request alone, closed loop: {', '.join(f'{a * 1e3:.2f}' for a in alone_s)} ms); "
+        f"throughput {rec['throughput_rps']:.2f} rps over {stream_s:.3f} s; deploy "
+        f"{', '.join(f'{s * 1e3:.2f}' for s in deploy_s)} ms (versions 1, 2); chunk_reduce launches {launches} "
+        f"against SUM folds {folds} (lineage {ens.lineage_folds}); max_memory_allocated {peak / 1e9:.3f} GB; "
+        f"replica added {added}; on {card}")
+    rt.cluster.shutdown()
+
+    problems = []
+    if snap["completed"] + snap["rejected"] + snap["failed"] != snap["offered"] or snap["failed"] or router.errors:
+        problems.append(f"offered {snap['offered']} != completed + rejected + failed, or failures {router.errors}")
+    if not added.get("staged") or snap["per_replica"].get(added["replica"], 0) < 1:
+        problems.append(f"the added replica: {added}, completed {snap['per_replica']}")
+    if versions.get(2, 0) < 1 or len(deploy_s) != 2:
+        problems.append(f"the hot swap served no request: {versions}, deploys {deploy_s}")
+    if ens.replicas[SE_KILLED_REPLICA].alive:
+        problems.append("the killed replica is still alive")
+    if after != before:
+        problems.append(f"requests leaked: {before} before the stream, {after} after")
+    want_launches = folds if cuda else 0
+    if launches != want_launches or SUM.counts != {"chunk_reduce": folds} or folds < (k - 1) * snap["completed"]:
+        problems.append(f"{folds} SUM folds, {launches} chunk_reduce launches, SUM {SUM.counts}, "
+                        f"{snap['completed']} completed")
+    if problems:
+        raise AssertionError("serve_ensemble: " + "; ".join(problems))
+    return rec
+
+
+def serve_ensemble(torch, card: str):
+    t0 = time.perf_counter()
+    rec = se_stream(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t0
+    log(f"[serve_ensemble] phase {rec['phase_s']:.1f} s, on {card}")
+    return rec["chunk_reduce"], rec
+
+
 def stop_resource_tracker() -> None:
     """Stop multiprocessing's resource tracker if it runs.  The sync phase's
     spawned ranks start it, and a Python whose tracker has no finalizer lets it
@@ -2709,8 +2912,8 @@ def check_no_children() -> None:
     log("[card] no child process left")
 
 
-PHASES = ("dataplane", "asgd", "serve", "serve_moe", "serve_dense", "serve_ssm", "serve_encdec", "sync", "train",
-          "dryrun", "ckpt", "pods", "mesh")
+PHASES = ("dataplane", "asgd", "serve_ensemble", "serve", "serve_moe", "serve_dense", "serve_ssm", "serve_encdec",
+          "sync", "train", "dryrun", "ckpt", "pods", "mesh")
 
 
 def main(argv=None) -> int:
@@ -2801,6 +3004,12 @@ def main(argv=None) -> int:
         asgd_launches, asgd_metrics = asgd(torch, card)
         by_path["asgd"] = {"chunk_reduce": asgd_launches}
         log(f"[asgd] metrics {json.dumps(asgd_metrics)} on {card}")
+
+    # Phase 2d: Hoplite-Serve's ensemble over the runtime: every SUM fold of the k replies is chunk_reduce.
+    if "serve_ensemble" in only:
+        se_launches, se_metrics = serve_ensemble(torch, card)
+        by_path["serve_ensemble"] = {"chunk_reduce": se_launches}
+        log(f"[serve_ensemble] metrics {json.dumps(se_metrics)} on {card}")
 
     # Phase 3: serve the full-width model through the port's entry points.
     if "serve" in only:

@@ -45,6 +45,8 @@ DATAPLANE_MODULES = [
     "core/directory.py", "core/store.py", "core/local.py", "core/comm/__init__.py",
     "core/comm/core.py", "core/comm/inproc.py", "core/comm/socket.py",
     "runtime/__init__.py", "runtime/runtime.py", "examples/async_parameter_server.py",
+    "core/simulation.py", "serve/__init__.py", "serve/metrics.py", "serve/router.py", "serve/deploy.py",
+    "serve/ensemble.py", "serve/autoscaler.py", "examples/quickstart.py",
 ]
 
 KB, MB, GB = 1 << 10, 1 << 20, 1 << 30

@@ -11,6 +11,7 @@ against the JAX package on the CPU.
 """
 
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -898,6 +899,50 @@ def test_dataplane_on_the_card_is_exact_through_the_kernel(cuda, op):
     assert folds >= (n - 1) * 16 and SUM.counts == {"chunk_reduce": folds}
     assert ops.launch_counts() == dict(NO_LAUNCHES, chunk_reduce=folds)
     c.shutdown()
+
+
+def test_serve_ensemble_on_the_card_folds_through_the_kernel(cuda):
+    """Hoplite-Serve on the card: 8 replicas of a 1 MB f32 weight matrix,
+    256 KB f32 payloads, a quorum of 5.  Each value is the mean of five
+    equal replies x @ W within the folds' rounding, every SUM fold of the
+    replies is one ``chunk_reduce`` launch, and the requests leave nothing
+    behind."""
+    from repro_torch.core.api import SUM
+    from repro_torch.runtime import Runtime
+    from repro_torch.serve import EnsembleConfig, EnsembleGroup
+
+    rt = Runtime(num_nodes=8, executors_per_node=4)
+    assert rt.cluster.device.type == "cuda"
+    w = torch.randn(512, 512, generator=cuda, device="cuda") / 512 ** 0.5
+    ens = EnsembleGroup(rt, lambda a, b: torch.matmul(b, a), EnsembleConfig(num_replicas=8, quorum=5))
+    k = ens.config.quorum
+    ens.deploy(w)
+    weight_ids = {r.id for r in ens.deployment.held_refs()}
+
+    def request_state():
+        return (sum(1 for s in rt.cluster.stores for oid in s.objects if oid not in weight_ids),
+                sum(1 for rid in rt._refs if rid not in weight_ids),
+                sum(1 for rid in rt._lineage if rid not in weight_ids))
+
+    before = request_state()
+    SUM.reset_counts()
+    ops.reset_launch_counts()
+    folds0 = rt.cluster.stats["fold_ops"]
+    xs = [torch.randn(128, 512, generator=cuda, device="cuda") for _ in range(6)]
+    for x in xs:
+        got = ens.handle_request(x)
+        y = torch.matmul(x, w).double()
+        assert got.device.type == "cuda" and got.dtype == torch.float32
+        # k - 1 folds and the division: (k-1) u sum|y_i| / k + u |mean|, with k equal replies
+        assert bool(((got.double() - y).abs() <= k * 2.0 ** -24 * y.abs()).all())
+    folds = rt.cluster.stats["fold_ops"] - folds0 + ens.lineage_folds
+    assert folds >= (k - 1) * len(xs) and SUM.counts == {"chunk_reduce": folds}
+    assert ops.launch_counts() == dict(NO_LAUNCHES, chunk_reduce=folds)
+    deadline = time.time() + 30.0
+    while request_state() != before and time.time() < deadline:
+        time.sleep(0.01)  # straggler replies are deleted as their tasks finish
+    assert request_state() == before
+    rt.cluster.shutdown()
 
 
 @pytest.mark.parametrize("n", [300, 70_000])
