@@ -267,9 +267,10 @@ MOE_DISPATCH_TOL = 2e-2
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_STEPS = 4, 4096, 2, 2, 3
 # The flash forward at the train shape: one row of the batch, every head.
 FLASH_TRAIN = (1, 40, 8, TRAIN_SEQ, TRAIN_SEQ, 128, True, 0)
-# bf16 at a head dim past the tensor-core route's 128, which no config has:
-# the CUDA-core kernel's bf16 case, held and timed in the kernel phase.
-CORES_BF16 = (BATCH, 16, 8, PROMPT, PROMPT, 256, True, 0)
+# bf16 at head dim 256, which no config has (Gemma's heads are that wide): the
+# tensor-core kernel's widest instance (four 64-column boxes, kv tiles of 64
+# rows, one Q buffer), held and timed in the kernel phase.
+WIDE_BF16 = (BATCH, 16, 8, PROMPT, PROMPT, 256, True, 0)
 
 # The ckpt phase: the state is saved after step CKPT_SAVE_AT (steps 2 to
 # CKPT_SAVE_AT time the step before the write); the uninterrupted run steps
@@ -461,6 +462,26 @@ def spill_bytes(report: str) -> int:
     return max([int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", report)] or [0])
 
 
+def flash_instances(report: str) -> dict:
+    """Registers, stack frame and spill bytes of each head dim's instance of
+    the tensor-core flash kernel, from its nvcc report (``-Xptxas -v``).
+    The registers are the launch's; the consumers raise theirs to 240 with
+    setmaxnreg."""
+    out, d = {}, None
+    for line in report.splitlines():
+        m = re.search(r"flash_fwd_sm90_kernelILi(\d+)E", line)
+        if m and "Compiling entry function" in line:
+            d = int(m.group(1))
+            out[d] = {}
+        elif d is not None and (m := re.search(
+                r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            out[d].update(stack_bytes=int(m.group(1)), spill_bytes=max(int(m.group(2)), int(m.group(3))))
+        elif d is not None and (m := re.search(r"Used (\d+) registers", line)):
+            out[d]["registers"] = int(m.group(1))
+            d = None
+    return dict(sorted(out.items()))
+
+
 def flash_inputs(torch, gen, B, H, Kh, Sq, Skv, D, dt):
     """q of std 2 and k, v of std 1: the scaled scores q.k / sqrt(D) have a
     std of 2 (the qk-normed serve path's are near 1), so the softmax is far
@@ -481,15 +502,15 @@ def check_sensitive(torch, ref, what, got, q, k, v, causal, window, q_offset):
             raise AssertionError(f"{what}: the bf16 check cannot tell the output from {wrong}")
 
 
-def check_flash(torch, fa, ref, gen, spills: int):
+def check_flash(torch, fa, ref, gen, spills: int, instances: dict):
     """Both routes against the plain version: bf16 at the tensor-core head
-    dims (``fa.TC_HEAD_DIMS``: every multiple of 16 up to 128) on the tensor
-    cores, f32 at every head dim and bf16 at CORES_BF16's 256 on the CUDA
-    cores; and every tensor-core head dim in bf16 at a ragged shape with Sq !=
-    Skv, output and lse.  On every bf16 case whose rows see a key, the check
-    is also shown to fail a wrong Q.K^T.  Times the tensor-core route at the
-    serve shape, and the CUDA-core route on the same inputs in f32 and at
-    CORES_BF16.  Returns the records of the two routes."""
+    dims (``fa.TC_HEAD_DIMS``: every multiple of 16 up to 256) and at
+    WIDE_BF16 on the tensor cores, f32 at every head dim on the CUDA cores;
+    and every tensor-core head dim in bf16 at a ragged shape with Sq != Skv,
+    output and lse.  On every bf16 case whose rows see a key, the check is
+    also shown to fail a wrong Q.K^T.  Times the tensor-core route at the
+    serve shape and at WIDE_BF16, and the CUDA-core route on the serve
+    shape's inputs in f32.  Returns the records of the two routes."""
     cfg_case = (BATCH, 40, 8, PROMPT, PROMPT, 128, True, 0)
     ragged = (BATCH, 40, 8, PROMPT + 1, PROMPT + 1, 128, True, 0)  # prefill of prompt + token
     window = (1, 2, 1, 200, 200, 64, True, 16)  # with q_offset -20: the first rows see no key
@@ -498,7 +519,7 @@ def check_flash(torch, fa, ref, gen, spills: int):
 
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
-        extra = sweep + [CORES_BF16] if dtype == "bfloat16" else []
+        extra = sweep + [WIDE_BF16] if dtype == "bfloat16" else []
         for case in [cfg_case, ragged, window] + FLASH_CASES + extra:
             B, H, Kh, Sq, Skv, D, causal, win = case
             q, k, v = flash_inputs(torch, gen, B, H, Kh, Sq, Skv, D, dt)
@@ -512,7 +533,7 @@ def check_flash(torch, fa, ref, gen, spills: int):
             errs[case, dtype] = compare(torch, what, got, ref.flash_attention_ref(q, k, v, causal, win, off), dtype)
             if dtype == "bfloat16":
                 check_sensitive(torch, ref, what, got, q, k, v, causal, win, off)
-            if case in FLASH_CASES or case == window or case in sweep:  # the window case has rows with no key
+            if case in FLASH_CASES or case in (window, WIDE_BF16) or case in sweep:  # window: rows with no key
                 check_lse(torch, fa, ref, what, got, q, k, v, causal, win, off, dtype)
     log(f"[kernels] flash: tensor-core head dims {fa.TC_HEAD_DIMS} held in bf16, output and lse; on every bf16 "
         "case the check fails K with rolled columns and S = 0")
@@ -545,9 +566,10 @@ def check_flash(torch, fa, ref, gen, spills: int):
         "shape": f"q {tuple(q.shape)} kv {tuple(k.shape)} causal bf16", "head_dims": list(fa.TC_HEAD_DIMS),
         "max_abs_err": errs[cfg_case, "bfloat16"], "ms": ms, "kernel_ms": ms, "plain_ms": plain,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib, "spill_bytes": spills,
-        "head_dim_sweep_max_abs_err": {c[5]: errs[c, "bfloat16"] for c in sweep},
+        "instances": instances, "head_dim_sweep_max_abs_err": {c[5]: errs[c, "bfloat16"] for c in sweep},
         "train_shape_max_abs_err": train_err, "train_shape_lse_max_abs_err": lse_err,
-    }, **time_flash_train_shape(torch, fa, ref, gen))
+    }, **time_flash_train_shape(torch, fa, ref, gen), **time_flash_wide(torch, fa, ref, gen))
+    tc["wide_max_abs_err"] = errs[WIDE_BF16, "bfloat16"]
 
     qf, kf, vf = q.float(), k.float(), v.float()
     del q, k, v
@@ -559,17 +581,6 @@ def check_flash(torch, fa, ref, gen, spills: int):
     log(f"[kernels] flash same shape f32 (CUDA cores): kernel {f32_ms:.4f} ms, plain {f32_plain:.4f} ms, SDPA "
         f"{f32_lib:.4f} ms, bound {f32_bound:.4f} ms ({f32_by}), {ops / f32_ms / 1e9:.2f} TFLOP/s")
     del qf, kf, vf
-    B, H, Kh, S, _, D, causal, _ = CORES_BF16
-    q, k, v = flash_inputs(torch, gen, B, H, Kh, S, S, D, torch.bfloat16)
-    bf_ms = time_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, causal=True))
-    bf_plain = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, True, 0, 0), reps=5, warmup=1)
-    bf_lib = time_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True))
-    bf_ops = 4 * B * H * D * flash_pairs(torch, S, S, True, 0, 0)
-    bf_bound, bf_by = bound((2 * q.numel() + k.numel() + v.numel()) * 2, bf_ops, "bfloat16")
-    log(f"[kernels] flash {tuple(q.shape)}x{tuple(k.shape)} causal bf16 (CUDA cores, D = {D}): kernel "
-        f"{bf_ms:.4f} ms, plain {bf_plain:.4f} ms, SDPA {bf_lib:.4f} ms ({bf_ms / bf_lib:.3f}x), bound "
-        f"{bf_bound:.4f} ms ({bf_by}), {bf_ops / bf_ms / 1e9:.2f} TFLOP/s")
     cores = {
         "name": "flash_attention_cores", "route": "cuda", "kernel_route": "cores",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -577,9 +588,6 @@ def check_flash(torch, fa, ref, gen, spills: int):
         "shape": f"q {(BATCH, 40, PROMPT, 128)} kv {(BATCH, 8, PROMPT, 128)} causal f32",
         "max_abs_err": errs[cfg_case, "float32"], "ms": f32_ms, "kernel_ms": f32_ms, "plain_ms": f32_plain,
         "bound_ms": f32_bound, "bound_by": f32_by, "library_ms": f32_lib,
-        "bf16_shape": f"q {tuple(q.shape)} kv {tuple(k.shape)} causal bf16",
-        "bf16_max_abs_err": errs[CORES_BF16, "bfloat16"], "bf16_ms": bf_ms, "bf16_plain_ms": bf_plain,
-        "bf16_bound_ms": bf_bound, "bf16_bound_by": bf_by, "bf16_library_ms": bf_lib,
     }
     return tc, cores
 
@@ -609,6 +617,24 @@ def check_lse(torch, fa, ref, what, out, q, k, v, causal, window, q_offset, dtyp
             if torch.allclose(lse[seen], bad[seen], rtol=0, atol=tol):
                 raise AssertionError(f"{what}: the lse check cannot tell the lse from one of {wrong}")
     return err
+
+
+def time_flash_wide(torch, fa, ref, gen):
+    """The tensor-core forward at WIDE_BF16 (head dim 256) against the plain
+    version, SDPA on the same inputs and its bound."""
+    B, H, Kh, S, _, D, causal, _ = WIDE_BF16
+    q, k, v = flash_inputs(torch, gen, B, H, Kh, S, S, D, torch.bfloat16)
+    ms = time_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, causal=causal))
+    plain = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, causal, 0, 0), reps=5, warmup=1)
+    lib = time_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=causal, enable_gqa=True))
+    ops = 4 * B * H * D * flash_pairs(torch, S, S, causal, 0, 0)
+    b_ms, b_by = bound((2 * q.numel() + k.numel() + v.numel()) * 2, ops, "bfloat16")
+    log(f"[kernels] flash {tuple(q.shape)}x{tuple(k.shape)} causal bf16 (tensor cores, D = {D}): kernel "
+        f"{ms:.4f} ms, plain {plain:.4f} ms, SDPA {lib:.4f} ms ({ms / lib:.3f}x), bound {b_ms:.4f} ms "
+        f"({b_by}), {ops / ms / 1e9:.2f} TFLOP/s")
+    return {"wide_shape": f"q {tuple(q.shape)} kv {tuple(k.shape)} causal bf16", "wide_ms": ms,
+            "wide_plain_ms": plain, "wide_library_ms": lib, "wide_bound_ms": b_ms, "wide_bound_by": b_by}
 
 
 def time_flash_train_shape(torch, fa, ref, gen):
@@ -2963,7 +2989,9 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
     spills = spill_bytes(reports["flash_attention_sm90"])
-    log(f"[build] flash_attention_sm90 (the tensor-core route): {spills} spill bytes")
+    instances = flash_instances(reports["flash_attention_sm90"])
+    log(f"[build] flash_attention_sm90 (the tensor-core route): {spills} spill bytes; by head dim "
+        f"{json.dumps(instances)}")
     if spills:
         raise AssertionError(f"the tensor-core flash kernel spills {spills} bytes")
 
@@ -2972,7 +3000,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     cfg = get_config(ARCH)
-    records = [check_rmsnorm(torch, rn, ref, gen), *check_flash(torch, fa, ref, gen, spills),
+    records = [check_rmsnorm(torch, rn, ref, gen), *check_flash(torch, fa, ref, gen, spills, instances),
                check_chunk_reduce(torch, cr, ref, gen, *hop_chunks(cfg, C)),
                check_dequant_add(torch, cr, ref, compression, gen, cfg.d_model * cfg.d_ff)]
     next(r for r in records if r["name"] == "chunk_reduce").update(check_chunk_reduce_f16(torch, cr, ref, gen))

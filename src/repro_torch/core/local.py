@@ -104,7 +104,13 @@ from repro_torch.core.planner import (
     use_two_dimensional,
 )
 from repro_torch.core.scheduler import ChainState, partition_groups
-from repro_torch.core.store import ChunkedBuffer, DataPlaneStats, NodeStore, StoreRegistry
+from repro_torch.core.store import (
+    ChunkedBuffer,
+    DataPlaneStats,
+    NodeStore,
+    StoreRegistry,
+    copy_bytes,
+)
 from repro_torch.core.trace import (
     CAT_CHAIN,
     CAT_COMM,
@@ -2417,7 +2423,7 @@ class LocalCluster:
                 dst_win = out.view(pos, avail).view(dtype)
                 acc = inputs[0][0].view(pos, avail).view(dtype)
                 if len(inputs) == 1:
-                    dst_win.copy_(acc)
+                    copy_bytes(dst_win, acc)
                 for buf, _oid, _src in inputs[1:]:
                     _fold_into(op, acc, buf.view(pos, avail).view(dtype), dst_win)
                     acc = dst_win

@@ -31,8 +31,10 @@ from __future__ import annotations
 
 import collections
 import threading
+import time
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.api import DEFAULT_CHUNK_SIZE, ObjectAlreadyExists
@@ -204,6 +206,29 @@ class DataPlaneStats:
                 setattr(self, k, 0)
 
 
+def copy_bytes(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst.copy_(src)`` for a window of the data plane.  Between two host
+    tensors the bytes move as one serial memcpy on the calling thread: each
+    transfer has a thread of its own, and torch's copy of a byte window past
+    its grain size fans out to the intra-op pool, whose threads a loaded
+    host schedules late (the receivers of a fused allreduce then fell a
+    whole object behind the root they chase)."""
+    if dst.device.type == "cpu" and src.device.type == "cpu":
+        np.copyto(dst.view(torch.uint8).numpy(), src.view(torch.uint8).numpy())
+    else:
+        dst.copy_(src)
+
+
+def zero_bytes(size: int, device: torch.device) -> torch.Tensor:
+    """``size`` zero bytes on ``device``; on the host filled on the calling
+    thread, not on the intra-op pool (see ``copy_bytes``)."""
+    if torch.device(device).type == "cpu":
+        out = torch.empty(size, dtype=torch.uint8)
+        out.numpy().fill(0)
+        return out
+    return torch.zeros(size, dtype=torch.uint8, device=device)
+
+
 class BufferFailed(RuntimeError):
     """The node holding this buffer died while a reader was gated on it."""
 
@@ -220,6 +245,12 @@ class ChunkedBuffer:
     buffer's waiters; ``wait_for_bytes`` blocks readers on the watermark.
     Bytes below the watermark are immutable, so readers may take zero-copy
     views of ``data[:bytes_present]`` without holding the lock.
+
+    ``first_window_at`` and ``last_window_at`` record when the watermark
+    first left 0 and when it reached ``size`` (``time.perf_counter``; None
+    until then, both the creation time for a buffer made complete): whether
+    a receiver held bytes before its source was whole is read from them,
+    not from a poll.
     """
 
     def __init__(
@@ -232,8 +263,10 @@ class ChunkedBuffer:
     ):
         self.size = size
         self.chunk_size = chunk_size
-        self.data = torch.zeros(size, dtype=torch.uint8, device=device)
+        self.data = zero_bytes(size, device)
         self.bytes_present = 0
+        self.first_window_at: Optional[float] = None
+        self.last_window_at: Optional[float] = None
         self.failed = False
         self.stats = stats
         self._cond = threading.Condition(threading.Lock())
@@ -244,8 +277,8 @@ class ChunkedBuffer:
                    device: torch.device) -> "ChunkedBuffer":
         buf = cls(len(payload), chunk_size, device=device)
         if payload:
-            buf.data.copy_(torch.frombuffer(bytearray(payload), dtype=torch.uint8))
-        buf.bytes_present = len(payload)
+            copy_bytes(buf.data, torch.frombuffer(bytearray(payload), dtype=torch.uint8))
+        buf._made_complete()
         return buf
 
     @classmethod
@@ -263,9 +296,13 @@ class ChunkedBuffer:
         raw = flat.view(torch.uint8) if flat.numel() else flat.new_empty(0, dtype=torch.uint8)
         buf = cls(raw.numel(), chunk_size, stats=stats,
                   device=arr.device if device is None else device)
-        buf.data.copy_(raw)
-        buf.bytes_present = raw.numel()
+        copy_bytes(buf.data, raw)
+        buf._made_complete()
         return buf
+
+    def _made_complete(self) -> None:
+        self.bytes_present = self.size
+        self.first_window_at = self.last_window_at = time.perf_counter()
 
     @property
     def complete(self) -> bool:
@@ -290,8 +327,14 @@ class ChunkedBuffer:
         end = offset + payload.numel() if payload is not None else end
         with self._cond:
             if payload is not None:
-                self.data[offset:end].copy_(payload)
-            self.bytes_present = max(self.bytes_present, end)
+                copy_bytes(self.data[offset:end], payload)
+            if end > self.bytes_present:
+                now = time.perf_counter()
+                if self.first_window_at is None:
+                    self.first_window_at = now
+                if end >= self.size:
+                    self.last_window_at = now
+                self.bytes_present = end
             if self._waiters:
                 if self.stats is not None:
                     self.stats.notifies += 1

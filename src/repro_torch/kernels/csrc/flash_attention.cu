@@ -4,21 +4,21 @@
 // Replaces: repro/kernels/flash_attention.py, flash_attention_fwd (the Pallas
 // kernel _flash_kernel), for the inputs the tensor-core kernel
 // (flash_attention_sm90.cu) does not take: f32 at every head dim, held to
-// 2e-5, which no bf16 or TF32 product meets, and bf16 at a head dim in
-// (128, 256].  kernels/flash_attention.py, route(), chooses before the launch.
+// 2e-5, which no bf16 or TF32 product meets.  kernels/flash_attention.py,
+// route(), chooses before the launch.
 //
 // Bound on the H100: at the serve path's prefill shape (B=4, H=40, Kh=8,
-// S=512, D=128, causal, bf16) the bytes (q, k, v read once, o written once,
-// about 50 MB) take longer at 3.35 TB/s than the causal product (about
-// 10.8 GFLOP) at the 989 TFLOP/s bf16 tensor-core peak; at longer sequences
-// the operations bound it, since they grow with S^2 and the bytes with S.
+// S=512, D=128, causal) in f32 the causal product (about 10.8 GFLOP) takes
+// longer at the 67 TFLOP/s f32 CUDA-core peak than the bytes (q, k, v read
+// once, o written once, about 101 MB) at 3.35 TB/s, and more so at longer
+// sequences, since the operations grow with S^2 and the bytes with S.
 //
 // Design: this first kernel is plain and exact, not fast.  It does its math
 // on the CUDA cores in f32 (no tensor cores, no TMA), so the operations are
 // what limits it in practice; wgmma and TMA are left to a later change.
 //  * One block per (batch*head, tile of kBQ query rows).  The TPU kernel's
 //    sequential kv grid axis becomes a loop inside the block over kv tiles of
-//    kBK = 32 rows staged in shared memory (as f32), read once per tile by all
+//    kBK = 32 rows staged in shared memory, read once per tile by all
 //    kBQ query rows of the block.
 //  * Each warp owns kRowsPerWarp query rows.  For a kv tile, lane j computes
 //    the scores of key j against the warp's rows (the K tile is padded to
@@ -42,7 +42,6 @@
 //
 // C interface (loaded with ctypes): flash_attention_fwd returns cudaGetLastError().
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -53,14 +52,6 @@ constexpr int kRowsPerWarp = 4;
 constexpr int kBQ = kWarps * kRowsPerWarp;  // query rows per block
 constexpr int kBK = 32;                     // kv rows per tile: one per lane
 constexpr int kThreads = kWarps * 32;
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_float(float v);
-template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -78,10 +69,10 @@ size_t smem_bytes(int D) {
 }
 
 // kCols = ceil(D / 32): accumulator columns per lane.
-template <typename T, int kCols>
+template <int kCols>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ lse, int H, int Kh, int Sq, int Skv,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                 float* __restrict__ o, float* __restrict__ lse, int H, int Kh, int Sq, int Skv,
                  int D, int causal, int window, long long q_offset, float scale) {
   extern __shared__ float smem[];
   float* sQ = smem;                  // kBQ x D
@@ -95,14 +86,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int q0 = blockIdx.y * kBQ;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 
-  const T* qp = q + (size_t)bh * Sq * D;
-  const T* kp = k + (size_t)kvh * Skv * D;
-  const T* vp = v + (size_t)kvh * Skv * D;
-  T* op = o + (size_t)bh * Sq * D;
+  const float* qp = q + (size_t)bh * Sq * D;
+  const float* kp = k + (size_t)kvh * Skv * D;
+  const float* vp = v + (size_t)kvh * Skv * D;
+  float* op = o + (size_t)bh * Sq * D;
 
   for (int i = threadIdx.x; i < kBQ * D; i += kThreads) {
     const int r = i / D, c = i - r * D;
-    sQ[i] = (q0 + r < Sq) ? to_float(qp[(size_t)(q0 + r) * D + c]) : 0.f;
+    sQ[i] = (q0 + r < Sq) ? qp[(size_t)(q0 + r) * D + c] : 0.f;
   }
 
   // The kv band any row of this tile can see.
@@ -127,8 +118,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       const int r = i / D, c = i - r * D;
       const long long j = j0 + r;
       const bool in = j < Skv;
-      sK[r * ldk + c] = in ? to_float(kp[(size_t)j * D + c]) : 0.f;
-      sV[r * D + c] = in ? to_float(vp[(size_t)j * D + c]) : 0.f;
+      sK[r * ldk + c] = in ? kp[(size_t)j * D + c] : 0.f;
+      sV[r * D + c] = in ? vp[(size_t)j * D + c] : 0.f;
     }
     __syncthreads();
 
@@ -194,57 +185,46 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
       const int col = lane + 32 * c;
-      if (col < D) op[(size_t)r * D + col] = from_float<T>(l[i] > 0.f ? acc[i][c] * inv : 0.f);
+      if (col < D) op[(size_t)r * D + col] = l[i] > 0.f ? acc[i][c] * inv : 0.f;
     }
   }
 }
 
-template <typename T, int kCols>
+template <int kCols>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H, int Kh,
            int Sq, int Skv, int D, int causal, int window, long long q_offset, float scale,
            cudaStream_t stream) {
   const size_t smem = smem_bytes(D);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, kCols>,
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<kCols>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)(B * H), (unsigned)((Sq + kBQ - 1) / kBQ));
-  flash_fwd_kernel<T, kCols><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, H, Kh, Sq, Skv, D, causal, window, q_offset, scale);
+  flash_fwd_kernel<kCols><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), lse, H, Kh, Sq, Skv, D, causal, window, q_offset, scale);
   return (int)cudaGetLastError();
-}
-
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H, int Kh,
-             int Sq, int Skv, int D, int causal, int window, long long q_offset, float scale,
-             cudaStream_t s) {
-  switch ((D + 31) / 32) {
-    case 1: return launch<T, 1>(q, k, v, o, lse, B, H, Kh, Sq, Skv, D, causal, window, q_offset, scale, s);
-    case 2: return launch<T, 2>(q, k, v, o, lse, B, H, Kh, Sq, Skv, D, causal, window, q_offset, scale, s);
-    case 3: return launch<T, 3>(q, k, v, o, lse, B, H, Kh, Sq, Skv, D, causal, window, q_offset, scale, s);
-    case 4: return launch<T, 4>(q, k, v, o, lse, B, H, Kh, Sq, Skv, D, causal, window, q_offset, scale, s);
-    case 5: return launch<T, 5>(q, k, v, o, lse, B, H, Kh, Sq, Skv, D, causal, window, q_offset, scale, s);
-    case 6: return launch<T, 6>(q, k, v, o, lse, B, H, Kh, Sq, Skv, D, causal, window, q_offset, scale, s);
-    case 7: return launch<T, 7>(q, k, v, o, lse, B, H, Kh, Sq, Skv, D, causal, window, q_offset, scale, s);
-    case 8: return launch<T, 8>(q, k, v, o, lse, B, H, Kh, Sq, Skv, D, causal, window, q_offset, scale, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
 
-// q (B, H, Sq, D), k and v (B, Kh, Skv, D), o (B, H, Sq, D), all contiguous and
-// of one type; lse null or f32 (B, H, Sq).  dtype codes: 0 = float32,
-// 1 = bfloat16.  The wrapper has checked shapes, types, H % Kh == 0,
-// D % 16 == 0, D <= 256 and grid limits.
+// q (B, H, Sq, D), k and v (B, Kh, Skv, D), o (B, H, Sq, D), all contiguous
+// f32; lse null or f32 (B, H, Sq).  The wrapper has checked shapes, types,
+// H % Kh == 0, D % 16 == 0, D <= 256 and grid limits.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                                    int B, int H, int Kh, int Sq, int Skv, int D, int causal,
-                                   int window, long long q_offset, float scale, int dtype,
-                                   void* stream) {
+                                   int window, long long q_offset, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   if (B * H == 0 || Sq == 0) return (int)cudaGetLastError();
-  if (dtype == 0) return dispatch<float>(q, k, v, o, l, B, H, Kh, Sq, Skv, D, causal, window, q_offset, scale, s);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(q, k, v, o, l, B, H, Kh, Sq, Skv, D, causal, window, q_offset, scale, s);
-  return (int)cudaErrorInvalidValue;
+  switch ((D + 31) / 32) {
+    case 1: return launch<1>(q, k, v, o, l, B, H, Kh, Sq, Skv, D, causal, window, q_offset, scale, s);
+    case 2: return launch<2>(q, k, v, o, l, B, H, Kh, Sq, Skv, D, causal, window, q_offset, scale, s);
+    case 3: return launch<3>(q, k, v, o, l, B, H, Kh, Sq, Skv, D, causal, window, q_offset, scale, s);
+    case 4: return launch<4>(q, k, v, o, l, B, H, Kh, Sq, Skv, D, causal, window, q_offset, scale, s);
+    case 5: return launch<5>(q, k, v, o, l, B, H, Kh, Sq, Skv, D, causal, window, q_offset, scale, s);
+    case 6: return launch<6>(q, k, v, o, l, B, H, Kh, Sq, Skv, D, causal, window, q_offset, scale, s);
+    case 7: return launch<7>(q, k, v, o, l, B, H, Kh, Sq, Skv, D, causal, window, q_offset, scale, s);
+    case 8: return launch<8>(q, k, v, o, l, B, H, Kh, Sq, Skv, D, causal, window, q_offset, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -1,12 +1,12 @@
 // Flash-attention forward on Hopper's tensor cores (sm_90a): bf16 q, k, v with
-// a head dim D that is a multiple of 16 from 16 to 128.
+// a head dim D that is a multiple of 16 from 16 to 256.
 //
 // Replaces: repro/kernels/flash_attention.py, flash_attention_fwd (the Pallas
-// kernel _flash_kernel), for bf16 inputs with D in {16, 32, ..., 128}.  Every
-// other input (f32, which must meet 2e-5 and so cannot go through bf16 or
-// TF32 products, and bf16 with D in (128, 256]) takes the exact CUDA-core
-// kernel in flash_attention.cu.  The wrapper (kernels/flash_attention.py,
-// route()) chooses from the dtype and D before the launch.
+// kernel _flash_kernel), for bf16 inputs with D in {16, 32, ..., 256}.  f32
+// inputs, which must meet 2e-5 and so cannot go through bf16 or TF32
+// products, take the exact CUDA-core kernel in flash_attention.cu.  The
+// wrapper (kernels/flash_attention.py, route()) chooses from the dtype before
+// the launch.
 //
 // Bound on the H100: at the serve path's prefill shapes (qwen3: B=4, H=40,
 // Kh=8, S=512, D=128; stablelm: B=4, H=Kh=32, S=512, D=80; causal, bf16) the
@@ -18,8 +18,8 @@
 //
 // Head dims (design (a): pad in shared memory only).  Every tile is built of
 // 64-column boxes in the 128-byte swizzle, so a head dim D is held in shared
-// memory as DP = D rounded up to a multiple of 64 (64 for D <= 64, 128 for
-// D in (64, 128]).  The tensor maps have the global dim D and a 64-column box,
+// memory as DP = D rounded up to a multiple of 64 (64, 128, 192 or 256).  The
+// tensor maps have the global dim D and a 64-column box,
 // so TMA reads only D columns from device memory and fills the columns past D
 // with zeros (the mbarrier still counts the whole box); the store of O drops
 // them.  S = Q K^T runs D / 16 k-steps, never DP / 16, and O += P V runs at
@@ -41,26 +41,38 @@
 //    warpgroup, which gives its registers to them (setmaxnreg: 240 and 24).
 //  * The producer's one thread loads by TMA each item's Q into one of two Q
 //    buffers, so the next item's Q lands while this one's O is stored from
-//    the other, and K and V tiles of kBKV = 128 rows through a ring of
-//    stages (2 at DP = 128: 2 x 32 KB of Q + 2 x 64 KB of K/V of the 227 KB;
-//    3 at DP = 64), across items.  Each buffer and stage has a "full" mbarrier
+//    the other, and K and V tiles of kBKV rows through a ring of stages,
+//    across items.  What fits the 227 KB depends on DP (Layout):
+//      DP =  64: kBKV = 128, 2 Q buffers of 16 KB, 3 stages of 2 x 16 KB;
+//      DP = 128: kBKV = 128, 2 Q buffers of 32 KB, 2 stages of 2 x 32 KB;
+//      DP = 192: kBKV =  64, 2 Q buffers of 48 KB, 2 stages of 2 x 24 KB;
+//      DP = 256: kBKV =  64, 1 Q buffer  of 64 KB, 2 stages of 2 x 32 KB.
+//    With one Q buffer the next item's Q waits until both warpgroups' O
+//    stores have read it (the same "empty" barrier orders the two).  Past
+//    DP = 128 the kv tile is halved rather than the stages: a consumer holds
+//    O's DP / 2 f32 columns a thread (128 at DP = 256) beside kBKV / 2 scores
+//    and kBKV / 8 words of P, which at kBKV = 128 would not fit the 240
+//    registers without spilling.  Each buffer and stage has a "full" mbarrier
 //    (the TMA's bytes have landed) and an "empty" one (the consumers are done
 //    with it), so nothing waits on a block-wide barrier.  The tensor maps are
 //    3-D, (batch*heads, S, D), so rows past S come back as zeros and never as
 //    the next head's rows.
 //  * Shared tiles use the 128-byte swizzle, whose rows are 64 bf16: a DP = 128
 //    tile is two 64-column boxes, and the wgmma descriptors say so.
-//  * S = Q K^T is wgmma m64n128k16, bf16 in, f32 out, both operands K-major
-//    in shared memory.
+//  * S = Q K^T is wgmma m64n{kBKV}k16, bf16 in, f32 out, both operands
+//    K-major in shared memory.
 //  * Online softmax in f32 on the accumulator fragment.  A thread holds two
-//    rows, 32 columns each; row max and row sum combine the quad's four
+//    rows, kBKV / 4 columns each; row max and row sum combine the quad's four
 //    threads with __shfl_xor_sync 1 and 2; exp2f with scale * log2(e) folded
 //    into the scores; running max, sum and rescale as _flash_kernel:73-82.
 //  * O += P V is wgmma with P as the A operand from registers: the f32
 //    fragment of S has the layout of the bf16 A fragment, so P is rounded to
 //    bf16 where it lies, as the JAX model's flash_ref rounds P before PV (the
 //    row sum keeps the f32 P, as flash_ref's does).  V is an MN-major B
-//    operand (the transpose bit).
+//    operand (the transpose bit).  The product runs at N = DP up to 128, and
+//    past it as N = 128 on O's first two boxes and N = DP - 128 on the rest
+//    (the fragment of a 64 x N tile is the first N / 2 registers of a wider
+//    one's, so O's registers split at 64: wgmma_rs_m64n128<64>).
 //  * Masks come from global positions, query i at q_offset + i and key j at
 //    j.  kv tiles outside the causal or window band are skipped; the element
 //    mask is applied only on tiles that cross the band's edge or the end of
@@ -90,7 +102,6 @@
 namespace {
 
 constexpr int kBQ = 128;       // query rows per work item
-constexpr int kBKV = 128;      // kv rows per tile
 constexpr int kConsumers = 256;  // two warpgroups of 64 query rows each
 constexpr int kThreads = kConsumers + 128;  // and a producer warpgroup
 // Registers per thread after setmaxnreg: 2 x 128 x 240 + 128 x 24 <= 65536.
@@ -102,22 +113,26 @@ constexpr float kLn2 = 0.6931471805599453f;
 
 // Shared memory for head dim D, held as kPad columns (D rounded up to whole
 // 64-column boxes), from a base aligned to 1024 bytes (the swizzle's period):
-// two Q tiles (the next work item's Q loads while this one's O is stored
-// from the other), then the K/V ring.
+// kQBufs Q tiles (with two, the next work item's Q loads while this one's O
+// is stored from the other), then the K/V ring of kStages stages of kBKV
+// rows; what fits the 227 KB (see the header).
 template <int D>
 struct Layout {
-  static_assert(D % 16 == 0 && D >= 16 && D <= 128, "head dims 16, 32, ..., 128");
+  static_assert(D % 16 == 0 && D >= 16 && D <= 256, "head dims 16, 32, ..., 256");
   static constexpr int kPad = (D + kBoxCols - 1) / kBoxCols * kBoxCols;
-  static constexpr int kStages = kPad == 128 ? 2 : 3;  // what fits the 227 KB
+  static constexpr int kBKV = kPad <= 128 ? 128 : 64;  // kv rows per tile
+  static constexpr int kQBufs = kPad <= 192 ? 2 : 1;
+  static constexpr int kStages = kPad == 64 ? 3 : 2;
   static constexpr int kBoxes = kPad / kBoxCols;
   static constexpr int kQBytes = kBQ * kPad * 2;
   static constexpr int kTileBytes = kBKV * kPad * 2;  // one K or one V tile
-  static constexpr int kQ = 0;                     // 2 Q tiles
-  static constexpr int kK = kQ + 2 * kQBytes;      // kStages K tiles
+  static constexpr int kQ = 0;                     // kQBufs Q tiles
+  static constexpr int kK = kQ + kQBufs * kQBytes;  // kStages K tiles
   static constexpr int kV = kK + kStages * kTileBytes;
-  static constexpr int kBar = kV + kStages * kTileBytes;  // 2 x 2 for Q, 2 per stage
-  static constexpr int kBytes = kBar + 8 * (4 + 2 * kStages);
+  static constexpr int kBar = kV + kStages * kTileBytes;  // 2 per Q buffer, 2 per stage
+  static constexpr int kBytes = kBar + 8 * (2 * kQBufs + 2 * kStages);
   static constexpr int kLaunchBytes = kBytes + 1024;  // room to align the base
+  static_assert(kLaunchBytes <= 232448, "more shared memory than a block may use");
 };
 
 // A work item: one tile of kBQ query rows of one (batch, head), and the kv
@@ -128,6 +143,7 @@ struct Item {
   long long q_first, q_last, kv_begin;
 };
 
+template <int kBKV>
 __device__ __forceinline__ Item item_of(int w, int BH, int nq, int H, int Kh, int Sq, int Skv,
                                         int causal, int window, long long q_offset) {
   Item it;
@@ -243,49 +259,89 @@ __device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t a, uin
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
-// d (64 x 128, f32) += A (64 x 16, bf16 in registers) * B (16 x 128, shared, MN-major).
-__device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+// d (64 x 64, f32) += A (64 x 16, shared) * B (16 x 64, shared), both K-major.
+__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d[O, O + 64) (64 x 128, f32) += A (64 x 16, bf16 in registers) * B (16 x 128, shared,
+// MN-major): the fragment of a 64 x 128 tile is a wider one's from register O
+// on (O = 64 for its columns 128 on).
+template <int O = 0, int N>
+__device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[N], const uint32_t (&a)[4], uint64_t b) {
+  static_assert(O + 64 <= N, "registers 64 from O");
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
       "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
       :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        "+f"(d[O + 0]), "+f"(d[O + 1]), "+f"(d[O + 2]), "+f"(d[O + 3]), "+f"(d[O + 4]), "+f"(d[O + 5]), "+f"(d[O + 6]), "+f"(d[O + 7]),
+        "+f"(d[O + 8]), "+f"(d[O + 9]), "+f"(d[O + 10]), "+f"(d[O + 11]), "+f"(d[O + 12]), "+f"(d[O + 13]), "+f"(d[O + 14]), "+f"(d[O + 15]),
+        "+f"(d[O + 16]), "+f"(d[O + 17]), "+f"(d[O + 18]), "+f"(d[O + 19]), "+f"(d[O + 20]), "+f"(d[O + 21]), "+f"(d[O + 22]), "+f"(d[O + 23]),
+        "+f"(d[O + 24]), "+f"(d[O + 25]), "+f"(d[O + 26]), "+f"(d[O + 27]), "+f"(d[O + 28]), "+f"(d[O + 29]), "+f"(d[O + 30]), "+f"(d[O + 31]),
+        "+f"(d[O + 32]), "+f"(d[O + 33]), "+f"(d[O + 34]), "+f"(d[O + 35]), "+f"(d[O + 36]), "+f"(d[O + 37]), "+f"(d[O + 38]), "+f"(d[O + 39]),
+        "+f"(d[O + 40]), "+f"(d[O + 41]), "+f"(d[O + 42]), "+f"(d[O + 43]), "+f"(d[O + 44]), "+f"(d[O + 45]), "+f"(d[O + 46]), "+f"(d[O + 47]),
+        "+f"(d[O + 48]), "+f"(d[O + 49]), "+f"(d[O + 50]), "+f"(d[O + 51]), "+f"(d[O + 52]), "+f"(d[O + 53]), "+f"(d[O + 54]), "+f"(d[O + 55]),
+        "+f"(d[O + 56]), "+f"(d[O + 57]), "+f"(d[O + 58]), "+f"(d[O + 59]), "+f"(d[O + 60]), "+f"(d[O + 61]), "+f"(d[O + 62]), "+f"(d[O + 63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-// d (64 x 64, f32) += A (64 x 16, bf16 in registers) * B (16 x 64, shared, MN-major).
-__device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+// d[O, O + 32) (64 x 64, f32) += A (64 x 16, bf16 in registers) * B (16 x 64, shared, MN-major).
+template <int O = 0, int N>
+__device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[N], const uint32_t (&a)[4], uint64_t b) {
+  static_assert(O + 32 <= N, "registers 32 from O");
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
       "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        "+f"(d[O + 0]), "+f"(d[O + 1]), "+f"(d[O + 2]), "+f"(d[O + 3]), "+f"(d[O + 4]), "+f"(d[O + 5]), "+f"(d[O + 6]), "+f"(d[O + 7]),
+        "+f"(d[O + 8]), "+f"(d[O + 9]), "+f"(d[O + 10]), "+f"(d[O + 11]), "+f"(d[O + 12]), "+f"(d[O + 13]), "+f"(d[O + 14]), "+f"(d[O + 15]),
+        "+f"(d[O + 16]), "+f"(d[O + 17]), "+f"(d[O + 18]), "+f"(d[O + 19]), "+f"(d[O + 20]), "+f"(d[O + 21]), "+f"(d[O + 22]), "+f"(d[O + 23]),
+        "+f"(d[O + 24]), "+f"(d[O + 25]), "+f"(d[O + 26]), "+f"(d[O + 27]), "+f"(d[O + 28]), "+f"(d[O + 29]), "+f"(d[O + 30]), "+f"(d[O + 31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// S (64 x N) = A (64 x 16, shared) * B (16 x N, shared), summed over k-steps.
 template <int N>
-__device__ __forceinline__ void wgmma_pv(float (&o)[N / 2], const uint32_t (&a)[4], uint64_t b);
+__device__ __forceinline__ void wgmma_qk(float (&s)[N / 2], uint64_t a, uint64_t b, int scale_d);
 template <>
-__device__ __forceinline__ void wgmma_pv<64>(float (&o)[32], const uint32_t (&a)[4], uint64_t b) {
-  wgmma_rs_m64n64(o, a, b);
+__device__ __forceinline__ void wgmma_qk<64>(float (&s)[32], uint64_t a, uint64_t b, int scale_d) {
+  wgmma_ss_m64n64(s, a, b, scale_d);
 }
 template <>
-__device__ __forceinline__ void wgmma_pv<128>(float (&o)[64], const uint32_t (&a)[4], uint64_t b) {
-  wgmma_rs_m64n128(o, a, b);
+__device__ __forceinline__ void wgmma_qk<128>(float (&s)[64], uint64_t a, uint64_t b, int scale_d) {
+  wgmma_ss_m64n128(s, a, b, scale_d);
+}
+
+// O (64 x DP) += P (64 x 16, bf16 in registers) * V (16 x DP), V's k-step at
+// `bv` in shared memory, MN-major, `lbo` bytes from one 64-column box to the
+// next.  Past N = 128 as two products: boxes 0-1, then the rest.
+template <int DP>
+__device__ __forceinline__ void wgmma_pv(float (&o)[DP / 2], const uint32_t (&a)[4], uint32_t bv,
+                                         uint32_t lbo) {
+  static_assert(DP == 64 || DP == 128 || DP == 192 || DP == 256, "whole 64-column boxes");
+  const uint64_t b = sw128_desc(bv, lbo, 1024);
+  if constexpr (DP == 64) {
+    wgmma_rs_m64n64(o, a, b);
+  } else {
+    wgmma_rs_m64n128(o, a, b);
+    const uint64_t b2 = sw128_desc(bv + 2 * lbo, lbo, 1024);  // box 2 on
+    if constexpr (DP == 192) wgmma_rs_m64n64<64>(o, a, b2);
+    if constexpr (DP == 256) wgmma_rs_m64n128<64>(o, a, b2);
+  }
 }
 
 // One work item on the two consumer warpgroups: thread tid of 256 owns two
@@ -302,7 +358,7 @@ __device__ __forceinline__ void attend(const Item& item, const CUtensorMap* o_ma
                                        int causal, int window, long long q_offset,
                                        float scale_log2) {
   using L = Layout<D>;
-  constexpr int kStages = L::kStages, DP = L::kPad;
+  constexpr int kStages = L::kStages, DP = L::kPad, kBKV = L::kBKV;
   const int tid = threadIdx.x;
   const int q0 = item.q0;
   const long long q_first = item.q_first, q_last = item.q_last, kv_begin = item.kv_begin;
@@ -334,7 +390,7 @@ __device__ __forceinline__ void attend(const Item& item, const CUtensorMap* o_ma
       const uint32_t k_off = (kk % 4) * 32;
       const uint32_t a = sQ + (kk / 4) * kBQ * kRowBytes + wg * 64 * kRowBytes + k_off;
       const uint32_t bk = sK + stage * L::kTileBytes + (kk / 4) * kBKV * kRowBytes + k_off;
-      wgmma_ss_m64n128(s, sw128_desc(a, 16, 1024), sw128_desc(bk, 16, 1024), kk > 0);
+      wgmma_qk<kBKV>(s, sw128_desc(a, 16, 1024), sw128_desc(bk, 16, 1024), kk > 0);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -395,13 +451,13 @@ __device__ __forceinline__ void attend(const Item& item, const CUtensorMap* o_ma
       pa[t][3] = pack_bf16(s[8 * t + 6], s[8 * t + 7]);
     }
     // O += P V at N = DP: V is MN-major; a k16 step is 16 kv rows (2048
-    // bytes) on, the second 64 columns the next box (the leading byte offset).
+    // bytes) on, the next 64 columns the next box (the leading byte offset).
     fence_regs(acc);
     wgmma_fence();
 #pragma unroll
     for (int t = 0; t < kBKV / 16; ++t) {
       const uint32_t bv = sV + stage * L::kTileBytes + t * 16 * kRowBytes;
-      wgmma_pv<DP>(acc, pa[t], sw128_desc(bv, kBKV * kRowBytes, 1024));
+      wgmma_pv<DP>(acc, pa[t], bv, kBKV * kRowBytes);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -460,7 +516,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
                       int nq, int H, int Kh, int Sq, int Skv, int causal, int window,
                       long long q_offset, float scale_log2) {
   using L = Layout<D>;
-  constexpr int kStages = L::kStages;
+  constexpr int kStages = L::kStages, kQBufs = L::kQBufs, kBKV = L::kBKV;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = raw + ((1024u - (raw & 1023u)) & 1023u);
@@ -468,14 +524,14 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
   // Barriers, 8 bytes each: per Q buffer a "full" one (its TMA bytes have
   // landed) and an "empty" one (both warpgroups' O stores have read it), then
   // the same pair per stage of the ring.
-  const uint32_t bar_qfull = base + L::kBar, bar_qempty = bar_qfull + 16;
-  const uint32_t bar_full = bar_qempty + 16, bar_empty = bar_full + 8 * kStages;
+  const uint32_t bar_qfull = base + L::kBar, bar_qempty = bar_qfull + 8 * kQBufs;
+  const uint32_t bar_full = bar_qempty + 8 * kQBufs, bar_empty = bar_full + 8 * kStages;
   const int tid = threadIdx.x;
   const int items = BH * nq;
 
   if (tid == 0) {
 #pragma unroll
-    for (int qb = 0; qb < 2; ++qb) {
+    for (int qb = 0; qb < kQBufs; ++qb) {
       mbar_init(bar_qfull + 8 * qb, 1);
       mbar_init(bar_qempty + 8 * qb, 2);  // one arrival per consumer warpgroup
     }
@@ -495,9 +551,9 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
     if (tid == kConsumers) {
       int tile = 0, k = 0;
       for (int w = blockIdx.x; w < items; w += gridDim.x, ++k) {
-        const Item item = item_of(w, BH, nq, H, Kh, Sq, Skv, causal, window, q_offset);
-        const int qb = k & 1;
-        if (k >= 2) mbar_wait(bar_qempty + 8 * qb, (k / 2 - 1) & 1);
+        const Item item = item_of<kBKV>(w, BH, nq, H, Kh, Sq, Skv, causal, window, q_offset);
+        const int qb = k % kQBufs;
+        if (k >= kQBufs) mbar_wait(bar_qempty + 8 * qb, (k / kQBufs - 1) & 1);
         mbar_expect_tx(bar_qfull + 8 * qb, L::kQBytes);
 #pragma unroll
         for (int box = 0; box < L::kBoxes; ++box)
@@ -522,9 +578,9 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
     int tile = 0, k = 0;
     for (int w = blockIdx.x; w < items; w += gridDim.x, ++k) {
-      const Item item = item_of(w, BH, nq, H, Kh, Sq, Skv, causal, window, q_offset);
-      const int qb = k & 1;
-      mbar_wait(bar_qfull + 8 * qb, (k / 2) & 1);
+      const Item item = item_of<kBKV>(w, BH, nq, H, Kh, Sq, Skv, causal, window, q_offset);
+      const int qb = k % kQBufs;
+      mbar_wait(bar_qfull + 8 * qb, (k / kQBufs) & 1);
       attend<D>(item, &o_map, lse, sQ + qb * L::kQBytes, sK, sV, bar_full, bar_empty, tile, Sq,
                 Skv, causal, window, q_offset, scale_log2);
       if ((tid & 127) == 0) mbar_arrive(bar_qempty + 8 * qb);  // after its store read the tile
@@ -584,8 +640,8 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
   CUtensorMap qm, km, vm, om;
   int err = make_map(&qm, q, B * H, Sq, D, kBQ);
   if (err == 0) err = make_map(&om, o, B * H, Sq, D, 64);
-  if (err == 0) err = make_map(&km, k, B * Kh, Skv, D, kBKV);
-  if (err == 0) err = make_map(&vm, v, B * Kh, Skv, D, kBKV);
+  if (err == 0) err = make_map(&km, k, B * Kh, Skv, D, Layout<D>::kBKV);
+  if (err == 0) err = make_map(&vm, v, B * Kh, Skv, D, Layout<D>::kBKV);
   if (err != 0) return err;
   constexpr int smem = Layout<D>::kLaunchBytes;
   cudaError_t e = cudaFuncSetAttribute(flash_fwd_sm90_kernel<D>,
@@ -607,7 +663,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
 }  // namespace
 
 // q (B, H, Sq, D), k and v (B, Kh, Skv, D), o (B, H, Sq, D): contiguous bf16,
-// base addresses 16-byte aligned (TMA), D a multiple of 16 up to 128; lse null or f32
+// base addresses 16-byte aligned (TMA), D a multiple of 16 up to 256; lse null or f32
 // (B, H, Sq).  The wrapper has checked shapes, types, alignment, H % Kh == 0
 // and grid limits.
 extern "C" int flash_attention_fwd_sm90(const void* q, const void* k, const void* v, void* o,
@@ -631,6 +687,8 @@ extern "C" int flash_attention_fwd_sm90(const void* q, const void* k, const void
     return launch<d>(q, k, v, o, l, B, H, Kh, Sq, Skv, causal, window, q_offset, scale, s);
     FLASH_SM90_CASE(16) FLASH_SM90_CASE(32) FLASH_SM90_CASE(48) FLASH_SM90_CASE(64)
     FLASH_SM90_CASE(80) FLASH_SM90_CASE(96) FLASH_SM90_CASE(112) FLASH_SM90_CASE(128)
+    FLASH_SM90_CASE(144) FLASH_SM90_CASE(160) FLASH_SM90_CASE(176) FLASH_SM90_CASE(192)
+    FLASH_SM90_CASE(208) FLASH_SM90_CASE(224) FLASH_SM90_CASE(240) FLASH_SM90_CASE(256)
 #undef FLASH_SM90_CASE
   }
   return (int)cudaErrorInvalidValue;

@@ -6,18 +6,20 @@ CUDA tensors only; the plain version for CPU tensors is
 no tile divisibility and pads no head dim in device memory.
 
 Two kernels, one route each, chosen by ``route(dtype, D)`` before the launch:
+bf16 runs on the tensor cores, f32 on the CUDA cores.
 
-- ``"tc"``: bf16 with a head dim that is a multiple of 16 from 16 to 128
-  (``TC_HEAD_DIMS``) runs on the tensor cores (``csrc/flash_attention_sm90.cu``:
-  wgmma, TMA, P rounded to bf16 for the PV product as the JAX model's
-  ``flash_ref`` does).  A head dim that is not a multiple of 64 is padded to
-  one in shared memory only (design (a) in the source): TMA reads D columns
-  and fills the rest with zeros, Q K^T runs D / 16 k-steps, and the store of O
-  drops the padding.
-- ``"cores"``: everything else, f32 at any head dim and bf16 at a head dim in
-  (128, 256], runs the exact f32 kernel on the CUDA cores
-  (``csrc/flash_attention.cu``).  f32 is held to 2e-5, which no bf16 or TF32
-  product meets.
+- ``"tc"``: bf16 at every head dim the function takes, a multiple of 16 from
+  16 to 256 (``TC_HEAD_DIMS``), on the tensor cores
+  (``csrc/flash_attention_sm90.cu``: wgmma, TMA, P rounded to bf16 for the PV
+  product as the JAX model's ``flash_ref`` does).  A head dim that is not a
+  multiple of 64 is padded to one in shared memory only (design (a) in the
+  source): TMA reads D columns and fills the rest with zeros, Q K^T runs
+  D / 16 k-steps, and the store of O drops the padding.  Past 128 the kv
+  tiles are 64 rows instead of 128, so that O's wider accumulator fits the
+  registers.
+- ``"cores"``: f32 at every head dim runs the exact f32 kernel on the CUDA
+  cores (``csrc/flash_attention.cu``).  f32 is held to 2e-5, which no bf16 or
+  TF32 product meets.
 
 Both kernels can also write each query row's log-sum-exp of the scaled
 scores (``return_lse=True``): f32 (B, H, Sq), natural-log units, ``+inf``
@@ -38,9 +40,9 @@ import torch
 
 from repro_torch.kernels import _build
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 BQ = 32  # query rows per block of the CUDA-core kernel, as kBQ in its source
-TC_HEAD_DIMS = tuple(range(16, 129, 16))  # the instances of the tensor-core kernel
+TC_HEAD_DIMS = tuple(range(16, 257, 16))  # the instances of the tensor-core kernel
 
 # Launches of each kernel in this process, and how many of them wrote the
 # lse; ``ops.reset_launch_counts`` zeroes them.
@@ -50,20 +52,20 @@ lse_launches = 0
 
 
 # flash_attention_fwd(q, k, v, o, lse, B, H, Kh, Sq, Skv, D, causal, window,
-#                     q_offset, scale, dtype, stream) in csrc/flash_attention.cu;
+#                     q_offset, scale, stream) in csrc/flash_attention.cu (f32);
 # flash_attention_fwd_sm90(q, k, v, o, lse, B, H, Kh, Sq, Skv, D, causal, window,
 #                          q_offset, scale, stream) in csrc/flash_attention_sm90.cu
 ARGTYPES = {
-    "flash_attention_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
-        ctypes.c_longlong, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
-    "flash_attention_fwd_sm90": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
-        ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p],
+    name: [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p]
+    for name in ("flash_attention_fwd", "flash_attention_fwd_sm90")
 }
 _LIBS = {"flash_attention_fwd": "flash_attention", "flash_attention_fwd_sm90": "flash_attention_sm90"}
 
 
 def route(dtype: torch.dtype, head_dim: int) -> str:
-    """``"tc"`` for bf16 with a head dim in ``TC_HEAD_DIMS``, else ``"cores"``."""
+    """``"tc"`` for bf16 with a head dim in ``TC_HEAD_DIMS``, else ``"cores"``:
+    bf16 at every head dim the kernels take on the tensor cores, f32 on the
+    CUDA cores."""
     return "tc" if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS else "cores"
 
 
@@ -112,10 +114,7 @@ def flash_attention_fwd(
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(), B, H, Kh, Sq, Skv, D,
             int(bool(causal)), int(window), int(q_offset), 1.0 / math.sqrt(D))
-    if tc:
-        err = _fn("flash_attention_fwd_sm90")(*args, stream)
-    else:
-        err = _fn("flash_attention_fwd")(*args, _DTYPES[q.dtype], stream)
+    err = _fn("flash_attention_fwd_sm90" if tc else "flash_attention_fwd")(*args, stream)
     if err != 0:
         what = ("no cuTensorMapEncodeTiled in the driver" if err == -1 else
                 f"tensor map refused, CUresult {-err - 1000}" if err <= -1000 else f"cudaError {err}")

@@ -133,8 +133,8 @@ flash_attention_fwd_lse.register_autograd(_flash_backward, setup_context=_flash_
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, causal: bool = True, window: int = 0,
                     q_offset: int = 0) -> Tensor:
     """(B,H,Sq,D) x (B,Kh,Skv,D)^2 -> (B,H,Sq,D); GQA via H//Kh groups.  On the
-    card the kernel follows ``flash_attention.route(dtype, D)``: bf16 with D
-    a multiple of 16 up to 128 on the tensor cores, the rest on the CUDA cores.
+    card the kernel follows ``flash_attention.route(dtype, D)``: bf16 on the
+    tensor cores, f32 on the CUDA cores.
     Under autograd the kernel also writes the log-sum-exp for the backward."""
     _on_cpu_or_card("flash_attention", q)
     if _needs_grad(q, k, v):

@@ -470,25 +470,35 @@ def test_re_reduce_into_an_existing_target_raises():
     same_bits(TORCH.get(c, 0, "t"), b[0] + b[1])
 
 
+def held_bytes_before_the_root_was_whole(c, oid, root, receivers):
+    """The overlap claim, read from the stores' recorded window times: some
+    receiver's first window of ``oid`` landed before the root's last one."""
+    last = c.stores[root].get(oid).last_window_at
+    return min(c.stores[i].get(oid).first_window_at for i in receivers) < last
+
+
 def test_fused_allreduce_receivers_hold_bytes_while_the_reduce_produces():
     vals = [data("f64", 64_000, seed=i) for i in range(4)]
     c = TORCH.cluster(4, chunk_size=64 * KB, pace=0.003)
     for i, v in enumerate(vals):
         c.put(i, f"g{i}", v)
-    fut: Future = Future()
-    threading.Thread(target=lambda: fut.set_result(
-        c.allreduce(list(range(4)), "ar", [f"g{i}" for i in range(4)], timeout=60.0)), daemon=True).start()
-    overlapped = False
-    deadline = time.time() + 30.0
-    while time.time() < deadline and not fut.done():
-        root = c.stores[0].get("ar")
-        if root is not None and 0 < root.bytes_present < root.size and any(
-                (b := c.stores[i].get("ar")) is not None and b.bytes_present > 0 for i in range(1, 4)):
-            overlapped = True
-            break
-        time.sleep(0.001)
-    fut.result(timeout=60.0)
-    assert overlapped
+    c.allreduce(list(range(4)), "ar", [f"g{i}" for i in range(4)], timeout=60.0)
+    assert held_bytes_before_the_root_was_whole(c, "ar", 0, range(1, 4))
+    for i in range(4):
+        np.testing.assert_allclose(TORCH.get(c, i, "ar"), sum(vals), rtol=1e-12)
+
+
+def test_store_and_forward_allreduce_fails_the_overlap_check():
+    """A planted allreduce that reduces into the root and only then fetches
+    to the receivers: the check above must refuse it."""
+    vals = [data("f64", 64_000, seed=i) for i in range(4)]
+    c = TORCH.cluster(4, chunk_size=64 * KB, pace=0.003)
+    for i, v in enumerate(vals):
+        c.put(i, f"g{i}", v)
+    c.reduce(0, "ar", [f"g{i}" for i in range(4)], timeout=60.0)
+    for i in range(1, 4):
+        c.get(i, "ar", timeout=60.0)
+    assert not held_bytes_before_the_root_was_whole(c, "ar", 0, range(1, 4))
     for i in range(4):
         np.testing.assert_allclose(TORCH.get(c, i, "ar"), sum(vals), rtol=1e-12)
 

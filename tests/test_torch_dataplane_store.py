@@ -262,3 +262,42 @@ def test_from_array_copies_onto_the_stores_device():
     assert torch.equal(buf.to_array(torch.float32, (10,)), torch.arange(10, dtype=torch.float32))
     b = TST.ChunkedBuffer.from_bytes(b"\x01\x02\x03", device=CPU)
     assert b.complete and b.to_bytes() == b"\x01\x02\x03"
+
+
+def test_chunked_buffer_records_its_first_and_last_window():
+    """``first_window_at`` is stamped when the watermark leaves 0,
+    ``last_window_at`` when it reaches the size, and neither moves after;
+    a buffer made complete has both at its creation."""
+    raw = torch.arange(256, dtype=torch.int64).to(torch.uint8)
+    b = TST.ChunkedBuffer(256, chunk_size=64, device=CPU)
+    assert (b.first_window_at, b.last_window_at) == (None, None)
+    b.write_chunk(0, raw[:64])
+    first = b.first_window_at
+    assert first is not None and b.last_window_at is None
+    time.sleep(0.002)
+    b.write_chunk(64, raw[64:128])
+    b.data[128:].copy_(raw[128:])
+    b.write_chunk(128, None, end=256)
+    assert b.first_window_at == first and b.last_window_at > first
+    last = b.last_window_at
+    b.write_chunk(0, None, end=256)  # no advance, no new stamp
+    assert b.last_window_at == last and b.to_bytes() == bytes(raw.numpy())
+    whole = TST.ChunkedBuffer.from_array(raw, device=CPU)
+    assert whole.first_window_at == whole.last_window_at is not None
+
+
+def test_copy_bytes_moves_host_and_typed_windows_exactly():
+    """``copy_bytes`` between host tensors (a serial memcpy) gives the bytes
+    ``copy_`` gives, for byte windows and for typed views (bf16 included)."""
+    rng = np.random.RandomState(3)
+    src = torch.from_numpy(rng.randint(0, 256, size=4096).astype(np.uint8))
+    dst = torch.zeros(8192, dtype=torch.uint8)
+    TST.copy_bytes(dst[100:4196], src)
+    assert torch.equal(dst[100:4196], src) and int(dst[:100].sum()) == int(dst[4196:].sum()) == 0
+    for dt in (torch.bfloat16, torch.float16, torch.float64):
+        a = src.view(dt)
+        out = torch.empty_like(a)
+        TST.copy_bytes(out, a)
+        assert torch.equal(out.view(torch.uint8), src)
+    z = TST.zero_bytes(1000, CPU)
+    assert z.dtype == torch.uint8 and z.shape == (1000,) and int(z.sum()) == 0

@@ -104,12 +104,13 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
     assert ops.launch_counts() == dict(NO_LAUNCHES, **{f"flash_attention_{tfa.route(dtype, D)}": 1})
 
 
-# The tensor-core route (bf16, D a multiple of 16 up to 128): tests/test_kernels.py's
+# The tensor-core route (bf16, D a multiple of 16 up to 256): tests/test_kernels.py's
 # cases of those head dims, the serve prefill shape and its 513-token variant,
 # q_offset = Skv - Sq with Sq != Skv, ragged lengths, and windows whose first
 # rows see no key; every head dim that is not a multiple of 64 (the kernel pads
 # it to one in shared memory), and stablelm-3b's prefill at D = 80 with the
-# same variants; jamba-v0.1-52b's prefill.
+# same variants; jamba-v0.1-52b's prefill; and past 128 (DP = 192 or 256 in
+# shared memory, kv tiles of 64 rows) WIDE_TC_CASES.
 TC_CASES = [
     # (B, H, Kh, Sq, Skv, D, causal, window, q_offset)
     (1, 2, 2, 128, 128, 64, True, 0, 0),
@@ -142,6 +143,21 @@ TC_CASES = [
     (4, 16, 16, 384, 384, 64, True, 0, 0),    # whisper's decoder self-attention
     (2, 4, 4, 220, 92, 64, False, 0, 0),      # bidirectional, one kv edge tile, Sq > Skv
 ]
+WIDE_TC_CASES = [case for D in (144, 192, 208, 256) for case in (
+    (2, 4, 2, 100, 300, D, True, 0, 200),     # GQA, ragged, Sq != Skv, q_offset
+    (1, 2, 1, 200, 200, D, True, 16, -20),    # MQA, window, the first 20 rows see no key
+    (2, 4, 4, 100, 300, D, False, 0, 0),      # bidirectional, Sq != Skv
+    (1, 2, 2, 300, 300, D, True, 48, 0),      # narrow window over several kv tiles
+    (1, 2, 2, 16, 16, D, True, 0, -4),        # rows with no visible key
+)] + [(1, 4, 2, 128, 128, D, True, 0, 0) for D in (160, 176, 224, 240)] + [
+    (4, 16, 8, 512, 512, 256, True, 0, 0),    # the smoke's timed shape at D = 256
+    (1, 8, 2, 513, 513, 256, True, 0, 0),     # a last q tile of one row
+    (2, 4, 4, 220, 92, 256, False, 0, 0),     # bidirectional, one kv edge tile, Sq > Skv
+    (2, 8, 8, 512, 512, 160, True, 0, 0),     # MHA at prefill size
+    (2, 4, 4, 100, 300, 160, True, 0, 200),   # ragged, Sq != Skv
+    (1, 4, 4, 200, 200, 256, True, 16, -20),  # MHA, window, the first 20 rows see no key
+]
+TC_CASES += WIDE_TC_CASES
 
 
 @pytest.mark.parametrize("case", TC_CASES)
@@ -373,11 +389,12 @@ def test_pods_on_the_card_end_bit_for_bit_the_same(cuda):
             assert p["launches"]["flash_attention_tc"] == 2 * cfg.num_layers
 
 
-def test_flash_tensor_cores_read_only_their_own_bytes(cuda):
-    """q, k and v at D = 80 are views at the start of larger NaN-filled
-    buffers: a read past column 80 of the last row, or past the last row,
-    would bring a NaN into the output."""
-    B, H, Kh, S, D = 1, 4, 4, 200, 80
+@pytest.mark.parametrize("D", [80, 208, 256])
+def test_flash_tensor_cores_read_only_their_own_bytes(cuda, D):
+    """q, k and v at D = 80, 208 and 256 are views at the start of larger
+    NaN-filled buffers: a read past column D of the last row, or past the
+    last row, would bring a NaN into the output."""
+    B, H, Kh, S = 1, 4, 4, 200
     views = []
     for t in _qkv(cuda, B, H, Kh, S, S, D, torch.bfloat16):
         buf = torch.full((t.numel() + 128 * D,), float("nan"), dtype=torch.bfloat16, device="cuda")
@@ -392,14 +409,16 @@ def test_flash_tensor_cores_read_only_their_own_bytes(cuda):
     assert ops.launch_counts() == dict(NO_LAUNCHES, flash_attention_tc=1)
 
 
+@pytest.mark.parametrize("D", [64, 256])
 @pytest.mark.parametrize("Sq,Skv", [(200, 1500), (1500, 1500), (300, 92)])
-def test_flash_tensor_cores_bidirectional_read_only_their_own_bytes(cuda, Sq, Skv):
-    """Bidirectional attention at D = 64 with the lengths of whisper's cross
-    and encoder attention, neither a multiple of the 128-row tile: q, k and v
-    are views at the start of larger NaN-filled buffers, so a read past the
-    last row (the kv edge tile of 92 keys has no causal mask to hide it) or
-    a store of the last q tile past Sq would bring a NaN in or leave one."""
-    B, H, Kh, D = 1, 4, 4, 64
+def test_flash_tensor_cores_bidirectional_read_only_their_own_bytes(cuda, Sq, Skv, D):
+    """Bidirectional attention at D = 64 and 256 with the lengths of
+    whisper's cross and encoder attention, neither a multiple of a kv tile
+    (128 rows, or 64 past D = 128): q, k and v are views at the start of
+    larger NaN-filled buffers, so a read past the last row (the kv edge tile
+    has no causal mask to hide it) or a store of the last q tile past Sq
+    would bring a NaN in or leave one."""
+    B, H, Kh = 1, 4, 4
     views = []
     for t in _qkv(cuda, B, H, Kh, Sq, Skv, D, torch.bfloat16):
         buf = torch.full((t.numel() + 128 * D,), float("nan"), dtype=torch.bfloat16, device="cuda")
@@ -416,9 +435,10 @@ def test_flash_tensor_cores_bidirectional_read_only_their_own_bytes(cuda, Sq, Sk
     assert ops.launch_counts() == dict(NO_LAUNCHES, flash_attention_tc=1)
 
 
-def test_flash_tensor_cores_refuse_a_misaligned_start(cuda):
+@pytest.mark.parametrize("D", [64, 256])
+def test_flash_tensor_cores_refuse_a_misaligned_start(cuda, D):
     """TMA reads from 16-byte aligned addresses; the route does not change."""
-    q, k, v = _qkv(cuda, 1, 2, 2, 33, 33, 64, torch.bfloat16)
+    q, k, v = _qkv(cuda, 1, 2, 2, 33, 33, D, torch.bfloat16)
     flat = torch.empty(q.numel() + 1, dtype=torch.bfloat16, device="cuda")
     q1 = flat[1:].view(q.shape)
     q1.copy_(q)
@@ -547,37 +567,6 @@ def test_reduced_mixtral_ring_decode_on_the_card_matches_the_cpu(cuda):
     got = Engine(cfg, gparams, opts).generate({"tokens": toks[:, :12]}, 6)
     want = Engine(cfg, params, opts).generate({"tokens": toks[:, :12]}, 6)
     np.testing.assert_array_equal(got, want)
-
-
-# The bf16 flash on the CUDA cores, at the head dims past the tensor-core
-# route's 128: a prefill-sized MHA case, the 513-token variant, ragged
-# lengths, and a window whose first rows see no key.
-CORES_BF16_CASES = [
-    # (B, H, Kh, Sq, Skv, D, causal, window, q_offset)
-    (2, 8, 8, 512, 512, 160, True, 0, 0),
-    (1, 8, 2, 513, 513, 256, True, 0, 0),    # prefill of prompt + one token
-    (2, 4, 4, 100, 300, 160, True, 0, 200),  # ragged, Sq != Skv
-    (1, 4, 4, 200, 200, 256, True, 16, -20), # window, the first 20 rows see no key
-]
-
-
-@pytest.mark.parametrize("case", CORES_BF16_CASES)
-def test_flash_bf16_cuda_cores_past_head_dim_128(cuda, case):
-    """bf16 at D = 160 or 256 is not a tensor-core head dim: it runs the
-    CUDA-core kernel, within 2e-2 of the plain version, and the check fails
-    K with rolled columns and S = 0."""
-    B, H, Kh, Sq, Skv, D, causal, window, off = case
-    assert tfa.route(torch.bfloat16, D) == "cores"
-    q, k, v = _qkv(cuda, B, H, Kh, Sq, Skv, D, torch.bfloat16)
-    got = ops.flash_attention(q, k, v, causal, window, off)
-    torch.cuda.synchronize()
-    want = ref.flash_attention_ref(q, k, v, causal, window, off)
-    assert got.dtype == torch.bfloat16 and got.shape == q.shape
-    torch.testing.assert_close(got.float(), want.float(), **tol(torch.bfloat16))
-    assert ops.launch_counts() == dict(NO_LAUNCHES, flash_attention_cores=1)
-    for kk in (k.roll(8, dims=-1), torch.zeros_like(k)):
-        bad = ref.flash_attention_ref(q, kk, v, causal, window, off)
-        assert not torch.allclose(got.float(), bad.float(), **tol(torch.bfloat16))
 
 
 def _perturbed_norms(params, seed: int):

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.models import attention as jattn
 from repro.optim.compression import quantize_int8
 from repro_torch.configs import ARCHS, get_config, reduced_config
 from repro_torch.kernels import _build
@@ -38,7 +39,7 @@ FLASH_CASES = [
 ]
 
 # The tensor-core route's head dims that FLASH_CASES does not reach (it takes
-# every multiple of 16 up to 128; the kernel pads D to a multiple of 64 in
+# every multiple of 16 up to 256; the kernel pads D to a multiple of 64 in
 # shared memory): the plain version, the card's yardstick for those
 # instances, against the Pallas kernel in interpret mode.
 HEAD_DIM_CASES = [
@@ -49,6 +50,13 @@ HEAD_DIM_CASES = [
     (1, 4, 2, 128, 128, 96, True, 0),
     (1, 4, 2, 128, 128, 112, True, 0),
     (1, 4, 4, 128, 128, 80, True, 0),     # MHA at D = 80, as stablelm-3b's heads
+]
+# Past 128 the kernel holds D in three or four 64-column boxes (DP = 192 for
+# D = 144 and 192, DP = 256 for 208 and 256) and takes kv tiles of 64 rows:
+# each such D causal with GQA (Kh < H), and windowed.
+WIDE_HEAD_DIM_CASES = [
+    case for D in (144, 192, 208, 256)
+    for case in ((1, 4, 2, 128, 128, D, True, 0), (1, 2, 1, 256, 256, D, True, 64))
 ]
 
 # Shapes the Pallas kernel cannot take (it asserts tile divisibility), held
@@ -62,6 +70,7 @@ RAGGED_CASES = [
     (1, 2, 2, 40, 40, 32, True, 5, 0),
     (1, 2, 2, 16, 16, 32, True, 0, -4),   # first 4 rows see no key: zeros
     (1, 4, 1, 513, 513, 16, True, 0, 0),
+    (1, 4, 2, 100, 300, 256, False, 0, 0),  # bidirectional, Sq != Skv, D = 256
 ]
 
 RMSNORM_SHAPES = [(4, 64), (3, 7, 256), (1000, 128)]
@@ -103,7 +112,7 @@ def _zero_counts():
     tops.reset_launch_counts()
 
 
-@pytest.mark.parametrize("case", FLASH_CASES + HEAD_DIM_CASES)
+@pytest.mark.parametrize("case", FLASH_CASES + HEAD_DIM_CASES + WIDE_HEAD_DIM_CASES)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_ref_matches_jax_kernel(case, dtype):
     B, H, Kh, Sq, Skv, D, causal, window = case
@@ -113,6 +122,22 @@ def test_flash_ref_matches_jax_kernel(case, dtype):
     got = tref.flash_attention_ref(q, k, v, causal, window, q_offset)
     assert got.dtype == getattr(torch, dtype) and got.shape == (B, H, Sq, D)
     np.testing.assert_allclose(f32(got), f32(want), **tol(dtype))
+
+
+@pytest.mark.parametrize("case", WIDE_HEAD_DIM_CASES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_ref_lse_matches_jax_at_wide_head_dims(case, dtype):
+    """The lse of the plain version (the card's yardstick for the wide
+    instances' lse) against the JAX package's ``_flash_fwd_impl``, which
+    saves ``m + log(l)`` for its backward; the output too."""
+    B, H, Kh, Sq, Skv, D, causal, window = case
+    (jq, q), (jk, k), (jv, v) = flash_inputs(B, H, Kh, Sq, Skv, D, dtype, seed=2)
+    pos = jnp.arange(Sq, dtype=jnp.int32)
+    out_j, lse_j = jattn._flash_fwd_impl(jq.reshape(B, Kh, H // Kh, Sq, D), jk, jv, pos, pos, causal, window)
+    out_t, lse_t = tref.flash_attention_ref(q, k, v, causal, window, 0, return_lse=True)
+    assert lse_t.dtype == torch.float32 and lse_t.shape == (B, H, Sq)
+    np.testing.assert_allclose(f32(lse_t), np.asarray(lse_j).reshape(B, H, Sq), **tol(dtype))
+    np.testing.assert_allclose(f32(out_t), f32(out_j).reshape(B, H, Sq, D), **tol(dtype))
 
 
 @pytest.mark.parametrize("case", [c + (c[4] - c[3],) for c in FLASH_CASES] + RAGGED_CASES)
@@ -304,12 +329,12 @@ def test_build_key_covers_every_source(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16])
-@pytest.mark.parametrize("D", [16, 32, 48, 64, 80, 96, 128, 256])
+@pytest.mark.parametrize("D", range(16, 257, 16))
 def test_flash_route_is_a_function_of_dtype_and_head_dim(dtype, D):
-    """bf16 with D a multiple of 16 up to 128 takes the tensor cores; f32
-    (held to 2e-5) at every D, and bf16 past 128, take the exact CUDA-core
-    kernel."""
-    want = "tc" if dtype == torch.bfloat16 and D <= 128 else "cores"
+    """bf16 at every D the kernels take (a multiple of 16 up to 256) takes
+    the tensor cores; f32 (held to 2e-5) at every D takes the exact
+    CUDA-core kernel."""
+    want = "tc" if dtype == torch.bfloat16 else "cores"
     assert tfa.route(dtype, D) == want
 
 
