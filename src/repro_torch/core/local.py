@@ -1336,11 +1336,25 @@ class LocalCluster:
             chunk=float(self.chunk_size_for(size)),
             egress_sharing=False,
         )
+
+        def start_receivers():
+            return [
+                (n, self.prefetch_async(n, target_id, timeout=max(0.0, deadline - time.time())))
+                for n in dict.fromkeys(nodes)
+                if n != root
+            ]
+
+        futs = []
         if policy.fused:
             # Advertise the producing target BEFORE the receivers start:
             # their fetches subscribe to its feasibility transition
             # instead of racing the root's first publication.
             self._advertise_reduce_target(root, target_id, dtype, shape, size)
+            # Start the receivers before the reduce: each ``Thread.start``
+            # waits for this thread to be scheduled again, which a loaded
+            # host can hold off for longer than the whole reduce takes, so
+            # receivers started after it could only store and forward.
+            futs = start_receivers()
         red: Future = Future()
 
         def run_reduce():
@@ -1355,11 +1369,7 @@ class LocalCluster:
         self._spawn(run_reduce)
         if not policy.fused:
             red.result(timeout=max(0.0, deadline - time.time()))
-        futs = [
-            (n, self.prefetch_async(n, target_id, timeout=max(0.0, deadline - time.time())))
-            for n in dict.fromkeys(nodes)
-            if n != root
-        ]
+            futs = start_receivers()
         red.result(timeout=max(0.0, deadline - time.time()))
         for n, f in futs:
             if n in skip_await:

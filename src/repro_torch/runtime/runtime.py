@@ -21,13 +21,19 @@ Semantics follow the paper's framing of Ray:
     task; if all copies of an object are lost to node failures, the task
     re-executes (transitively re-fetching / re-creating its inputs).
 
-Two recoveries go beyond the JAX runtime, which has them on no path: a
+Four recoveries go beyond the JAX runtime, which has them on no path: a
 reduce whose source lost its last copy re-executes that source's task and
-reduces again (the JAX ``reduce`` fails with ``ObjectLost``), and a Get
-whose own node was killed and restarted under it fetches again (the JAX
-``get`` fails the task with ``DeadNode``).  Above the inline size a killed
-node takes its tasks' results with it, so without them a reduce over the
-first finishers fails whenever one of them ran there.
+reduces again (the JAX ``reduce`` fails with ``ObjectLost``); a Get whose
+own node was killed and restarted under it fetches again (the JAX ``get``
+fails the task with ``DeadNode``); a task whose own node is dead when it
+Puts its result, or Gets an argument, runs again on a live node (the JAX
+task fails with ``DeadNode``); and ``put`` picks another node when the one
+it picked died before the Put reached it (the JAX ``put`` raises
+``DeadNode``), though never a node the caller named.  Above the inline
+size a killed node takes its tasks' results with it, so without the first
+a reduce over the first finishers fails whenever one of them ran there;
+without the third it fails whenever one of them finished between a node's
+kill and its restart.
 """
 
 from __future__ import annotations
@@ -228,10 +234,19 @@ class Runtime:
 
     def put(self, value, node: Optional[int] = None) -> ObjectRef:
         ref = ObjectRef(self)
-        node = self._pick_node(node)
-        ref.node = node
         value = as_tensor(value, self.cluster.device)
-        self.cluster.put(node, ref.id, value)
+        named = node
+        for attempt in range(3):
+            node = self._pick_node(named)
+            try:
+                self.cluster.put(node, ref.id, value)
+                break
+            except DeadNode as e:
+                # The node this call picked died before the Put reached
+                # it: pick again.  A node the caller named stays an error.
+                if named is not None or str(e) != str(node) or attempt == 2:
+                    raise
+        ref.node = node
         with self._lock:
             self._refs[ref.id] = ref
             # Put lineage (section 7): the value is in hand, so losing the
@@ -250,18 +265,30 @@ class Runtime:
         return arg
 
     def _execute(self, ref: ObjectRef, fn, args, kwargs, node: int):
-        with self._sema[node]:
-            try:
-                resolved = [self._resolve(a, node) for a in args]
-                rkw = {k: self._resolve(v, node) for k, v in kwargs.items()}
-                out = fn(*resolved, **rkw)
-                self.cluster.put(node, ref.id, out)
-            except BaseException as e:  # noqa: BLE001
-                ref.error = e
-            finally:
-                self.tasks_executed += 1
-                ref.ready.set()
-                self._fire_callbacks(ref)
+        try:
+            for attempt in range(3):
+                try:
+                    with self._sema[node]:
+                        resolved = [self._resolve(a, node) for a in args]
+                        rkw = {k: self._resolve(v, node) for k, v in kwargs.items()}
+                        out = fn(*resolved, **rkw)
+                        self.cluster.put(node, ref.id, out)
+                    return
+                except DeadNode as e:
+                    if str(e) != str(node) or attempt == 2:
+                        raise
+                    # This task's own node was killed under it (its Put
+                    # refused, or its Get's node still dead): run it again
+                    # on a live node, as the task of a lost object is.
+                    node = self._pick_node(None)
+                    ref.node = node
+                    self.tasks_reexecuted += 1
+        except BaseException as e:  # noqa: BLE001
+            ref.error = e
+        finally:
+            self.tasks_executed += 1
+            ref.ready.set()
+            self._fire_callbacks(ref)
 
     def _fire_callbacks(self, ref: ObjectRef) -> None:
         with self._lock:

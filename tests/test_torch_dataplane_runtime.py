@@ -8,12 +8,15 @@ async_parameter_server``) at its defaults is held to
 ``examples/async_parameter_server.py``: with both runtimes' ``wait``
 taking finishers in submission order (the one change that makes either
 run deterministic), the parameters after every round agree within 2e-5
-and so do the losses.  Two recoveries the JAX runtime lacks are held here
-too: a reduce re-executes a source lost with its node, and a Get whose own
-node was killed and restarted under it fetches again.
+and so do the losses.  Four recoveries the JAX runtime lacks are held
+here too: a reduce re-executes a source lost with its node, a Get whose
+own node was killed and restarted under it fetches again, a task whose
+own node is dead when it Puts or Gets runs again on a live node, and a
+Put whose picked node died before it landed picks another.
 """
 
 import importlib.util
+import threading
 import time
 from pathlib import Path
 
@@ -199,6 +202,76 @@ def test_get_fetches_again_when_its_node_restarted_under_it(monkeypatch):
     rt.cluster.fail_node(1)
     with pytest.raises(DeadNode):  # still dead: no retry
         rt.get(ref, node=1)
+
+
+@pytest.mark.parametrize("where", ["put", "get"])
+def test_task_runs_again_when_its_node_died_under_it(where):
+    """A task on node 1 whose node is killed (and not yet restarted) before
+    it Puts its result, or before it Gets its argument: the JAX runtime
+    fails it with ``DeadNode``, the port runs it again on a live node."""
+    want = np.arange(ELEMS, dtype=np.float64)
+
+    def run(side, R, A):
+        rt = runtime(side, num_nodes=3)
+        if where == "put":
+            go = threading.Event()
+
+            def task():
+                go.wait(10.0)
+                return want
+
+            ref = rt.remote(task, node=1)
+            rt.cluster.fail_node(1)
+            go.set()
+        else:
+            arg = rt.put(want, node=0)
+            rt.cluster.fail_node(1)
+            ref = rt.remote(lambda v: v, arg, node=1)
+        try:
+            return t2n(rt.get(ref, node=0, timeout=30.0)), rt.tasks_reexecuted, ref.node
+        except R.TaskError as e:
+            return e, rt.tasks_reexecuted, ref.node
+
+    (j, jn, _), (t, tn, tnode) = both(run)
+    assert isinstance(j, JR.TaskError) and str(j) == "1" and jn == 0
+    np.testing.assert_array_equal(t, want)
+    assert tn == 1 and tnode in (0, 2)
+
+
+def test_put_picks_again_when_its_node_died_before_the_put(monkeypatch):
+    """The node ``put`` picked is killed before the Put reaches it: the JAX
+    runtime raises ``DeadNode``, the port puts on another live node.  A
+    node the caller named is not replaced."""
+    want = np.arange(ELEMS, dtype=np.float64)
+
+    def run(side, R, A):
+        rt = runtime(side, num_nodes=3)
+        orig = type(rt.cluster).put
+        killed = []
+
+        def put(self, node, object_id, value):
+            if not killed:
+                killed.append(node)
+                self.fail_node(node)  # lands between the pick and the Put
+            return orig(self, node, object_id, value)
+
+        monkeypatch.setattr(type(rt.cluster), "put", put)
+        try:
+            ref = rt.put(want)
+        except Exception as e:  # noqa: BLE001
+            return e, killed, None
+        finally:
+            monkeypatch.setattr(type(rt.cluster), "put", orig)
+        return t2n(rt.get(ref, node=ref.node)), killed, ref.node
+
+    (j, jk, _), (t, tk, tnode) = both(run)
+    assert type(j).__name__ == "DeadNode" and str(j) == str(jk[0])
+    np.testing.assert_array_equal(t, want)
+    assert tnode is not None and tnode != tk[0]
+    rt = TR.Runtime(num_nodes=3, device="cpu")
+    rt.cluster.fail_node(1)
+    with pytest.raises(DeadNode):
+        rt.put(want, node=1)
 
 
 def test_streaming_reduce_splices_a_joiner():
