@@ -209,6 +209,9 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 # Cycles the card spins before each timed run (about 0.1 ms), longer than the
 # host takes to enqueue any one kernel here.
 SPIN_CYCLES = 200_000
+# Bytes the L2 flush before each timed run reads: five times the H100's 50 MB
+# L2, so that none of the timed kernel's operands is left in it.
+FLUSH_BYTES = 256 << 20
 
 # tests/test_kernels.py:16-17, used as both rtol and atol; the log-sum-exp
 # (f32 from either type) is held to the same numbers, absolute
@@ -333,11 +336,17 @@ def card_line() -> str:
 
 def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     """Median device time of ``fn`` over ``reps`` runs, by CUDA events.  Each
-    run follows a write of 64 MB that evicts the 50 MB L2 and a spin of the
-    card (``torch.cuda._sleep``) that keeps it busy while the host enqueues
-    ``fn``, so the host's launch overhead (Python, ctypes, the tensor maps)
-    is not counted: the events bracket the device's work."""
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    run follows a flush of the L2 that only reads (a sum of FLUSH_BYTES into
+    one scalar) and a spin of the card (``torch.cuda._sleep``) that keeps it
+    busy while the host enqueues ``fn``, so the host's launch overhead
+    (Python, ctypes, the tensor maps) is not counted: the events bracket the
+    device's work.  The read evicts ``fn``'s operands and writes back every
+    dirty line that earlier work left in the L2 before the window opens, so
+    the window holds ``fn``'s own traffic and no other kernel's write-back
+    (a flush that writes leaves the L2 full of dirty lines, and the timed
+    kernel's reads evict them inside its window)."""
+    flush = torch.zeros(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    total = torch.empty((), dtype=torch.float32, device="cuda")
     for _ in range(warmup):
         fn()
     times = []
@@ -345,7 +354,7 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
-        flush.zero_()
+        torch.sum(flush, 0, out=total)
         torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
@@ -388,7 +397,10 @@ def check_rmsnorm(torch, rn, ref, gen):
     """Kernel against plain version at every shape the serve paths give it
     (``serve_rmsnorm_rows`` of qwen3 and of each run of SERVE_RUNS)
     and the train path's (a microbatch is one row of TRAIN_SEQ tokens: ln1,
-    ln2 and the final norm, the qk-norm of q's 40 heads and k's 8); returns
+    ln2 and the final norm, the qk-norm of q's 40 heads and k's 8), in bf16
+    and f32; at the serve path's first two shapes also a view of x 2 or 4
+    bytes past a 16-byte boundary (the kernel's scalar path), and at its
+    first three rows normed alone against the batch, bit for bit.  Returns
     the record at the serve path's shape."""
     from repro_torch.configs import get_config
 
@@ -403,9 +415,20 @@ def check_rmsnorm(torch, rn, ref, gen):
         for shape in shapes:
             x = torch.randn(shape, generator=gen, device="cuda").to(dt)
             w = (torch.randn(shape[-1], generator=gen, device="cuda") * 0.1).to(dt)
-            err = compare(torch, f"rmsnorm {shape} {dtype}", rn.rmsnorm(x, w), ref.rmsnorm_ref(x, w), dtype)
+            got = rn.rmsnorm(x, w)
+            err = compare(torch, f"rmsnorm {shape} {dtype}", got, ref.rmsnorm_ref(x, w), dtype)
             if shape == shapes[0] and dtype == "bfloat16":
                 path_err = err
+            if shape in shapes[:3]:  # the serve path's widths: d_model and the qk-norm's heads
+                check_rmsnorm_rows_alone(torch, rn, x, w, got, f"{shape} {dtype}")
+        for shape in shapes[:2]:  # a view 2 or 4 bytes past a 16-byte boundary: the scalar path
+            x = torch.randn(shape, generator=gen, device="cuda").to(dt)
+            w = (torch.randn(shape[-1], generator=gen, device="cuda") * 0.1).to(dt)
+            flat = torch.empty(x.numel() + 1, dtype=dt, device="cuda")
+            xv = flat[1:].view(shape)
+            xv.copy_(x)
+            compare(torch, f"rmsnorm {shape} {dtype}, x {xv.data_ptr() % 16} bytes past 16", rn.rmsnorm(xv, w),
+                    ref.rmsnorm_ref(x, w), dtype)
     torch.cuda.synchronize()
     spread = {str(shape): rmsnorm_vs_library(torch, rn, gen, shape) for shape in shapes[:2]}
     x = torch.randn(shapes[0], generator=gen, device="cuda").to(torch.bfloat16)
@@ -421,6 +444,17 @@ def check_rmsnorm(torch, rn, ref, gen):
         "max_abs_err": path_err, "ms": path["kernel_ms"], "kernel_ms": path["kernel_ms"], "plain_ms": plain,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": path["library_ms"], "against_library": spread,
     }
+
+
+def check_rmsnorm_rows_alone(torch, rn, x, w, batch, what: str):
+    """Rows normed alone (one, four, and the last) equal the same rows of
+    ``batch``, which normed all of ``x`` at once, bit for bit: a decode step
+    norms one token's rows where prefill normed them together."""
+    for rows in (slice(0, 1), slice(5, 9), slice(x.shape[0] - 1, None)):
+        if not torch.equal(rn.rmsnorm(x[rows].clone(), w), batch[rows]):
+            raise AssertionError(f"rmsnorm {what}: rows {rows.start}-{x.shape[0] if rows.stop is None else rows.stop} "
+                                 "normed alone differ from the batch's")
+    log(f"[kernels] rmsnorm {what}: rows normed alone equal the batch's, bit for bit")
 
 
 def rmsnorm_vs_library(torch, rn, gen, shape, reps: int = 5):
@@ -440,9 +474,11 @@ def rmsnorm_vs_library(torch, rn, gen, shape, reps: int = 5):
     log(f"[kernels] rmsnorm {shape} bf16 against F.rms_norm, {reps} turns of time_ms: kernel median {k:.6f} ms "
         f"(range {min(ks):.6f}-{max(ks):.6f}), F.rms_norm median {lib:.6f} ms (range {min(ls):.6f}-{max(ls):.6f}), "
         f"ratio of medians {k / lib:.4f} (per turn {min(a / b for a, b in zip(ks, ls)):.4f}-"
-        f"{max(a / b for a, b in zip(ks, ls)):.4f}); bound {b_ms:.4f} ms ({b_by})")
+        f"{max(a / b for a, b in zip(ks, ls)):.4f}); bound {b_ms:.4f} ms ({b_by}), kernel at {100 * b_ms / k:.1f}% "
+        f"of it, F.rms_norm at {100 * b_ms / lib:.1f}%")
     return {"kernel_ms": k, "kernel_range": [min(ks), max(ks)], "library_ms": lib,
-            "library_range": [min(ls), max(ls)], "ratio": k / lib, "bound_ms": b_ms, "bound_by": b_by}
+            "library_range": [min(ls), max(ls)], "ratio": k / lib, "bound_ms": b_ms, "bound_by": b_by,
+            "share_of_bound": b_ms / k, "library_share_of_bound": b_ms / lib}
 
 
 def flash_pairs(torch, Sq, Skv, causal, window, q_offset) -> int:
@@ -2985,9 +3021,16 @@ def main(argv=None) -> int:
     log(f"[build] {sorted(built) or 'cached'} in {time.perf_counter() - t0:.1f} s")
     reports = {name: _build.report(name) for name in _build.SOURCES}
     for name, rep in sorted(reports.items()):
+        if name == "rmsnorm":  # dozens of instances: their range and the most any spills
+            regs = [int(n) for n in re.findall(r"Used (\d+) registers", rep)]
+            log(f"[build] rmsnorm: {len(regs)} kernels, {min(regs)}-{max(regs)} registers, at most "
+                f"{spill_bytes(rep)} spill bytes")
+            continue
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
+    if spill_bytes(reports["rmsnorm"]):
+        raise AssertionError(f"an rmsnorm kernel spills {spill_bytes(reports['rmsnorm'])} bytes")
     spills = spill_bytes(reports["flash_attention_sm90"])
     instances = flash_instances(reports["flash_attention_sm90"])
     log(f"[build] flash_attention_sm90 (the tensor-core route): {spills} spill bytes; by head dim "

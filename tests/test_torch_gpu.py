@@ -447,7 +447,19 @@ def test_flash_tensor_cores_refuse_a_misaligned_start(cuda, D):
     assert ops.launch_counts() == NO_LAUNCHES
 
 
-@pytest.mark.parametrize("shape", [(4, 64), (3, 7, 256), (1000, 128), (2048, 5120), (5, 16383), (2, 1025)])
+# The serve and train paths' widths: the qk-norm's head dim (qwen3, gemma3) and
+# d_model of jamba, qwen3 and llama4-scout, gemma3, mixtral, qwen2-vl.
+RMSNORM_WIDTHS = (128, 4096, 5120, 5376, 6144, 8192)
+RMSNORM_SHAPES = [
+    (4, 64), (3, 7, 256), (1000, 128), (2048, 5120), (5, 16383), (2, 1025),
+    # prefill and the decode rows (4, d) at every width; 4 tokens' 40 and 8 heads
+    *[(2048, d) for d in RMSNORM_WIDTHS if d != 5120], *[(4, d) for d in RMSNORM_WIDTHS], (160, 128), (32, 128),
+    # row counts that fill no last warp (4 rows of 128 a warp in bf16, 2 in f32), block or grid
+    (1, 128), (1001, 128), (16385, 128), (37, 5120), (2049, 8192),
+]
+
+
+@pytest.mark.parametrize("shape", RMSNORM_SHAPES)
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("wdtype", DTYPES)
 def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype, wdtype):
@@ -458,6 +470,40 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype, wdtype):
     assert got.dtype == dtype and got.shape == x.shape
     torch.testing.assert_close(got.float(), ref.rmsnorm_ref(x, w).float(), **tol(dtype))
     assert ops.launch_counts() == dict(NO_LAUNCHES, rmsnorm=1)
+
+
+@pytest.mark.parametrize("shape", [(4, 128), (1001, 128), (2048, 5120), (4, 8192), (3, 1025)])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("wdtype", DTYPES)
+def test_rmsnorm_kernel_takes_a_misaligned_view(cuda, shape, dtype, wdtype):
+    """A contiguous view that starts one element past a 16-byte boundary
+    takes the kernel's scalar path, never the plain version."""
+    x = torch.randn(shape, generator=cuda, device="cuda").to(dtype)
+    w = (torch.randn(shape[-1], generator=cuda, device="cuda") * 0.1).to(wdtype)
+    flat = torch.empty(x.numel() + 1, dtype=dtype, device="cuda")
+    xv = flat[1:].view(shape)
+    xv.copy_(x)
+    assert xv.is_contiguous() and xv.data_ptr() % 16 != 0
+    got = ops.rmsnorm(xv, w)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == x.shape
+    torch.testing.assert_close(got.float(), ref.rmsnorm_ref(x, w).float(), **tol(dtype))
+    assert ops.launch_counts() == dict(NO_LAUNCHES, rmsnorm=1)
+
+
+@pytest.mark.parametrize("d", RMSNORM_WIDTHS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rmsnorm_rows_alone_equal_rows_in_a_batch(cuda, d, dtype):
+    """A row's result depends on its values, d and the types only: rows normed
+    alone, as decode norms one token's, equal the same rows normed in a
+    batch of 2048, as prefill norms them, bit for bit."""
+    x = torch.randn(2048, d, generator=cuda, device="cuda").to(dtype)
+    w = (torch.randn(d, generator=cuda, device="cuda") * 0.1).to(dtype)
+    batch = ops.rmsnorm(x, w)
+    parts = [slice(0, 1), slice(1, 5), slice(100, 260), slice(2047, 2048), slice(1023, 2048)]
+    for rows in parts:
+        assert torch.equal(ops.rmsnorm(x[rows].clone(), w), batch[rows]), rows
+    assert ops.launch_counts() == dict(NO_LAUNCHES, rmsnorm=1 + len(parts))
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
