@@ -1,24 +1,19 @@
-"""Kernel times in turns on one NVIDIA GPU: two L2 flushes, and two builds of the RMSNorm kernel.
+"""RMSNorm kernels in turns on one NVIDIA GPU: this tree's against builds of other sources.
 
-    python3 kernel_turns.py flush --baseline build/rmsnorm_base.cu
-    python3 kernel_turns.py rmsnorm --baseline build/rmsnorm_base.cu [--baseline build/other.cu ...]
+    python3 kernel_turns.py --baseline build/rmsnorm_base.cu [--baseline build/other.cu ...]
 
-``flush`` times byte-bound kernels and the tensor-core flash after each of
-two L2 flushes, in turns (write, read, read, write) for ``--rounds`` rounds:
-the write flush (a ``zero_`` of 64 MB, then the spin) and
-``chip_smoke.time_ms``'s read flush (a sum of 256 MB, then the spin).  The
-cases: the baseline RMSNorm kernel and ``F.rms_norm`` at (2048, 5120) bf16;
-``chunk_reduce`` and ``torch.add`` on the sync hop's row and on the data
-plane's f16 fold windows of 2 MB and 64 MB; the tensor-core flash at the
-serve shape and, with its lse, at the train shape, which is bound by
-operations and should not move.
-
-``rmsnorm`` times the RMSNorm kernels built from each ``--baseline`` against
-this tree's, in turns (the baselines, this tree's, ``F.rms_norm``,
-``F.rms_norm``, this tree's, the baselines in reverse) for ``--rounds`` rounds
-under ``chip_smoke.time_ms``, at the serve path's shapes in bf16: (2048,
-5120), (81920, 128), (16384, 128), the decode row (4, 5120) and the least
-call, (1, 128).  Each build is first held to the plain version.  ``flush`` takes the first baseline.
+Times the RMSNorm kernels built from each ``--baseline`` against this
+tree's, in turns (the baselines, this tree's, ``F.rms_norm``, ``F.rms_norm``,
+this tree's, the baselines in reverse) for ``--rounds`` rounds under
+``chip_smoke.time_ms``, at the serve path's shapes in bf16: (2048, 5120),
+(81920, 128), (16384, 128), the decode row (4, 5120) and the least call,
+(1, 128); then at (2048, 5120) a view of x one element past a 16-byte
+boundary (this tree's scalar path).  Each build is first held to the plain
+version.  At (2048, 5120) it also times each variant with its write-back
+inside the window: ``time_ms``'s read flush, which leaves the L2 clean,
+lets a kernel's output stay in the L2 past the window's end, so a second
+round of turns times windows that hold the call and then the read flush,
+less windows that hold the flush alone.
 
 The baseline is a source of the kernel with the same C interface
 (``rmsnorm_fwd``), for instance an earlier commit's, written under the
@@ -30,7 +25,7 @@ It is built with ``_build.NVCC_FLAGS`` into ``build/kernel_turns/`` and
 loaded with ctypes.  Each variant's times are the medians of its turns (each
 turn the median of 20 CUDA-event runs), with their range; the script prints
 them with the card's name and power limit and writes them as JSON to
-``--out`` (by default ``build/kernel_turns/<mode>.json``).  Needs a CUDA
+``--out`` (by default ``build/kernel_turns/rmsnorm.json``).  Needs a CUDA
 device and ``nvcc``.
 """
 
@@ -49,10 +44,11 @@ HERE = Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE / "src"))
 sys.path.insert(0, str(HERE))
 
-# The serve path's shapes; (1, 128), the least call, shows what a launch costs
-# on its own under this flush.
-RMSNORM_SHAPES = ((2048, 5120), (81920, 128), (16384, 128), (4, 5120), (1, 128))
-WRITE_FLUSH_BYTES = 64 << 20
+# (shape, elements past a 16-byte boundary): the serve path's shapes, aligned;
+# (1, 128), the least call, shows what a launch costs on its own under the
+# flush; then a misaligned view.
+RMSNORM_CASES = (((2048, 5120), 0), ((81920, 128), 0), ((16384, 128), 0), ((4, 5120), 0), ((1, 128), 0),
+                 ((2048, 5120), 1))
 
 
 def log(msg: str) -> None:
@@ -91,27 +87,33 @@ def baseline_rmsnorm(torch, source: Path):
     return rmsnorm
 
 
-def time_after_write(torch, fn, reps: int = 20, warmup: int = 3) -> float:
-    """``chip_smoke.time_ms`` with the flush that writes: a ``zero_`` of 64
-    MB, then the spin, before each run."""
+def time_through_flush(torch, fn, reps: int = 20, warmup: int = 3) -> float:
+    """``fn``'s device time with its write-back inside the window: the median
+    of windows that hold ``fn`` and then ``chip_smoke.time_ms``'s read flush,
+    less the median of windows that hold the flush alone, each window
+    opened as ``time_ms`` opens it (the read flush, then the spin)."""
     import chip_smoke as CS
 
-    flush = torch.empty(WRITE_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    flush = torch.zeros(CS.FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    total = torch.empty((), dtype=torch.float32, device="cuda")
     for _ in range(warmup):
         fn()
-    times = []
+    with_fn, alone = [], []
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        flush.zero_()
-        torch.cuda._sleep(CS.SPIN_CYCLES)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        for fns, times in (((fn,), with_fn), ((), alone)):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            torch.sum(flush, 0, out=total)
+            torch.cuda._sleep(CS.SPIN_CYCLES)
+            start.record()
+            for f in fns:
+                f()
+            torch.sum(flush, 0, out=total)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+    return statistics.median(with_fn) - statistics.median(alone)
 
 
 def turns(order, timers: dict, rounds: int) -> dict:
@@ -126,101 +128,50 @@ def turns(order, timers: dict, rounds: int) -> dict:
             for name, t in got.items()}
 
 
-def flush_cases(torch, gen, rmsnorm_base):
-    """(name, function, bound ms, bound by) of each case the flushes are compared on."""
-    import chip_smoke as CS
-    from repro_torch.configs import get_config
-    from repro_torch.core import collectives as C
-    from repro_torch.kernels import chunk_reduce as cr
-    from repro_torch.kernels import flash_attention as fa
-
-    cases = []
-    x = torch.randn(2048, 5120, generator=gen, device="cuda").to(torch.bfloat16)
-    w = (torch.randn(5120, generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
-    w1 = 1.0 + w
-    rb = CS.bound(2 * x.numel() * 2 + w.numel() * 2, 4 * x.numel(), "bfloat16")
-    cases += [("rmsnorm baseline (2048, 5120) bf16", lambda: rmsnorm_base(x, w), *rb),
-              ("F.rms_norm (2048, 5120) bf16", lambda: torch.nn.functional.rms_norm(x, (5120,), w1, 1e-6), *rb)]
-
-    nchunks, chunk = CS.hop_chunks(get_config(CS.ARCH), C)
-    buf = torch.randn(nchunks, chunk, generator=gen, device="cuda").to(torch.bfloat16)
-    dst, src = buf[1], torch.randn(chunk, generator=gen, device="cuda").to(torch.bfloat16)
-    hb = CS.bound(3 * chunk * 2, 2 * chunk, "float32")
-    cases += [(f"chunk_reduce row 1 of ({nchunks}, {chunk}) bf16 in place",
-               lambda: cr.chunk_reduce(dst, src, 1.0, out=dst), *hb),
-              ("torch.add on the same row", lambda: torch.add(dst, src, out=dst), *hb)]
-    for nbytes in (2 << 20, 64 << 20):
-        n = nbytes // 2
-        a = torch.randn(n, generator=gen, device="cuda").half()
-        b = torch.randn(n, generator=gen, device="cuda").half()
-        fb = CS.bound(3 * nbytes, 2 * n, "float32")
-        cases += [(f"chunk_reduce f16 ({n},) in place", lambda a=a, b=b: cr.chunk_reduce(a, b, 1.0, out=a), *fb),
-                  (f"torch.add f16 ({n},) in place", lambda a=a, b=b: torch.add(a, b, out=a), *fb)]
-
-    for (B, H, Kh, S, _, D, causal, _), lse, what in (((CS.BATCH, 40, 8, CS.PROMPT, CS.PROMPT, 128, True, 0), False,
-                                                      "serve shape"), (CS.FLASH_TRAIN, True, "train shape, lse")):
-        q, k, v = CS.flash_inputs(torch, gen, B, H, Kh, S, S, D, torch.bfloat16)
-        ops = 4 * B * H * D * CS.flash_pairs(torch, S, S, causal, 0, 0)
-        fb = CS.bound((2 * q.numel() + k.numel() + v.numel()) * 2 + (B * H * S * 4 if lse else 0), ops, "bfloat16")
-        cases.append((f"flash tensor cores {tuple(q.shape)}x{tuple(k.shape)} causal bf16 ({what})",
-                      lambda q=q, k=k, v=v, lse=lse: fa.flash_attention_fwd(q, k, v, causal=True, return_lse=lse),
-                      *fb))
-    return cases
-
-
-def run_flush(torch, gen, rmsnorm_base, rounds: int) -> list:
-    import chip_smoke as CS
-
-    out = []
-    for name, fn, b_ms, b_by in flush_cases(torch, gen, rmsnorm_base):
-        r = turns(("write", "read", "read", "write"),
-                  {"write": lambda: time_after_write(torch, fn), "read": lambda: CS.time_ms(torch, fn)}, rounds)
-        wr, rd = r["write"], r["read"]
-        log(f"[flush] {name}: write flush median {wr['median_ms']:.6f} ms (range {wr['min_ms']:.6f}-"
-            f"{wr['max_ms']:.6f}), read flush median {rd['median_ms']:.6f} ms (range {rd['min_ms']:.6f}-"
-            f"{rd['max_ms']:.6f}), read / write {rd['median_ms'] / wr['median_ms']:.4f}; bound {b_ms:.6f} ms "
-            f"({b_by}): {100 * b_ms / wr['median_ms']:.1f}% after the write, {100 * b_ms / rd['median_ms']:.1f}% "
-            "after the read")
-        out.append({"case": name, "bound_ms": b_ms, "bound_by": b_by, **r})
-    return out
-
-
 def run_rmsnorm(torch, gen, bases: dict, rounds: int) -> list:
     import chip_smoke as CS
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as rn
 
     out = []
-    for shape in RMSNORM_SHAPES:
+    order = (*bases, "new", "F.rms_norm", "F.rms_norm", "new", *reversed(bases))
+    for shape, offset in RMSNORM_CASES:
         d = shape[-1]
         x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
         w = (torch.randn(d, generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
         w1 = 1.0 + w
         want = ref.rmsnorm_ref(x, w)
-        for name, f in (*bases.items(), ("new", rn.rmsnorm)):
-            CS.compare(torch, f"rmsnorm {shape} bf16, {name}", f(x, w), want, "bfloat16")
+        if offset:
+            x = torch.empty(x.numel() + offset, dtype=x.dtype, device="cuda")[offset:].view(shape).copy_(x)
+        what = f"{shape} bf16" + (f", x {x.data_ptr() % 16} bytes past 16" if offset else "")
+        fns = {**bases, "new": rn.rmsnorm, "F.rms_norm": lambda x, w: torch.nn.functional.rms_norm(x, (d,), w1, 1e-6)}
+        for name in (*bases, "new"):
+            CS.compare(torch, f"rmsnorm {what}, {name}", fns[name](x, w), want, "bfloat16")
         b_ms, b_by = CS.bound(2 * x.numel() * 2 + w.numel() * 2, 4 * x.numel(), "bfloat16")
-        timers = {name: (lambda f=f: CS.time_ms(torch, lambda: f(x, w))) for name, f in bases.items()}
-        timers["new"] = lambda: CS.time_ms(torch, lambda: rn.rmsnorm(x, w))
-        timers["F.rms_norm"] = lambda: CS.time_ms(torch, lambda: torch.nn.functional.rms_norm(x, (d,), w1, 1e-6))
-        r = turns((*bases, "new", "F.rms_norm", "F.rms_norm", "new", *reversed(bases)), timers, rounds)
-        parts = [f"{name} median {t['median_ms']:.6f} ms (range {t['min_ms']:.6f}-{t['max_ms']:.6f}, "
-                 f"{100 * b_ms / t['median_ms']:.1f}% of the bound)" for name, t in r.items()]
-        ratios = [f"new / {name} {r['new']['median_ms'] / r[name]['median_ms']:.4f}" for name in (*bases, "F.rms_norm")]
-        log(f"[rmsnorm] {shape} bf16, {2 * rounds} turns each: " + "; ".join(parts) + "; " + ", ".join(ratios) +
-            f"; bound {b_ms:.6f} ms ({b_by})")
-        out.append({"shape": list(shape), "dtype": "bfloat16", "bound_ms": b_ms, "bound_by": b_by, **r})
+        timings = [("time_ms", CS.time_ms)]
+        if (shape, offset) == RMSNORM_CASES[0]:
+            timings.append(("the write-back inside the window", time_through_flush))
+        for how, timer in timings:
+            r = turns(order, {name: (lambda f=f, timer=timer: timer(torch, lambda: f(x, w))) for name, f in fns.items()},
+                      rounds)
+            parts = [f"{name} median {t['median_ms']:.6f} ms (range {t['min_ms']:.6f}-{t['max_ms']:.6f}, "
+                     f"{100 * b_ms / t['median_ms']:.1f}% of the bound)" for name, t in r.items()]
+            ratios = [f"new / {name} {r['new']['median_ms'] / r[name]['median_ms']:.4f}"
+                      for name in (*bases, "F.rms_norm")]
+            log(f"[rmsnorm] {what}, {how}, {2 * rounds} turns each: " + "; ".join(parts) + "; " + ", ".join(ratios) +
+                f"; bound {b_ms:.6f} ms ({b_by})")
+            out.append({"shape": list(shape), "dtype": "bfloat16", "elements_past_16_bytes": offset, "timing": how,
+                        "bound_ms": b_ms, "bound_by": b_by, **r})
     return out
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("mode", choices=("flush", "rmsnorm"))
     p.add_argument("--baseline", type=Path, action="append", required=True,
                    help="a source of the RMSNorm kernel (rmsnorm_fwd); named by its file's stem")
     p.add_argument("--rounds", type=int, default=3)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--out", type=Path, help="the JSON record (default build/kernel_turns/<mode>.json)")
+    p.add_argument("--out", type=Path, help="the JSON record (default build/kernel_turns/rmsnorm.json)")
     args = p.parse_args(argv)
 
     import torch
@@ -235,13 +186,10 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     bases = {path.stem: baseline_rmsnorm(torch, path) for path in args.baseline}
-    if args.mode == "flush":
-        records = run_flush(torch, gen, bases[args.baseline[0].stem], args.rounds)
-    else:
-        records = run_rmsnorm(torch, gen, bases, args.rounds)
-    out = args.out or HERE / "build" / "kernel_turns" / f"{args.mode}.json"
+    records = run_rmsnorm(torch, gen, bases, args.rounds)
+    out = args.out or HERE / "build" / "kernel_turns" / "rmsnorm.json"
     out.parent.mkdir(parents=True, exist_ok=True)
-    out.write_text(json.dumps({"card": card, "mode": args.mode, "baselines": [str(b) for b in args.baseline],
+    out.write_text(json.dumps({"card": card, "baselines": [str(b) for b in args.baseline],
                                "rounds": args.rounds, "records": records}, indent=1))
     log(f"[card] {card}; records in {out}")
     return 0

@@ -9,14 +9,12 @@
 // nothing on arithmetic and everything on moving those bytes once, in wide
 // accesses, with enough of them in flight to cover the latency of HBM.
 //
-// Design.  A row is read from device memory once: the threads that take it
-// hold VPT accesses of it each, in registers (static arrays: VPT is a
-// compile-time constant of a template instance), from the sum of squares to
-// the scale.  An access is 16 bytes (8 bf16 or 4 f32) where the row starts
-// 16-byte aligned, that is d times the element size is a multiple of 16 and x
-// and y are 16-byte aligned; otherwise one element (the scalar path).  The
-// host picks the path from d and the pointers, and the instance from the
-// accesses a row needs (nv):
+// Design.  Where a row starts 16-byte aligned (d times the element size a
+// multiple of 16, x and y 16-byte aligned), it is read from device memory
+// once: the threads that take it hold VPT 16-byte accesses of it each (8 bf16
+// or 4 f32), in registers (static arrays: VPT is a compile-time constant of a
+// template instance), from the sum of squares to the scale.  The host picks
+// the instance from the accesses a row needs (nv):
 //   nv <= 128       a group of 16 or 32 lanes a row (d = 128: 16 lanes of one
 //                   16-byte vector in bf16, 32 in f32), 8 or 16 rows a block
 //                   of 256 and, at one access a lane, two rows a thread at
@@ -24,11 +22,12 @@
 //   nv <= 2048      a block a row, of kWideVpt (2) accesses a thread and as
 //                   many threads as that needs (320 at d = 5120 bf16), warp
 //                   shuffles and then one shared-memory step for the sum
-//                   across warps;
-//   nv <= 8192      (the scalar path only) a block of 1024 threads a row,
-//                   3 to 8 accesses a thread;
-//   wider rows      the generic path: one block of 256 threads a row that reads
-//                   the row twice, the second time from L1/L2.
+//                   across warps.
+// Other rows, misaligned or wider (the scalar path, chosen on the host from d
+// and the pointers), take the generic kernel: one block of 256 threads a row,
+// scalar accesses, which reads the row twice, the second time from L1/L2.  No
+// main path gives it a row: each x there is a fresh tensor at a width that is
+// a multiple of 8.
 // The grid is sized to the card (resident blocks per SM times SMs) and walks
 // the rows, so each thread loads its slice of (1 + w) once, into registers,
 // and keeps it for every row it takes.  Each block has the loads of its next
@@ -57,38 +56,24 @@ namespace {
 constexpr int kGroupBlock = 256;     // threads a block of narrow rows' groups
 constexpr int kRowThreadsMax = 1024; // threads a block of one wide row, at most
 constexpr int kWideVpt = 2;          // accesses a thread of a wide row
-constexpr int kMaxVpt = 8;           // ... at most, on the scalar path
 
-// W elements of T that one thread moves with one load or store: 16 bytes, or
-// one element on the scalar path.  Held as raw 32-bit words.
+// W elements of T that one thread moves with one 16-byte load or store, held
+// as raw 32-bit words.
 template <typename T, int W>
 struct Access {
-  static_assert(W == 1 || W * sizeof(T) == 16, "an access is one element or 16 bytes");
-  static constexpr int kWords = W == 1 ? 1 : 4;
-  unsigned int word[kWords];
+  static_assert(W * sizeof(T) == 16, "an access is 16 bytes");
+  unsigned int word[4];
 
   __device__ __forceinline__ void zero() {
 #pragma unroll
-    for (int i = 0; i < kWords; ++i) word[i] = 0u;
+    for (int i = 0; i < 4; ++i) word[i] = 0u;
   }
   __device__ __forceinline__ void load(const T* p) {
-    if constexpr (W > 1) {
-      const uint4 q = *reinterpret_cast<const uint4*>(p);
-      word[0] = q.x; word[1] = q.y; word[2] = q.z; word[3] = q.w;
-    } else if constexpr (sizeof(T) == 4) {
-      word[0] = *reinterpret_cast<const unsigned int*>(p);
-    } else {
-      word[0] = *reinterpret_cast<const unsigned short*>(p);
-    }
+    const uint4 q = *reinterpret_cast<const uint4*>(p);
+    word[0] = q.x; word[1] = q.y; word[2] = q.z; word[3] = q.w;
   }
   __device__ __forceinline__ void store(T* p) const {
-    if constexpr (W > 1) {
-      *reinterpret_cast<uint4*>(p) = make_uint4(word[0], word[1], word[2], word[3]);
-    } else if constexpr (sizeof(T) == 4) {
-      *reinterpret_cast<unsigned int*>(p) = word[0];
-    } else {
-      *reinterpret_cast<unsigned short*>(p) = static_cast<unsigned short>(word[0]);
-    }
+    *reinterpret_cast<uint4*>(p) = make_uint4(word[0], word[1], word[2], word[3]);
   }
   // Element j as a float (a bf16's bits are a float's upper half).
   __device__ __forceinline__ float get(int j) const {
@@ -211,8 +196,9 @@ rmsnorm_rows_kernel(const TX* __restrict__ x, const void* __restrict__ w, int w_
   }
 }
 
-// The generic path, for rows wider than any instance above: one block of
-// kGenericThreads a row, which reads the row a second time to scale it.
+// The generic path, for rows that are misaligned or wider than any instance
+// above: one block of kGenericThreads a row, which reads the row a second
+// time to scale it.
 constexpr int kGenericThreads = 256;
 
 __device__ __forceinline__ float to_float(float v) { return v; }
@@ -271,37 +257,37 @@ int blocks_per_sm(int threads) {
   return n;
 }
 
+// The card's multiprocessors, asked once: the port runs on one card a process.
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (sms <= 0) sms = 1;
+  }
+  return sms;
+}
+
 // A grid of as many blocks as the card holds at once, or fewer where the
 // rows run out: each block walks the rows a grid's stride apart.
 template <typename TX, int W, int TPR, int VPT>
 bool launch_rows(const Args& a, int threads) {
   constexpr int R = TPR != 0 && VPT == 1 ? 2 : 1;
   const long long per_block = TPR == 0 ? 1 : (long long)(threads / TPR) * R;
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const long long steps = (a.rows + per_block - 1) / per_block;
-  const long long card = (long long)blocks_per_sm<TX, W, TPR, VPT, R>(threads) * (sms > 0 ? sms : 1);
+  const long long card = (long long)blocks_per_sm<TX, W, TPR, VPT, R>(threads) * sm_count();
   const unsigned blocks = (unsigned)(steps < card ? steps : card);
   rmsnorm_rows_kernel<TX, W, TPR, VPT, R><<<blocks, threads, 0, a.stream>>>(
       static_cast<const TX*>(a.x), a.w, a.w_bf16, static_cast<TX*>(a.y), a.rows, a.d, a.eps);
   return true;
 }
 
-// A block a row with vpt accesses a thread, vpt in [VPT, kMaxVpt].
-template <typename TX, int W, int VPT>
-bool launch_block_rows(const Args& a, int vpt, int threads) {
-  if (vpt == VPT) return launch_rows<TX, W, 0, VPT>(a, threads);
-  if constexpr (VPT < kMaxVpt) return launch_block_rows<TX, W, VPT + 1>(a, vpt, threads);
-  return false;
-}
-
-// Launches the instance for rows of nv accesses of W elements; false where a
-// row is wider than every instance.  Rows of up to 128 accesses take a group
-// of 16 or 32 lanes; wider rows a block of kWideVpt accesses a thread, as many
-// threads as that needs (a multiple of 32).  Past kRowThreadsMax threads the
-// scalar path takes more accesses a thread, up to kMaxVpt; the vector path,
-// whose registers would not hold them, stops (d = 16384 in bf16, 8192 in f32).
+// Launches the instance for aligned rows of nv 16-byte accesses; false where
+// a row is wider than every instance (d > 16384 in bf16, 8192 in f32).  Rows
+// of up to 128 accesses take a group of 16 or 32 lanes; wider rows a block of
+// kWideVpt accesses a thread, as many threads as that needs (a multiple of
+// 32, at most kRowThreadsMax).
 template <typename TX, int W>
 bool launch_path(const Args& a) {
   const int nv = a.d / W;
@@ -309,11 +295,8 @@ bool launch_path(const Args& a) {
   if (nv <= 32) return launch_rows<TX, W, 32, 1>(a, kGroupBlock);
   if (nv <= 64) return launch_rows<TX, W, 32, 2>(a, kGroupBlock);
   if (nv <= 128) return launch_rows<TX, W, 32, 4>(a, kGroupBlock);
-  const int vpt = (nv + kRowThreadsMax - 1) / kRowThreadsMax;
-  if (vpt <= kWideVpt) return launch_rows<TX, W, 0, kWideVpt>(a, 32 * ((nv + 32 * kWideVpt - 1) / (32 * kWideVpt)));
-  if constexpr (W == 1) {
-    if (vpt <= kMaxVpt) return launch_block_rows<TX, W, kWideVpt + 1>(a, vpt, kRowThreadsMax);
-  }
+  if (nv <= kWideVpt * kRowThreadsMax)
+    return launch_rows<TX, W, 0, kWideVpt>(a, 32 * ((nv + 32 * kWideVpt - 1) / (32 * kWideVpt)));
   return false;
 }
 
@@ -328,7 +311,7 @@ void launch(const Args& a) {
   constexpr int kVec = 16 / sizeof(TX);
   const bool aligned = ((long long)a.d * sizeof(TX)) % 16 == 0 && reinterpret_cast<uintptr_t>(a.x) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(a.y) % 16 == 0;
-  if (aligned ? launch_path<TX, kVec>(a) : launch_path<TX, 1>(a)) return;
+  if (aligned && launch_path<TX, kVec>(a)) return;
   if (a.w_bf16) launch_generic<TX, __nv_bfloat16>(a);
   else launch_generic<TX, float>(a);
 }

@@ -472,12 +472,13 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype, wdtype):
     assert ops.launch_counts() == dict(NO_LAUNCHES, rmsnorm=1)
 
 
-@pytest.mark.parametrize("shape", [(4, 128), (1001, 128), (2048, 5120), (4, 8192), (3, 1025)])
+@pytest.mark.parametrize("shape", [(4, 128), (1001, 128), (4, 4096), (2048, 5120), (4, 6144), (4, 8192), (3, 1025)])
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("wdtype", DTYPES)
 def test_rmsnorm_kernel_takes_a_misaligned_view(cuda, shape, dtype, wdtype):
     """A contiguous view that starts one element past a 16-byte boundary
-    takes the kernel's scalar path, never the plain version."""
+    takes the kernel's scalar path (its generic kernel), never the plain
+    version."""
     x = torch.randn(shape, generator=cuda, device="cuda").to(dtype)
     w = (torch.randn(shape[-1], generator=cuda, device="cuda") * 0.1).to(wdtype)
     flat = torch.empty(x.numel() + 1, dtype=dtype, device="cuda")
