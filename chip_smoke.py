@@ -6,7 +6,7 @@
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
 ``build/``), holds each against its plain PyTorch version at the main paths'
 shapes and the sweeps of tests/test_kernels.py (flash attention's output and
-log-sum-exp on both routes, at every head dim of the tensor-core route, its
+log-sum-exp on both routes, bf16 and f32, at every head dim, its
 autograd backward against the CPU's, and the flash at every serve run's
 prefill shape; ``chunk_reduce`` in f32, bf16 and f16), times RMSNorm against
 ``F.rms_norm``, the flash forward at the serve, train and prefill shapes
@@ -58,6 +58,12 @@ ones alone):
   a max_seq of 1024.  It checks that the serve run launched the kernels, that
   the tokens and logits are sane, and that decode agrees with prefill, then
   times prefill and decode and profiles one of each (kernel busy time).
+- serve_f32: the same model at full width in f32 (the config's ``dtype`` and
+  ``param_dtype`` set to float32), cut to 8 of 40 layers (16.8 GB of f32
+  weights), 4 prompts of 512 tokens and 8 greedy tokens with a max_seq of
+  1024: every prefill's flash runs on the f32 kernel (three TF32 products),
+  at the shape its kernel record is timed at.  The same checks and times as
+  serve; none of its flash launches writes the lse.
 - serve_moe: the MoE family at full width, its depth cut (the whole models
   do not fit one card): mixtral-8x22b (8 experts top-2, sliding window 4096)
   cut to 8 of 56 layers, 2 prompts of 4608 tokens and 32 greedy tokens with a
@@ -202,9 +208,13 @@ import sys
 import time
 from pathlib import Path
 
-# Published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
+# Published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit):
+# "float32" is the CUDA cores', "tf32" the tensor cores' rate in TF32.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
+# The f32 flash kernel runs each of its products as this many TF32 products
+# on the tensor cores (csrc/flash_attention.cu): its bound counts them all.
+F32_FLASH_PRODUCTS = 3
 
 # Cycles the card spins before each timed run (about 0.1 ms), longer than the
 # host takes to enqueue any one kernel here.
@@ -265,6 +275,11 @@ MOE_LAYER_TOKENS = (2, 512)
 # max abs error over the dense output's largest magnitude.
 MOE_DISPATCH_TOL = 2e-2
 
+# The serve_f32 phase: qwen3-14b at full width in f32, its depth cut to
+# F32_LAYERS (16.8 GB of f32 weights), BATCH prompts of PROMPT tokens,
+# F32_NEW_TOKENS greedy tokens, MAX_SEQ.
+F32_LAYERS, F32_NEW_TOKENS = 8, 8
+
 # The train phase: qwen3-14b's widths, its depth cut to TRAIN_LAYERS, train_4k's
 # sequence, TRAIN_BATCH rows in TRAIN_MICRO microbatches, TRAIN_STEPS steps.
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_STEPS = 4, 4096, 2, 2, 3
@@ -299,7 +314,7 @@ POD_LAYERS, POD_PODS, POD_BATCH, POD_STEPS = 1, 2, 2, 3
 POD_RTOL = 1e-5
 
 # Names of the port's kernels in a profile (see device_profile).
-PORT_KERNELS = ("flash_fwd_sm90_kernel", "flash_fwd_kernel", "rmsnorm", "chunk_reduce_kernel")
+PORT_KERNELS = ("flash_fwd_sm90_kernel", "flash_fwd_f32_kernel", "rmsnorm", "chunk_reduce_kernel")
 # Kinds of device events in a profile, by a piece of their names; the first that matches wins.
 EVENT_KINDS = (("the port's kernels", PORT_KERNELS), ("LayerNorm", ("layer_norm",)), ("GELU", ("gelu",)),
                ("f32 GEMMs", ("f32f32",)),
@@ -498,14 +513,16 @@ def spill_bytes(report: str) -> int:
     return max([int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", report)] or [0])
 
 
-def flash_instances(report: str) -> dict:
+def flash_instances(report: str, kernel: str = "flash_fwd_sm90_kernel") -> dict:
     """Registers, stack frame and spill bytes of each head dim's instance of
-    the tensor-core flash kernel, from its nvcc report (``-Xptxas -v``).
-    The registers are the launch's; the consumers raise theirs to 240 with
-    setmaxnreg."""
+    a flash kernel (the bf16 one, ``flash_fwd_sm90_kernel``, or the f32 one,
+    ``flash_fwd_f32_kernel``), from its nvcc report (``-Xptxas -v``).  The
+    registers are the launch's; the bf16 kernel's consumers raise theirs to
+    240 with setmaxnreg.  Shared memory is dynamic (each instance's Layout)
+    and the report does not show it."""
     out, d = {}, None
     for line in report.splitlines():
-        m = re.search(r"flash_fwd_sm90_kernelILi(\d+)E", line)
+        m = re.search(kernel + r"ILi(\d+)E", line)
         if m and "Compiling entry function" in line:
             d = int(m.group(1))
             out[d] = {}
@@ -528,59 +545,65 @@ def flash_inputs(torch, gen, B, H, Kh, Sq, Skv, D, dt):
     return q.to(dt), k.to(dt), v.to(dt)
 
 
-def check_sensitive(torch, ref, what, got, q, k, v, causal, window, q_offset):
-    """The 2e-2 check must fail an output that a wrong Q.K^T would give: the
-    plain version with K's columns rolled by 8 (one 16-byte unit, as a wrong
-    swizzle or descriptor would read them) and with S = 0 (K zeroed)."""
-    for wrong, kk in (("K's columns rolled by 8", k.roll(8, dims=-1)), ("S = 0", torch.zeros_like(k))):
+def check_sensitive(torch, ref, what, got, q, k, v, causal, window, q_offset, dtype: str = "bfloat16"):
+    """The check of ``dtype`` (2e-2 in bf16, 2e-5 in f32) must fail an
+    output that a wrong Q.K^T would give: the plain version with K's columns
+    rolled by one 16-byte unit (8 bf16 or 4 f32 columns, as a wrong swizzle
+    or descriptor would read them) and with S = 0 (K zeroed)."""
+    cols = 16 // k.element_size()
+    for wrong, kk in ((f"K's columns rolled by {cols}", k.roll(cols, dims=-1)), ("S = 0", torch.zeros_like(k))):
         bad = ref.flash_attention_ref(q, kk, v, causal, window, q_offset)
-        if torch.allclose(got.float(), bad.float(), rtol=TOL["bfloat16"], atol=TOL["bfloat16"]):
-            raise AssertionError(f"{what}: the bf16 check cannot tell the output from {wrong}")
+        if torch.allclose(got.float(), bad.float(), rtol=TOL[dtype], atol=TOL[dtype]):
+            raise AssertionError(f"{what}: the {dtype} check cannot tell the output from {wrong}")
 
 
-def check_flash(torch, fa, ref, gen, spills: int, instances: dict):
-    """Both routes against the plain version: bf16 at the tensor-core head
-    dims (``fa.TC_HEAD_DIMS``: every multiple of 16 up to 256) and at
-    WIDE_BF16 on the tensor cores, f32 at every head dim on the CUDA cores;
-    and every tensor-core head dim in bf16 at a ragged shape with Sq != Skv,
-    output and lse.  On every bf16 case whose rows see a key, the check is
-    also shown to fail a wrong Q.K^T.  Times the tensor-core route at the
-    serve shape and at WIDE_BF16, and the CUDA-core route on the serve
-    shape's inputs in f32.  Returns the records of the two routes."""
+def check_flash(torch, fa, ref, gen, spills: dict, instances: dict):
+    """Both routes against the plain version, output and lse: at the serve
+    shape, its 513-token variant, a window whose first rows see no key, the
+    sweeps of tests/test_kernels.py and every head dim of ``fa.TC_HEAD_DIMS``
+    (every multiple of 16 up to 256) at a ragged shape with Sq != Skv, in
+    bf16 (and WIDE_BF16) on the bf16 kernel and in f32 on the f32 kernel.  On
+    every case the check is also shown to fail a wrong Q.K^T.  Then both
+    routes at FLASH_TRAIN's shape.  Times the bf16 route at the serve shape,
+    WIDE_BF16 and the train shape, and the f32 route at the serve shape and
+    at the train shape with its lse (``time_flash_f32``).  ``spills`` and
+    ``instances`` are each kernel's, by route.  Returns the records of the
+    two routes."""
     cfg_case = (BATCH, 40, 8, PROMPT, PROMPT, 128, True, 0)
     ragged = (BATCH, 40, 8, PROMPT + 1, PROMPT + 1, 128, True, 0)  # prefill of prompt + token
     window = (1, 2, 1, 200, 200, 64, True, 16)  # with q_offset -20: the first rows see no key
     sweep = [(2, 4, 2, 200, 300, D, True, 0) for D in fa.TC_HEAD_DIMS]  # q_offset 100
-    errs = {}
+    errs, lse_errs = {}, {}
 
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
-        extra = sweep + [WIDE_BF16] if dtype == "bfloat16" else []
+        extra = sweep + [WIDE_BF16] if dtype == "bfloat16" else sweep
         for case in [cfg_case, ragged, window] + FLASH_CASES + extra:
             B, H, Kh, Sq, Skv, D, causal, win = case
             q, k, v = flash_inputs(torch, gen, B, H, Kh, Sq, Skv, D, dt)
             off = -20 if case == window else Skv - Sq
-            before = fa.launches_tc
+            before = fa.launches_tc, fa.launches_f32
             got = fa.flash_attention_fwd(q, k, v, causal=causal, window=win, q_offset=off)
             route = fa.route(dt, D)
-            if (fa.launches_tc > before) != (route == "tc"):
+            if (fa.launches_tc - before[0], fa.launches_f32 - before[1]) != ((1, 0) if route == "tc" else (0, 1)):
                 raise AssertionError(f"flash {case} {dtype}: launched off its route {route}")
             what = f"flash {case} q_offset={off} {dtype} ({route})"
             errs[case, dtype] = compare(torch, what, got, ref.flash_attention_ref(q, k, v, causal, win, off), dtype)
-            if dtype == "bfloat16":
-                check_sensitive(torch, ref, what, got, q, k, v, causal, win, off)
-            if case in FLASH_CASES or case in (window, WIDE_BF16) or case in sweep:  # window: rows with no key
-                check_lse(torch, fa, ref, what, got, q, k, v, causal, win, off, dtype)
-    log(f"[kernels] flash: tensor-core head dims {fa.TC_HEAD_DIMS} held in bf16, output and lse; on every bf16 "
-        "case the check fails K with rolled columns and S = 0")
+            check_sensitive(torch, ref, what, got, q, k, v, causal, win, off, dtype)
+            if dtype == "float32" or case in FLASH_CASES or case in (window, WIDE_BF16) or case in sweep:
+                lse_errs[case, dtype] = check_lse(torch, fa, ref, what, got, q, k, v, causal, win, off, dtype)
+    log(f"[kernels] flash: head dims {fa.TC_HEAD_DIMS} held in bf16 and f32, output and lse; on every case the "
+        "check fails K with rolled columns and S = 0")
     B, H, Kh, S, _, D, causal, win = FLASH_TRAIN
-    q, k, v = flash_inputs(torch, gen, B, H, Kh, S, S, D, torch.bfloat16)
-    got = fa.flash_attention_fwd(q, k, v, causal=causal, window=win)
-    what = f"flash {FLASH_TRAIN} bf16 (tc, the train shape)"
-    train_err = compare(torch, what, got, ref.flash_attention_ref(q, k, v, causal, win, 0), "bfloat16")
-    check_sensitive(torch, ref, what, got, q, k, v, causal, win, 0)
-    lse_err = check_lse(torch, fa, ref, what, got, q, k, v, causal, win, 0, "bfloat16")
-    del q, k, v, got
+    train = {}
+    for dtype in ("bfloat16", "float32"):
+        q, k, v = flash_inputs(torch, gen, B, H, Kh, S, S, D, getattr(torch, dtype))
+        got = fa.flash_attention_fwd(q, k, v, causal=causal, window=win)
+        what = f"flash {FLASH_TRAIN} {dtype} ({fa.route(q.dtype, D)}, the train shape)"
+        err = compare(torch, what, got, ref.flash_attention_ref(q, k, v, causal, win, 0), dtype)
+        check_sensitive(torch, ref, what, got, q, k, v, causal, win, 0, dtype)
+        train[dtype] = err, check_lse(torch, fa, ref, what, got, q, k, v, causal, win, 0, dtype)
+        del q, k, v, got
     log("[kernels] flash lse: on both routes, at every case above, the check fails an lse of S = 0 and one "
         "in log2 units")
     torch.cuda.synchronize()
@@ -592,40 +615,67 @@ def check_flash(torch, fa, ref, gen, spills: int, instances: dict):
         q, k, v, is_causal=True, enable_gqa=True))
     ops = 4 * B * H * D * flash_pairs(torch, S, S, True, 0, 0)  # QK^T and PV, 2 ops per MAC
     b_ms, b_by = bound((2 * q.numel() + k.numel() + v.numel()) * 2, ops, "bfloat16")  # q, o, k, v
-    log(f"[kernels] flash {tuple(q.shape)}x{tuple(k.shape)} causal bf16 (tensor cores, {spills} spill "
+    log(f"[kernels] flash {tuple(q.shape)}x{tuple(k.shape)} causal bf16 (tensor cores, {spills['tc']} spill "
         f"bytes): kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA {lib:.4f} ms ({ms / lib:.3f}x), "
         f"bound {b_ms:.4f} ms ({b_by}), {ops / ms / 1e9:.2f} TFLOP/s")
+    del q, k, v
     tc = dict({
         "name": "flash_attention", "route": "cuda", "kernel_route": "tc",
         "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention.py:93",
-        "shape": f"q {tuple(q.shape)} kv {tuple(k.shape)} causal bf16", "head_dims": list(fa.TC_HEAD_DIMS),
+        "shape": f"q {(B, H, S, D)} kv {(B, Kh, S, D)} causal bf16", "head_dims": list(fa.TC_HEAD_DIMS),
         "max_abs_err": errs[cfg_case, "bfloat16"], "ms": ms, "kernel_ms": ms, "plain_ms": plain,
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib, "spill_bytes": spills,
-        "instances": instances, "head_dim_sweep_max_abs_err": {c[5]: errs[c, "bfloat16"] for c in sweep},
-        "train_shape_max_abs_err": train_err, "train_shape_lse_max_abs_err": lse_err,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib, "spill_bytes": spills["tc"],
+        "instances": instances["tc"], "head_dim_sweep_max_abs_err": {c[5]: errs[c, "bfloat16"] for c in sweep},
+        "train_shape_max_abs_err": train["bfloat16"][0], "train_shape_lse_max_abs_err": train["bfloat16"][1],
     }, **time_flash_train_shape(torch, fa, ref, gen), **time_flash_wide(torch, fa, ref, gen))
     tc["wide_max_abs_err"] = errs[WIDE_BF16, "bfloat16"]
-
-    qf, kf, vf = q.float(), k.float(), v.float()
-    del q, k, v
-    f32_ms = time_ms(torch, lambda: fa.flash_attention_fwd(qf, kf, vf, causal=True))
-    f32_plain = time_ms(torch, lambda: ref.flash_attention_ref(qf, kf, vf, True, 0, 0), reps=5, warmup=1)
-    f32_lib = time_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
-        qf, kf, vf, is_causal=True, enable_gqa=True))
-    f32_bound, f32_by = bound((2 * qf.numel() + kf.numel() + vf.numel()) * 4, ops, "float32")
-    log(f"[kernels] flash same shape f32 (CUDA cores): kernel {f32_ms:.4f} ms, plain {f32_plain:.4f} ms, SDPA "
-        f"{f32_lib:.4f} ms, bound {f32_bound:.4f} ms ({f32_by}), {ops / f32_ms / 1e9:.2f} TFLOP/s")
-    del qf, kf, vf
-    cores = {
-        "name": "flash_attention_cores", "route": "cuda", "kernel_route": "cores",
+    f32 = dict({
+        "name": "flash_attention_f32", "route": "cuda", "kernel_route": "f32",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:93",
-        "shape": f"q {(BATCH, 40, PROMPT, 128)} kv {(BATCH, 8, PROMPT, 128)} causal f32",
-        "max_abs_err": errs[cfg_case, "float32"], "ms": f32_ms, "kernel_ms": f32_ms, "plain_ms": f32_plain,
-        "bound_ms": f32_bound, "bound_by": f32_by, "library_ms": f32_lib,
-    }
-    return tc, cores
+        "head_dims": list(fa.TC_HEAD_DIMS), "max_abs_err": errs[cfg_case, "float32"],
+        "lse_max_abs_err": lse_errs[cfg_case, "float32"], "spill_bytes": spills["f32"],
+        "instances": instances["f32"], "head_dim_sweep_max_abs_err": {c[5]: errs[c, "float32"] for c in sweep},
+        "head_dim_sweep_lse_max_abs_err": {c[5]: lse_errs[c, "float32"] for c in sweep},
+        "train_shape_max_abs_err": train["float32"][0], "train_shape_lse_max_abs_err": train["float32"][1],
+    }, **time_flash_f32(torch, fa, ref, gen, cfg_case))
+    return tc, f32
+
+
+def time_flash_f32(torch, fa, ref, gen, serve_case):
+    """The f32 forward at the serve shape (no lse, as the serve_f32 phase
+    calls it) and at FLASH_TRAIN's shape with its lse (as the train step
+    calls it), each against the plain version, SDPA in f32 on the same inputs
+    (``allow_tf32`` is False: SDPA keeps its products in f32) and two
+    bounds: the design's, three TF32 products on the tensor cores, and the
+    CUDA cores' at 67 TFLOP/s."""
+    out = {}
+    for key, case, lse in (("", serve_case, False), ("train_shape_", FLASH_TRAIN, True)):
+        B, H, Kh, S, _, D, causal, _ = case
+        q, k, v = flash_inputs(torch, gen, B, H, Kh, S, S, D, torch.float32)
+        ms = time_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, causal=causal, return_lse=lse))
+        plain = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, causal, 0, 0, return_lse=lse), reps=5,
+                        warmup=1)
+        lib = time_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True))
+        backend = sdpa_kernels(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True))
+        ops = 4 * B * H * D * flash_pairs(torch, S, S, causal, 0, 0)
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * 4 + (B * H * S * 4 if lse else 0)
+        b_ms, b_by = bound(nbytes, F32_FLASH_PRODUCTS * ops, "tf32")
+        core_ms, core_by = bound(nbytes, ops, "float32")
+        shape = f"q {tuple(q.shape)} kv {tuple(k.shape)} causal f32{' with lse' if lse else ''}"
+        log(f"[kernels] flash {shape} (f32 kernel, three TF32 products): kernel {ms:.4f} ms, plain {plain:.4f} "
+            f"ms, SDPA f32 {lib:.4f} ms ({ms / lib:.3f}x; its kernels {backend}), bound {b_ms:.4f} ms ({b_by}, "
+            f"{F32_FLASH_PRODUCTS} x {ops / 1e9:.2f} GFLOP at the TF32 peak; {100 * b_ms / ms:.1f}% of it), "
+            f"CUDA-core bound {core_ms:.4f} ms ({core_by}), {ops / ms / 1e9:.2f} TFLOP/s of f32 products")
+        out.update({f"{key}shape": shape, f"{key}ms": ms, f"{key}kernel_ms": ms, f"{key}plain_ms": plain,
+                    f"{key}library_ms": lib, f"{key}library_kernels": backend, f"{key}bound_ms": b_ms,
+                    f"{key}bound_by": b_by, f"{key}cuda_core_bound_ms": core_ms,
+                    f"{key}cuda_core_bound_by": core_by})
+        del q, k, v
+    return out
 
 
 def check_lse(torch, fa, ref, what, out, q, k, v, causal, window, q_offset, dtype: str) -> float:
@@ -881,7 +931,7 @@ def expected_launches(cfg, decode_steps: int):
     encoder = (2 * E + 1 if rms else 0) + (2 * E if cfg.qk_norm else 0) if E else 0
     prefill = per_decode + qk // 2 + encoder
     counts = {"rmsnorm": prefill + decode_steps * per_decode, "flash_attention_tc": 0,
-              "flash_attention_cores": 0, "chunk_reduce": 0, "dequant_add": 0}
+              "flash_attention_f32": 0, "chunk_reduce": 0, "dequant_add": 0}
     counts[f"flash_attention_{fa.route(getattr(torch, cfg.dtype), cfg.head_dim)}"] = n_attn + E + n_cross
     return counts
 
@@ -980,8 +1030,8 @@ def check_cache(torch, T, eng, toks, tag: str, inputs=None):
 
 def serve_model(torch, card: str, cfg, batch: int, prompt: int, new_tokens: int, max_seq: int, tag: str,
                 extra=None):
-    """Serve ``cfg`` (bf16 weights drawn on the card from SEED) through the
-    engine: ``batch`` prompts of ``prompt`` tokens (and for an
+    """Serve ``cfg`` (weights of its ``param_dtype`` drawn on the card from
+    SEED) through the engine: ``batch`` prompts of ``prompt`` tokens (and for an
     encoder-decoder their frames, ``launch.serve.random_batch``),
     ``new_tokens`` greedy tokens, caches of ``max_seq``.  The launches of that run must be
     ``expected_launches`` exactly, with no flash launch writing the lse; then
@@ -1018,7 +1068,7 @@ def serve_model(torch, card: str, cfg, batch: int, prompt: int, new_tokens: int,
     log(f"[{tag}] {cfg.name} generate: {out.shape} tokens in {gen_s:.3f} s; launches {counts} (expected {want})")
     if counts != want:
         raise AssertionError(f"kernel launches {counts} != expected {want}")
-    flash = counts["flash_attention_tc"] + counts["flash_attention_cores"]
+    flash = counts["flash_attention_tc"] + counts["flash_attention_f32"]
     log(f"[{tag}] flash launches that wrote the lse: {fa.lse_launches} of {flash}")
     if fa.lse_launches:
         raise AssertionError("the serve path's flash launches wrote the lse, which only gradients need")
@@ -1072,6 +1122,27 @@ def serve(torch, card: str):
     return serve_model(torch, card, get_config(ARCH), BATCH, PROMPT, NEW_TOKENS, MAX_SEQ, "serve")
 
 
+def serve_f32(torch, card: str):
+    """qwen3-14b at full width in f32 (the config's own ``dtype`` and
+    ``param_dtype`` fields), its depth cut to F32_LAYERS, through
+    ``serve_model``: every prefill's flash runs on the f32 kernel, at the
+    kernel record's serve shape."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    full = get_config(ARCH)
+    cfg = dataclasses.replace(full, dtype="float32", param_dtype="float32", num_layers=F32_LAYERS)
+    log(f"[serve_f32] {ARCH} at full width in f32 (d={cfg.d_model}, {cfg.num_heads} q / {cfg.num_kv_heads} kv "
+        f"heads, head dim {cfg.head_dim}), {F32_LAYERS} of {full.num_layers} layers; {BATCH} prompts of {PROMPT} "
+        f"tokens, {F32_NEW_TOKENS} greedy tokens, max_seq {MAX_SEQ}")
+    counts, metrics = serve_model(torch, card, cfg, BATCH, PROMPT, F32_NEW_TOKENS, MAX_SEQ, "serve_f32")
+    metrics["phase_s"] = time.perf_counter() - t0
+    log(f"[serve_f32] {metrics['phase_s']:.1f} s")
+    return counts, metrics
+
+
 def sdpa_kernels(torch, fn, top: int = 2):
     """The device kernels that took most of one profiled call of ``fn``: which
     backend SDPA chose."""
@@ -1100,9 +1171,9 @@ def check_flash_at(torch, fa, ref, gen, arch: str, attention: str):
     case = (B, H, Kh, Sq, Skv, D, causal, win)
     q, k, v = flash_inputs(torch, gen, B, H, Kh, Sq, Skv, D, torch.bfloat16)
     route = fa.route(torch.bfloat16, D)
-    before = (fa.launches_tc, fa.launches_cores)
+    before = (fa.launches_tc, fa.launches_f32)
     got = fa.flash_attention_fwd(q, k, v, causal=causal, window=win)
-    if (fa.launches_tc - before[0], fa.launches_cores - before[1]) != ((1, 0) if route == "tc" else (0, 1)):
+    if (fa.launches_tc - before[0], fa.launches_f32 - before[1]) != ((1, 0) if route == "tc" else (0, 1)):
         raise AssertionError(f"flash {case}: launched off its route {route}")
     what = f"flash {case} bf16 ({route}, {arch}'s {attention} prefill shape)"
     err = compare(torch, what, got, ref.flash_attention_ref(q, k, v, causal, win, 0), "bfloat16")
@@ -1132,7 +1203,7 @@ def check_flash_at(torch, fa, ref, gen, arch: str, attention: str):
     b_ms, b_by = bound((2 * q.numel() + k.numel() + v.numel()) * 2, ops, "bfloat16")
     shape = (f"q {tuple(q.shape)} kv {tuple(k.shape)} {'causal' if causal else 'bidirectional'}"
              f"{f' window {win}' if win else ''} bf16")
-    log(f"[kernels] flash {shape} ({'tensor cores' if route == 'tc' else 'CUDA cores'}, {arch}'s {attention} "
+    log(f"[kernels] flash {shape} ({route} kernel, {arch}'s {attention} "
         f"prefill shape, {pairs} visible pairs per head): kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA "
         f"{lib:.4f} ms ({ms / lib:.3f}x; its kernels {backend}), bound {b_ms:.4f} ms ({b_by}, "
         f"{ops / 1e9:.1f} GFLOP, {(2 * q.numel() + k.numel() + v.numel()) * 2 / 1e6:.1f} MB), "
@@ -1432,7 +1503,7 @@ def expected_train_launches(cfg, options):
     backward.  The backward passes are plain PyTorch: no launch."""
     L, runs = cfg.num_layers, 1 if options.remat == "none" else 2
     n = options.num_microbatches
-    return {"rmsnorm": n * (4 * L * runs + 1), "flash_attention_tc": n * L * runs, "flash_attention_cores": 0,
+    return {"rmsnorm": n * (4 * L * runs + 1), "flash_attention_tc": n * L * runs, "flash_attention_f32": 0,
             "chunk_reduce": 0, "dequant_add": 0}
 
 
@@ -2080,7 +2151,7 @@ def mesh(torch, card: str):
 
     t_phase = time.perf_counter()
     full = get_config(ARCH)
-    counts = {"rmsnorm": 0, "flash_attention_tc": 0, "flash_attention_cores": 0, "chunk_reduce": 0, "dequant_add": 0}
+    counts = {"rmsnorm": 0, "flash_attention_tc": 0, "flash_attention_f32": 0, "chunk_reduce": 0, "dequant_add": 0}
 
     def add(launches):
         for k, v in launches.items():
@@ -2974,8 +3045,8 @@ def check_no_children() -> None:
     log("[card] no child process left")
 
 
-PHASES = ("dataplane", "asgd", "serve_ensemble", "serve", "serve_moe", "serve_dense", "serve_ssm", "serve_encdec",
-          "sync", "train", "dryrun", "ckpt", "pods", "mesh")
+PHASES = ("dataplane", "asgd", "serve_ensemble", "serve", "serve_f32", "serve_moe", "serve_dense", "serve_ssm",
+          "serve_encdec", "sync", "train", "dryrun", "ckpt", "pods", "mesh")
 
 
 def main(argv=None) -> int:
@@ -3031,12 +3102,16 @@ def main(argv=None) -> int:
                 log(f"[build] {name}: {line.strip()}")
     if spill_bytes(reports["rmsnorm"]):
         raise AssertionError(f"an rmsnorm kernel spills {spill_bytes(reports['rmsnorm'])} bytes")
-    spills = spill_bytes(reports["flash_attention_sm90"])
-    instances = flash_instances(reports["flash_attention_sm90"])
-    log(f"[build] flash_attention_sm90 (the tensor-core route): {spills} spill bytes; by head dim "
-        f"{json.dumps(instances)}")
-    if spills:
-        raise AssertionError(f"the tensor-core flash kernel spills {spills} bytes")
+    spills, instances = {}, {}
+    for route, lib, kernel in (("tc", "flash_attention_sm90", "flash_fwd_sm90_kernel"),
+                               ("f32", "flash_attention", "flash_fwd_f32_kernel")):
+        spills[route] = spill_bytes(reports[lib])
+        instances[route] = flash_instances(reports[lib], kernel)
+        log(f"[build] {lib} (the {route} route): {spills[route]} spill bytes; by head dim "
+            f"{json.dumps(instances[route])}")
+        if spills[route] or len(instances[route]) != len(fa.TC_HEAD_DIMS):
+            raise AssertionError(f"the {route} flash kernel spills {spills[route]} bytes, or has instances for "
+                                 f"{sorted(instances[route])} only")
 
     # Phase 2: each kernel against its plain version, on the card.
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in full f32
@@ -3088,6 +3163,13 @@ def main(argv=None) -> int:
         log(f"[serve] metrics {json.dumps(metrics)} on {card}")
         gc.collect()
         torch.cuda.empty_cache()  # the engine's 30 GB go back before the next phase
+
+    # Phase 3a: serve the full-width model in f32 through the f32 flash kernel.
+    if "serve_f32" in only:
+        by_path["serve_f32"], f32_metrics = serve_f32(torch, card)
+        log(f"[serve_f32] metrics {json.dumps(f32_metrics)} on {card}")
+        gc.collect()
+        torch.cuda.empty_cache()
 
     # Phase 3b: serve the MoE family at full width, depth cut.
     if "serve_moe" in only:

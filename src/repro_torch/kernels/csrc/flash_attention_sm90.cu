@@ -3,10 +3,9 @@
 //
 // Replaces: repro/kernels/flash_attention.py, flash_attention_fwd (the Pallas
 // kernel _flash_kernel), for bf16 inputs with D in {16, 32, ..., 256}.  f32
-// inputs, which must meet 2e-5 and so cannot go through bf16 or TF32
-// products, take the exact CUDA-core kernel in flash_attention.cu.  The
-// wrapper (kernels/flash_attention.py, route()) chooses from the dtype before
-// the launch.
+// inputs, which must meet 2e-5, take flash_attention.cu, where each product
+// is three TF32 products.  The wrapper (kernels/flash_attention.py, route())
+// chooses from the dtype before the launch.
 //
 // Bound on the H100: at the serve path's prefill shapes (qwen3: B=4, H=40,
 // Kh=8, S=512, D=128; stablelm: B=4, H=Kh=32, S=512, D=80; causal, bf16) the

@@ -133,8 +133,8 @@ flash_attention_fwd_lse.register_autograd(_flash_backward, setup_context=_flash_
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, causal: bool = True, window: int = 0,
                     q_offset: int = 0) -> Tensor:
     """(B,H,Sq,D) x (B,Kh,Skv,D)^2 -> (B,H,Sq,D); GQA via H//Kh groups.  On the
-    card the kernel follows ``flash_attention.route(dtype, D)``: bf16 on the
-    tensor cores, f32 on the CUDA cores.
+    card the kernel follows ``flash_attention.route(dtype, D)``: bf16 to
+    ``flash_attention_sm90.cu``, f32 to ``flash_attention.cu``.
     Under autograd the kernel also writes the log-sum-exp for the backward."""
     _on_cpu_or_card("flash_attention", q)
     if _needs_grad(q, k, v):
@@ -309,14 +309,14 @@ def dequant_add(dst: Tensor, q: Tensor, scale: Tensor, qblock: int = 256) -> Ten
 def launch_counts() -> Dict[str, int]:
     """Kernel launches in this process since the last reset."""
     return {"rmsnorm": _rn.launches, "flash_attention_tc": _fa.launches_tc,
-            "flash_attention_cores": _fa.launches_cores,
+            "flash_attention_f32": _fa.launches_f32,
             "chunk_reduce": _cr.chunk_reduce_launches, "dequant_add": _cr.dequant_add_launches}
 
 
 def reset_launch_counts() -> None:
     _rn.launches = 0
     _fa.launches_tc = 0
-    _fa.launches_cores = 0
+    _fa.launches_f32 = 0
     _fa.lse_launches = 0
     _cr.chunk_reduce_launches = 0
     _cr.dequant_add_launches = 0

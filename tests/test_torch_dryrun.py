@@ -386,7 +386,7 @@ def test_serve_logits_and_kernel_calls_are_unchanged(monkeypatch):
     new = run()
     assert tops.launch_counts() == dict.fromkeys(tops.launch_counts(), 0)
     want = smoke.expected_launches(cfg, 2)
-    assert calls["flash"] == want["flash_attention_cores"] and calls["rmsnorm"] == want["rmsnorm"]
+    assert calls["flash"] == want["flash_attention_f32"] and calls["rmsnorm"] == want["rmsnorm"]
     monkeypatch.setattr(tops, "flash_attention", _old_flash)
     monkeypatch.setattr(tops, "rmsnorm", _old_rmsnorm)
     old = run()

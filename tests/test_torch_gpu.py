@@ -41,7 +41,7 @@ from repro_torch.tree import leaves, tree_map, unflatten_like
 pytestmark = pytest.mark.gpu
 
 DTYPES = [torch.float32, torch.bfloat16]
-NO_LAUNCHES = {"rmsnorm": 0, "flash_attention_tc": 0, "flash_attention_cores": 0, "chunk_reduce": 0,
+NO_LAUNCHES = {"rmsnorm": 0, "flash_attention_tc": 0, "flash_attention_f32": 0, "chunk_reduce": 0,
                "dequant_add": 0}
 FLASH_CASES = [
     # (B, H, Kh, Sq, Skv, D, causal, window, q_offset)
@@ -178,14 +178,82 @@ def test_flash_tensor_cores_match_plain(cuda, case):
 
 
 @pytest.mark.parametrize("case", [c for c in TC_CASES if c[0] * c[1] * c[3] <= 4096])
-def test_flash_f32_takes_the_cuda_cores(cuda, case):
-    """f32 at the head dims of the tensor-core route stays on the exact kernel."""
+def test_flash_f32_takes_the_f32_kernel(cuda, case):
+    """f32 at the bf16 route's cases takes the f32 kernel (three TF32
+    products), held to 2e-5."""
     B, H, Kh, Sq, Skv, D, causal, window, off = case
     q, k, v = _qkv(cuda, B, H, Kh, Sq, Skv, D, torch.float32)
     got = ops.flash_attention(q, k, v, causal, window, off)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, ref.flash_attention_ref(q, k, v, causal, window, off), **tol(torch.float32))
-    assert ops.launch_counts() == dict(NO_LAUNCHES, flash_attention_cores=1)
+    assert ops.launch_counts() == dict(NO_LAUNCHES, flash_attention_f32=1)
+
+
+# The f32 kernel (three TF32 products) at every head dim it takes: GQA with
+# ragged Sq != Skv (neither a multiple of a 64-row tile) and q_offset, MQA with
+# a window whose first 20 rows see no key, and MHA bidirectional, ragged.
+F32_CASES = [case for D in tfa.TC_HEAD_DIMS for case in (
+    (2, 4, 2, 100, 300, D, True, 0, 200),
+    (1, 2, 1, 200, 200, D, True, 16, -20),
+    (2, 4, 4, 100, 190, D, False, 0, 0),
+)]
+
+
+@pytest.mark.parametrize("case", F32_CASES)
+def test_flash_f32_matches_plain_with_its_lse(cuda, case):
+    """The f32 kernel's output and lse against the plain version's at 2e-5
+    (+inf exactly where a row sees no key), and the check fails a wrong
+    Q.K^T (K's columns rolled by one 16-byte unit, and S = 0)."""
+    B, H, Kh, Sq, Skv, D, causal, window, off = case
+    assert tfa.route(torch.float32, D) == "f32"
+    q, k, v = _qkv(cuda, B, H, Kh, Sq, Skv, D, torch.float32)
+    out, lse = tfa.flash_attention_fwd(q, k, v, causal, window, off, return_lse=True)
+    alone = tfa.flash_attention_fwd(q, k, v, causal, window, off)
+    torch.cuda.synchronize()
+    want_out, want = ref.flash_attention_ref(q, k, v, causal, window, off, return_lse=True)
+    assert torch.equal(out, alone) and out.dtype == torch.float32
+    torch.testing.assert_close(out, want_out, **tol(torch.float32))
+    torch.testing.assert_close(lse, want, rtol=0, atol=2e-5)
+    assert ops.launch_counts() == dict(NO_LAUNCHES, flash_attention_f32=2)
+    for kk in (k.roll(4, dims=-1), torch.zeros_like(k)):
+        assert not torch.allclose(out, ref.flash_attention_ref(q, kk, v, causal, window, off), **tol(torch.float32))
+
+
+@pytest.mark.parametrize("D", [16, 80, 128, 208, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_f32_reads_only_its_own_bytes(cuda, D, causal):
+    """q, k and v are views at the start of larger NaN-filled buffers, with
+    lengths that fill no last tile (Sq = 200, Skv = 300): a read past column
+    D of the last row, or past the last row, would bring a NaN in, and a
+    store of the last q tile past Sq would leave one."""
+    B, H, Kh, Sq, Skv = 1, 4, 2, 200, 300
+    views = []
+    for t in _qkv(cuda, B, H, Kh, Sq, Skv, D, torch.float32):
+        buf = torch.full((t.numel() + 128 * D,), float("nan"), device="cuda")
+        views.append(buf[: t.numel()].view(t.shape))
+        views[-1].copy_(t)
+    q, k, v = views
+    got = ops.flash_attention(q, k, v, causal, 0, Skv - Sq)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref.flash_attention_ref(q, k, v, causal, 0, Skv - Sq), **tol(torch.float32))
+    assert ops.launch_counts() == dict(NO_LAUNCHES, flash_attention_f32=1)
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_flash_f32_refuses_a_misaligned_start(cuda, D):
+    """TMA reads from 16-byte aligned addresses; nothing falls over to the
+    bf16 kernel or the plain version."""
+    q, k, v = _qkv(cuda, 1, 2, 2, 33, 33, D, torch.float32)
+    for which in range(3):
+        flat = torch.empty((q, k, v)[which].numel() + 1, device="cuda")
+        moved = flat[1:].view((q, k, v)[which].shape)
+        moved.copy_((q, k, v)[which])
+        args = [q, k, v]
+        args[which] = moved
+        with pytest.raises(ValueError, match="16-byte"):
+            tfa.flash_attention_fwd(*args)
+    assert ops.launch_counts() == NO_LAUNCHES
 
 
 LSE_CASES = ([(c, dt) for c in FLASH_CASES for dt in DTYPES] + [(c, torch.bfloat16) for c in TC_CASES]
@@ -277,7 +345,7 @@ def test_unembed_gradient_on_the_card(cuda, tied):
 
 
 def test_train_step_on_the_card_matches_the_cpu(cuda):
-    """Two steps of reduced qwen3-14b (f32, the CUDA-core flash route), two
+    """Two steps of reduced qwen3-14b (f32, the f32 flash route), two
     microbatches, full remat: the card against the CPU, metrics at 1e-4
     relative and every weight within lr (AdamW moves a weight whose gradient
     is at the f32 noise by a noisy fraction of lr), and the launches that the
@@ -301,7 +369,7 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
         torch.testing.assert_close(a, b, rtol=0, atol=adam.lr)
     L = cfg.num_layers
     assert ops.launch_counts() == dict(NO_LAUNCHES, rmsnorm=2 * 2 * (4 * L * 2 + 1),
-                                       flash_attention_cores=2 * 2 * L * 2)
+                                       flash_attention_f32=2 * 2 * L * 2)
 
 
 def _rel_l2(a, b) -> float:
@@ -542,7 +610,7 @@ def test_reduced_model_on_the_card_matches_the_cpu(cuda):
         gl, gc = T.decode_step(cfg, gparams, tok.cuda(), t, gc)
         torch.testing.assert_close(gl.cpu(), cl, rtol=1e-4, atol=1e-4)
     counts = ops.launch_counts()
-    assert counts["flash_attention_cores"] == cfg.num_layers and counts["flash_attention_tc"] == 0
+    assert counts["flash_attention_f32"] == cfg.num_layers and counts["flash_attention_tc"] == 0
     assert counts["rmsnorm"] == 5 * 2 + 1 + 4 * (4 * 2 + 1)
     opts = ServeOptions(max_seq=32, batch_size=2)
     got = Engine(cfg, gparams, opts).generate({"tokens": toks}, 6)
@@ -586,7 +654,7 @@ def test_full_width_moe_layer_on_the_card_matches_the_cpu(cuda):
 def test_reduced_mixtral_ring_decode_on_the_card_matches_the_cpu(cuda):
     """reduced mixtral in f32 (4 experts top-2, window 8): prefill of 12
     tokens into caches of cache_seq 16, a ring of 8 slots (the roll path),
-    and six decode steps past its wrap, the card (CUDA-core flash at head
+    and six decode steps past its wrap, the card (the f32 flash at head
     dim 16, cuBLAS) against the CPU's plain path at 1e-4, and the engine's
     greedy tokens; with the launches the path makes."""
     cfg = reduced_config(get_config("mixtral-8x22b"))
@@ -608,7 +676,7 @@ def test_reduced_mixtral_ring_decode_on_the_card_matches_the_cpu(cuda):
     torch.testing.assert_close(gc[0]["pos0"]["k"].cpu(), cc[0]["pos0"]["k"], rtol=1e-4, atol=1e-4)
     counts = ops.launch_counts()
     L = cfg.num_layers
-    assert counts["flash_attention_cores"] == L and counts["flash_attention_tc"] == 0
+    assert counts["flash_attention_f32"] == L and counts["flash_attention_tc"] == 0
     assert counts["rmsnorm"] == (2 * L + 1) * 7
     opts = ServeOptions(max_seq=16, batch_size=2)
     got = Engine(cfg, gparams, opts).generate({"tokens": toks[:, :12]}, 6)
@@ -681,7 +749,7 @@ def _mrope_positions(B: int, S: int) -> torch.Tensor:
 
 def test_reduced_qwen2_vl_with_position_streams_on_the_card_matches_the_cpu(cuda):
     """reduced qwen2-vl in f32 with three distinct position streams: forward
-    and prefill on the card (CUDA-core flash at head dim 16, cuBLAS) against
+    and prefill on the card (the f32 flash at head dim 16, cuBLAS) against
     the CPU's plain path at 1e-4, then decode steps; the streams are seen
     (broadcast ones give other logits)."""
     cfg = reduced_config(get_config("qwen2-vl-72b"))
@@ -703,7 +771,7 @@ def test_reduced_qwen2_vl_with_position_streams_on_the_card_matches_the_cpu(cuda
         gl, gc = T.decode_step(cfg, gparams, toks[:, t : t + 1].cuda(), t, gc)
         torch.testing.assert_close(gl.cpu(), cl, rtol=1e-4, atol=1e-4)
     L = cfg.num_layers
-    assert ops.launch_counts() == dict(NO_LAUNCHES, flash_attention_cores=2 * L, rmsnorm=2 * (2 * L + 1) + 4 * (2 * L + 1))
+    assert ops.launch_counts() == dict(NO_LAUNCHES, flash_attention_f32=2 * L, rmsnorm=2 * (2 * L + 1) + 4 * (2 * L + 1))
 
 
 def test_full_width_starcoder2_layer_on_the_card_matches_the_cpu(cuda):
@@ -814,7 +882,7 @@ def test_serve_main_defaults_to_the_card(cuda, capsys):
     out = serve.main(["--arch", "qwen3-14b", "--reduced", "--batch", "2", "--new-tokens", "4"])
     assert out.shape == (2, 4)
     assert torch.cuda.get_device_name() in capsys.readouterr().out
-    assert ops.launch_counts()["flash_attention_cores"] == 2  # the reduced config: f32, head dim 16
+    assert ops.launch_counts()["flash_attention_f32"] == 2  # the reduced config: f32, head dim 16
 
 
 @pytest.mark.parametrize("n", [17, 4096, 100_000])
@@ -1091,7 +1159,7 @@ def test_two_train_steps_on_the_card_mesh_match_one_process_on_the_card(cuda):
         for key in ("loss", "grad_norm", "lr"):
             np.testing.assert_allclose(r[key], w[key], rtol=1e-5, err_msg=f"step {r['step']} {key}")
         for rank in r["ranks"]:
-            assert rank["launches"]["rmsnorm"] > 0 and rank["launches"]["flash_attention_cores"] > 0, rank
+            assert rank["launches"]["rmsnorm"] > 0 and rank["launches"]["flash_attention_f32"] > 0, rank
             assert rank["peak_bytes"] > 0
     init = TS.init_state(cfg, 0, "cuda")["params"]  # the launcher's draw (seed 0) on the card
     lr = max(r["lr"] for r in one)  # the warmup's largest step

@@ -75,7 +75,7 @@ RAGGED_CASES = [
 
 RMSNORM_SHAPES = [(4, 64), (3, 7, 256), (1000, 128)]
 
-NO_LAUNCHES = {"rmsnorm": 0, "flash_attention_tc": 0, "flash_attention_cores": 0, "chunk_reduce": 0,
+NO_LAUNCHES = {"rmsnorm": 0, "flash_attention_tc": 0, "flash_attention_f32": 0, "chunk_reduce": 0,
                "dequant_add": 0}
 
 
@@ -332,18 +332,18 @@ def test_build_key_covers_every_source(monkeypatch, tmp_path):
 @pytest.mark.parametrize("D", range(16, 257, 16))
 def test_flash_route_is_a_function_of_dtype_and_head_dim(dtype, D):
     """bf16 at every D the kernels take (a multiple of 16 up to 256) takes
-    the tensor cores; f32 (held to 2e-5) at every D takes the exact
-    CUDA-core kernel."""
-    want = "tc" if dtype == torch.bfloat16 else "cores"
+    the bf16 kernel (flash_attention_sm90.cu); f32 (held to 2e-5) at every
+    D takes the f32 kernel (flash_attention.cu, three TF32 products)."""
+    want = "tc" if dtype == torch.bfloat16 else "f32"
     assert tfa.route(dtype, D) == want
 
 
 @pytest.mark.parametrize("arch", sorted(ARCHS))
 def test_flash_routes_of_the_configs(arch):
-    """Every registered config (bf16, head dim 80 to 128) takes the tensor
-    cores; its reduced config (f32, head dim 16) the CUDA cores."""
+    """Every registered config (bf16, head dim 80 to 128) takes the bf16
+    kernel; its reduced config (f32, head dim 16) the f32 kernel."""
     cfg = get_config(arch)
     assert cfg.dtype == "bfloat16" and cfg.head_dim % 16 == 0 and cfg.head_dim <= 128
     assert tfa.route(getattr(torch, cfg.dtype), cfg.head_dim) == "tc"
     small = reduced_config(cfg)
-    assert tfa.route(getattr(torch, small.dtype), small.head_dim) == "cores"
+    assert tfa.route(getattr(torch, small.dtype), small.head_dim) == "f32"

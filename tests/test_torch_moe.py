@@ -751,8 +751,8 @@ def test_chip_smoke_expects_the_calls_the_serve_path_makes(arch, monkeypatch):
     ``chip_smoke.expected_launches`` asks of the card, for a prompt that takes
     the ring roll of the windowed archs.  The reduced config in bf16 at the
     arch's own head dim (and M-RoPE sections), so the routes are the card's:
-    the tensor cores for whisper's 64, stablelm's 80 and for 128, none on the
-    CUDA cores.  Flash once per attention layer (every layer but jamba's
+    the bf16 kernel for whisper's 64, stablelm's 80 and for 128, none on the
+    f32 kernel.  Flash once per attention layer (every layer but jamba's
     Mamba layers and rwkv6's RWKV blocks), and with an encoder once per
     encoder layer and per cross-attention (every attention or Mamba layer,
     no RWKV block); RMSNorm: none for LayerNorm models, ln1 and ln2 of every
@@ -764,7 +764,7 @@ def test_chip_smoke_expects_the_calls_the_serve_path_makes(arch, monkeypatch):
     cfg = dataclasses.replace(tconfigs.reduced_config(full), head_dim=full.head_dim,
                               mrope_sections=full.mrope_sections, **ENCODER_OVER.get(encoder, {}), **BF16)
     params = tcommon.init_params(TT.model_skel(cfg), torch.Generator().manual_seed(0), "cpu")
-    calls = {"rmsnorm": 0, "flash_attention_tc": 0, "flash_attention_cores": 0}
+    calls = {"rmsnorm": 0, "flash_attention_tc": 0, "flash_attention_f32": 0}
     rms, flash = tops.rmsnorm, tops.flash_attention
 
     def counted_rms(*a, **k):
@@ -790,7 +790,7 @@ def test_chip_smoke_expects_the_calls_the_serve_path_makes(arch, monkeypatch):
                            "qwen3-14b+encoder-rwkv": 0}.get(arch, L)
     flash_calls = {"whisper-medium": 3 * L, "qwen3-14b+encoder-attn": 3 * L, "qwen3-14b+encoder-mamba": E + L,
                    "qwen3-14b+encoder-rwkv": E}.get(arch, attn_layers)
-    assert want["flash_attention_tc"] == flash_calls and want["flash_attention_cores"] == 0
+    assert want["flash_attention_tc"] == flash_calls and want["flash_attention_f32"] == 0
 
 
 def _ring_fault(fault, monkeypatch):

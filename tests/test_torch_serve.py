@@ -78,7 +78,7 @@ def _zero_counts():
     tops.reset_launch_counts()
     yield
     assert tops.launch_counts() == dict.fromkeys(
-        ("rmsnorm", "flash_attention_tc", "flash_attention_cores", "chunk_reduce", "dequant_add"), 0)  # CPU: plain versions only
+        ("rmsnorm", "flash_attention_tc", "flash_attention_f32", "chunk_reduce", "dequant_add"), 0)  # CPU: plain versions only
 
 
 # ---------------------------------------------------------------------------
