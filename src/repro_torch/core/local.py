@@ -114,10 +114,14 @@ from repro_torch.core.store import (
 from repro_torch.core.trace import (
     CAT_CHAIN,
     CAT_COMM,
+    CAT_DIRECTORY,
     CAT_FETCH,
     CAT_MEMBERSHIP,
     CAT_STREAM,
+    NODE_DIRECTORY,
     RESPLICE_MEMBER_CHANGE,
+    SPAN_DIR_LOCK,
+    SPAN_WINDOW,
     FlightRecorder,
     STAGE_CAP_BLOCKED,
     STAGE_PLAN,
@@ -139,6 +143,44 @@ def _fold_into(op, a: torch.Tensor, b: torch.Tensor, out: torch.Tensor) -> None:
         into(a, b, out)
     else:
         out.copy_(op(a, b))
+
+
+class _DirectoryLock:
+    """The cluster's re-entrant directory lock, timing only contended
+    acquisitions: a non-blocking try first, and a clock around the blocking
+    acquire only when the try fails.  The wait is summed, under the lock
+    itself, into ``stats.dir_lock_wait_seconds`` and, with the recorder on,
+    recorded as a ``dir-lock`` span on the ``directory lock`` lane."""
+
+    __slots__ = ("_lock", "_stats", "_trace")
+
+    def __init__(self, stats: DataPlaneStats, trace: FlightRecorder):
+        self._lock = threading.RLock()
+        self._stats = stats
+        self._trace = trace
+
+    def acquire(self, blocking: bool = True, timeout: float = -1) -> bool:
+        if self._lock.acquire(False):
+            return True
+        if not blocking:
+            return False
+        t0 = time.perf_counter()
+        if not self._lock.acquire(True, timeout):
+            return False
+        waited = time.perf_counter() - t0
+        self._stats.dir_lock_wait_seconds += waited
+        if self._trace.enabled:
+            self._trace.span(CAT_DIRECTORY, SPAN_DIR_LOCK, NODE_DIRECTORY, t0, waited)
+        return True
+
+    def release(self) -> None:
+        self._lock.release()
+
+    def __enter__(self) -> bool:
+        return self.acquire()
+
+    def __exit__(self, *exc) -> None:
+        self._lock.release()
 
 
 class DeadNode(RuntimeError):
@@ -292,14 +334,14 @@ class LocalCluster:
         # stay unconditional; a disabled recorder costs one bool check.
         # Replicas never get the recorder -- mirrored mutations must not
         # double-record directory events.
-        self.trace = FlightRecorder(enabled=trace)
+        self.trace = FlightRecorder(enabled=trace, device=self.device)
         self.directory.recorder = self.trace
         # Membership-safe store registry: node ids are first-class members
         # (join with ``add_node``, leave with ``drain_node``), not list
         # indices.  ``num_nodes`` is derived from it (see the property).
         self.stores = StoreRegistry(
             store_capacity, stats=self._stats, seed_ids=range(num_nodes),
-            device=self.device,
+            device=self.device, trace=self.trace,
         )
         self.meta: Dict[str, Tuple[torch.dtype, tuple]] = {}
         self.dead: set = set()
@@ -328,7 +370,7 @@ class LocalCluster:
         self._drain_handoffs: Dict[str, int] = {}
         # Control-plane (directory) lock; exposed as ``lock`` for
         # compatibility.  The data plane does NOT take it per chunk.
-        self._dir_lock = threading.RLock()
+        self._dir_lock = _DirectoryLock(self._stats, self.trace)
         self.lock = self._dir_lock
         # Events of threads blocked on directory state; set on membership
         # changes (fail/restart/failover) so waiters re-check promptly.
@@ -461,7 +503,6 @@ class LocalCluster:
                 if remaining <= 0 or not ev.wait(timeout=remaining):
                     raise TimeoutError(what or f"directory wait on {ids[:3]}")
                 ev.clear()
-                self._stats.dir_wakeups += 1
                 with self._dir_lock:
                     result = attempt()
                     if result is not None:
@@ -991,8 +1032,12 @@ class LocalCluster:
 
         ``stage`` is the caller's critical-path clock: time blocked on the
         source watermark classifies as ``producer-wait``, time moving
-        bytes as ``streaming``.  With tracing enabled the whole leg is
-        recorded as one ``stream`` span (never per window).
+        bytes as ``streaming``.  Each window's issue, from the source's
+        window in hand to the destination's advance, is summed into
+        ``stats["window_issue_seconds"]``.  With tracing enabled the whole
+        leg is recorded as one ``copy-leg`` span, and each window inside it
+        as a ``window`` span whose ``card_done`` (on the card) is when the
+        card ran the window's copy.
 
         The bytes themselves ride the cluster's comm backend: windows
         arrive through a ``ChunkStream`` (a zero-copy buffer view on
@@ -1036,6 +1081,7 @@ class LocalCluster:
                         src, dst, object_id, src_buf, pos, reconnect=True
                     )
                     continue
+                t_win = time.perf_counter()
                 if src in self.dead:
                     raise DeadNode(str(src))
                 if window is None:
@@ -1075,11 +1121,18 @@ class LocalCluster:
                     extra = self.faults.window_penalty(src, dst, win_k, base)
                     if extra > 0.0:
                         time.sleep(extra)
-                win_k += 1
                 if dst in self.dead:
                     raise DeadNode(str(dst))
                 dst_buf.write_chunk(pos, window)
-                self._stats.windows += 1
+                t_end = time.perf_counter()
+                self._stats.note_window(t_end - t_win)
+                if self.trace.enabled:
+                    self.trace.span(
+                        CAT_STREAM, SPAN_WINDOW, dst, t_win, t_end - t_win, object_id,
+                        src=src, bytes=avail - pos, inputs=1, k=win_k,
+                        card_done=self.trace.card_event(dst_buf.device),
+                    )
+                win_k += 1
                 served += avail - pos
                 first_window = pos == 0
                 pos = avail
@@ -1750,7 +1803,6 @@ class LocalCluster:
                 if remaining <= 0 or not ev.wait(timeout=remaining):
                     raise TimeoutError(f"reduce: sources never ready: {pending}")
                 ev.clear()
-                self._stats.dir_wakeups += 1
                 # The receiver itself may have been killed mid-chain
                 # (membership events wake us): fail fast, the reduce can
                 # never complete into a dead node.
@@ -2317,7 +2369,10 @@ class LocalCluster:
         """out[w] = fold(op, inputs[0][w], inputs[1][w], ...) window-by-
         window, gated on EVERY input's watermark -- the streaming add of a
         reduce hop and of the chain finalization, vectorized over all
-        bytes available per wakeup.
+        bytes available per wakeup.  Each window is timed from every
+        input's watermark in hand to the output's advance, as in
+        ``_stream_copy`` (``window_issue_seconds``, ``window`` spans inside
+        the ``fold-leg`` span).
 
         ``inputs`` entries are (buffer, object_id, src_node): ``src_node``
         names the remote holder of a streamed input (bytes-served
@@ -2381,6 +2436,7 @@ class LocalCluster:
                     elif buf.failed:
                         raise ObjectLost(oid)
                     avail = min(avail, got)
+                t_win = time.perf_counter()
                 # Whole elements only: a dtype view of the buffer must
                 # start and end on an element (watermarks are aligned).
                 avail -= (avail - pos) % itemsize
@@ -2427,7 +2483,6 @@ class LocalCluster:
                     )
                     if extra > 0.0:
                         time.sleep(extra)
-                win_k += 1
                 # Fold straight into the output's window above its
                 # watermark (no reader looks there), then advance it.
                 dst_win = out.view(pos, avail).view(dtype)
@@ -2439,8 +2494,17 @@ class LocalCluster:
                     acc = dst_win
                 fold_ops += len(inputs) - 1
                 out.write_chunk(pos, None, end=avail)
-                self._stats.windows += 1
+                t_end = time.perf_counter()
+                self._stats.note_window(t_end - t_win)
                 window = avail - pos
+                if self.trace.enabled:
+                    self.trace.span(
+                        CAT_STREAM, SPAN_WINDOW, dst, t_win, t_end - t_win, object_id,
+                        src=tuple(src for _buf, _oid, src in inputs if src is not None),
+                        bytes=window, inputs=len(inputs), k=win_k,
+                        card_done=self.trace.card_event(out.device),
+                    )
+                win_k += 1
                 if len(inputs) > 1:
                     reduced += window
                 for _buf, _oid, src in inputs:
@@ -2516,7 +2580,7 @@ class LocalCluster:
                 wrapped.append((buf, oid, src))
                 continue
             relay = ChunkedBuffer(buf.size, chunk_size=buf.chunk_size, stats=self._stats,
-                                  device=self.device)
+                                  device=self.device, trace=self.trace, object_id=oid, node=dst)
             stop = threading.Event()
             threading.Thread(
                 target=self._relay_pump,
@@ -2642,7 +2706,7 @@ class LocalCluster:
                         return src_buf
                     staging = ChunkedBuffer(
                         src_buf.size, src_buf.chunk_size, stats=self._stats,
-                        device=self.device,
+                        device=self.device, trace=self.trace, object_id=oid, node=node,
                     )
                     try:
                         self._stream_copy(src_node, node, src_buf, staging, oid)

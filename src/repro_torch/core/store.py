@@ -38,22 +38,38 @@ import numpy as np
 import torch
 
 from repro_torch.core.api import DEFAULT_CHUNK_SIZE, ObjectAlreadyExists
+from repro_torch.core.trace import CAT_STREAM, SPAN_WAKE
 
 
 class DataPlaneStats:
     """Contention counters for the threaded data plane.
 
-    Incremented without a dedicated lock (each increment happens under
-    *some* buffer/directory lock, but different buffers race): the counts
-    are monitoring-grade approximations, good to well under 1% -- they
-    feed ``BENCH_core.json``, not correctness decisions.
+    Most are incremented without a dedicated lock (each increment happens
+    under *some* buffer/directory lock, but different buffers race): those
+    counts are monitoring-grade approximations, good to well under 1%.
+    ``windows``, the hand-off timers below and the seconds dicts are exact:
+    summed under the stats' own lock (``dir_lock_wait_seconds`` under the
+    directory lock itself).  They feed the benchmark's per-layer metrics
+    (``hoplite_bench/metrics/``), not correctness decisions.
 
       * ``wakeups``          -- returns from a blocked data-plane wait
       * ``notifies``         -- watermark signals that had >= 1 waiter
-      * ``notified_waiters`` -- waiters woken per signal, summed
-      * ``dir_wakeups``      -- control-plane (directory event) wakeups
       * ``windows``          -- drained transfer windows (lock acquisitions
         per streamed buffer; chunks/window >> 1 means the drain is working)
+
+    The data plane's hand-offs, timed always (the port's own; the trace's
+    ``wake``, ``window`` and ``dir-lock`` spans cover the same intervals):
+
+      * ``woken``                -- waits that returned because a writer
+        signalled them (``wakeups`` also counts timeouts)
+      * ``wake_lag_seconds``     -- summed over those, the time from the
+        first watermark advance that could release the waiter to its
+        return: re-taking the buffer's lock, the GIL and the scheduler
+      * ``window_issue_seconds`` -- summed over ``windows``, the time from
+        holding every input's watermark to the window's own advance: the
+        checks, the copy or fold launches, ``write_chunk``
+      * ``dir_lock_wait_seconds`` -- time spent blocked on a contended
+        directory lock (uncontended acquisitions are not timed)
 
     Plus per-node serving accounting for the adaptive broadcast tree:
 
@@ -98,6 +114,11 @@ class DataPlaneStats:
         ``plan``), so for a single operation the stage sum ~= its
         wall-clock and across concurrent operations it sums their
         individual critical paths.
+      * ``task_seconds`` -- the port's own: ``Runtime`` tasks' stages
+        (``core/trace.TASK_STAGES``: queued for a slot, argument Gets, the
+        function, the result's Put) summed over tasks, apart from
+        ``stage_seconds`` so that the data plane's stages read the same
+        with tasks on top.
 
     And the reduce op's calls, exact (counted under the cluster's stats
     lock):
@@ -111,8 +132,6 @@ class DataPlaneStats:
     __slots__ = (
         "wakeups",
         "notifies",
-        "notified_waiters",
-        "dir_wakeups",
         "windows",
         "resplices",
         "splices_join",
@@ -132,7 +151,15 @@ class DataPlaneStats:
         "reduce_hops",
         "stage_seconds",
         "fold_ops",
+        "woken",
+        "wake_lag_seconds",
+        "window_issue_seconds",
+        "dir_lock_wait_seconds",
+        "task_seconds",
+        "_lock",
     )
+
+    _FIELDS = tuple(k for k in __slots__ if k != "_lock")
 
     _DICT_FIELDS = (
         "bytes_served",
@@ -140,13 +167,12 @@ class DataPlaneStats:
         "bytes_reduced",
         "reduce_hops",
         "stage_seconds",
+        "task_seconds",
     )
 
     def __init__(self):
         self.wakeups = 0
         self.notifies = 0
-        self.notified_waiters = 0
-        self.dir_wakeups = 0
         self.windows = 0
         self.resplices = 0
         self.splices_join = 0
@@ -166,6 +192,12 @@ class DataPlaneStats:
         self.reduce_hops: Dict[int, int] = {}
         self.stage_seconds: Dict[str, float] = {}
         self.fold_ops = 0
+        self.woken = 0
+        self.wake_lag_seconds = 0.0
+        self.window_issue_seconds = 0.0
+        self.dir_lock_wait_seconds = 0.0
+        self.task_seconds: Dict[str, float] = {}
+        self._lock = threading.Lock()
 
     def note_bytes_served(self, node: int, nbytes: int) -> None:
         self.bytes_served[node] = self.bytes_served.get(node, 0) + nbytes
@@ -180,11 +212,28 @@ class DataPlaneStats:
     def note_reduce_hop(self, node: int) -> None:
         self.reduce_hops[node] = self.reduce_hops.get(node, 0) + 1
 
+    def note_seconds(self, field: str, key: str, seconds: float) -> None:
+        """Add ``seconds`` under ``key`` of the dict ``field``
+        (``stage_seconds``, ``task_seconds``)."""
+        with self._lock:
+            d = getattr(self, field)
+            d[key] = d.get(key, 0.0) + seconds
+
     def note_stage(self, stage: str, seconds: float) -> None:
-        self.stage_seconds[stage] = self.stage_seconds.get(stage, 0.0) + seconds
+        self.note_seconds("stage_seconds", stage, seconds)
+
+    def note_wake(self, lag: float) -> None:
+        with self._lock:
+            self.woken += 1
+            self.wake_lag_seconds += lag
+
+    def note_window(self, issue: float) -> None:
+        with self._lock:
+            self.windows += 1
+            self.window_issue_seconds += issue
 
     def as_dict(self) -> Dict[str, object]:
-        out = {k: getattr(self, k) for k in self.__slots__ if k not in self._DICT_FIELDS}
+        out = {k: getattr(self, k) for k in self._FIELDS if k not in self._DICT_FIELDS}
         for k in self._DICT_FIELDS:
             out[k] = dict(getattr(self, k))
         return out
@@ -199,11 +248,12 @@ class DataPlaneStats:
         buffers/cluster that hold a reference to it).  Benchmark harnesses
         call this between scenarios so per-scenario counter deltas don't
         bleed across a cluster's lifetime."""
-        for k in self.__slots__:
-            if k in self._DICT_FIELDS:
-                getattr(self, k).clear()
-            else:
-                setattr(self, k, 0)
+        with self._lock:
+            for k in self._FIELDS:
+                if k in self._DICT_FIELDS:
+                    getattr(self, k).clear()
+                else:
+                    setattr(self, k, 0.0 if k.endswith("_seconds") else 0)
 
 
 def copy_bytes(dst: torch.Tensor, src: torch.Tensor) -> None:
@@ -229,6 +279,17 @@ def zero_bytes(size: int, device: torch.device) -> torch.Tensor:
     return torch.zeros(size, dtype=torch.uint8, device=device)
 
 
+class _Waiter:
+    """A reader blocked in ``wait_for_bytes``: the watermark it waits for,
+    and when an advance or a failure first met it."""
+
+    __slots__ = ("hi", "released_at")
+
+    def __init__(self, hi: int):
+        self.hi = hi
+        self.released_at: Optional[float] = None
+
+
 class BufferFailed(RuntimeError):
     """The node holding this buffer died while a reader was gated on it."""
 
@@ -251,6 +312,12 @@ class ChunkedBuffer:
     until then, both the creation time for a buffer made complete): whether
     a receiver held bytes before its source was whole is read from them,
     not from a poll.
+
+    A waiter released by a writer's signal times its wake-up: from the
+    first advance (or failure) that met its watermark, stamped under the
+    condition before ``notify_all``, to its own return.  The lag goes to
+    ``stats`` (``woken``, ``wake_lag_seconds``) and, with ``trace`` on, to a
+    ``wake`` span on ``node``'s lane under ``object_id``.
     """
 
     def __init__(
@@ -260,6 +327,9 @@ class ChunkedBuffer:
         stats: Optional[DataPlaneStats] = None,
         *,
         device: torch.device,
+        trace=None,
+        object_id: Optional[str] = None,
+        node: Optional[int] = None,
     ):
         self.size = size
         self.chunk_size = chunk_size
@@ -269,8 +339,11 @@ class ChunkedBuffer:
         self.last_window_at: Optional[float] = None
         self.failed = False
         self.stats = stats
+        self.trace = trace
+        self.object_id = object_id
+        self.node = node
         self._cond = threading.Condition(threading.Lock())
-        self._waiters = 0
+        self._waiting: list = []  # _Waiter of each blocked reader
 
     @classmethod
     def from_bytes(cls, payload: bytes, chunk_size: int = DEFAULT_CHUNK_SIZE, *,
@@ -335,10 +408,12 @@ class ChunkedBuffer:
                 if end >= self.size:
                     self.last_window_at = now
                 self.bytes_present = end
-            if self._waiters:
+                for w in self._waiting:
+                    if w.released_at is None and end >= w.hi:
+                        w.released_at = now
+            if self._waiting:
                 if self.stats is not None:
                     self.stats.notifies += 1
-                    self.stats.notified_waiters += self._waiters
                 self._cond.notify_all()
 
     def wait_for_bytes(self, hi: int, timeout: Optional[float] = None) -> int:
@@ -347,24 +422,41 @@ class ChunkedBuffer:
         may read ``data[:snapshot]`` zero-copy afterwards -- that region
         is immutable."""
         with self._cond:
-            while self.bytes_present < hi and not self.failed:
-                self._waiters += 1
-                try:
+            if self.bytes_present >= hi or self.failed:
+                return self.bytes_present
+            w = _Waiter(hi)
+            self._waiting.append(w)
+            try:
+                while True:
                     signaled = self._cond.wait(timeout)
-                finally:
-                    self._waiters -= 1
-                if self.stats is not None:
-                    self.stats.wakeups += 1
-                if not signaled:
-                    break
+                    if self.stats is not None:
+                        self.stats.wakeups += 1
+                    if not signaled:
+                        break
+                    if w.released_at is not None:
+                        self._note_wake(w.released_at)
+                        break
+            finally:
+                self._waiting.remove(w)
             return self.bytes_present
+
+    def _note_wake(self, released_at: float) -> None:
+        now = time.perf_counter()
+        if self.stats is not None:
+            self.stats.note_wake(now - released_at)
+        if self.trace is not None and self.trace.enabled:
+            self.trace.span(CAT_STREAM, SPAN_WAKE, self.node, released_at, now - released_at, self.object_id)
 
     def fail(self) -> None:
         """Node death: wake every reader gated on this buffer so it can
         fail over to another source instead of riding a timeout."""
         with self._cond:
             self.failed = True
-            if self._waiters:
+            if self._waiting:
+                now = time.perf_counter()
+                for w in self._waiting:
+                    if w.released_at is None:
+                        w.released_at = now
                 self._cond.notify_all()
 
     # -- reads ---------------------------------------------------------------
@@ -409,11 +501,13 @@ class NodeStore:
         stats: Optional[DataPlaneStats] = None,
         *,
         device: torch.device,
+        trace=None,
     ):
         self.node_id = node_id
         self.capacity_bytes = capacity_bytes
         self.stats = stats
         self.device = device
+        self.trace = trace  # the cluster's FlightRecorder, for ``wake`` spans
         self.objects: Dict[str, ChunkedBuffer] = {}
         self.pinned: set = set()
         self._lru = collections.OrderedDict()  # unpinned object id -> size
@@ -475,7 +569,8 @@ class NodeStore:
                 self._lru.pop(object_id, None)
             return existing
         self._maybe_evict(size)
-        buf = ChunkedBuffer(size, chunk_size, stats=self.stats, device=self.device)
+        buf = ChunkedBuffer(size, chunk_size, stats=self.stats, device=self.device, trace=self.trace,
+                            object_id=object_id, node=self.node_id)
         self.objects[object_id] = buf
         self._used_bytes += size
         if pinned:
@@ -570,17 +665,19 @@ class StoreRegistry:
         seed_ids=(),
         *,
         device: torch.device,
+        trace=None,
     ):
         self.capacity_bytes = capacity_bytes
         self.stats = stats
         self.device = device
+        self.trace = trace
         self._stores: Dict[int, NodeStore] = {}
         self._members: set = set()
         for nid in seed_ids:
             self.add(int(nid))
 
     def _fresh(self, nid: int) -> NodeStore:
-        return NodeStore(nid, self.capacity_bytes, stats=self.stats, device=self.device)
+        return NodeStore(nid, self.capacity_bytes, stats=self.stats, device=self.device, trace=self.trace)
 
     # -- membership ----------------------------------------------------------
 

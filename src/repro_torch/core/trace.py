@@ -94,6 +94,38 @@ CATEGORIES = (CAT_FETCH, CAT_STREAM, CAT_DIRECTORY, CAT_CHAIN, CAT_STAGE,
 # pid lane for serving-plane events (data-plane nodes are >= 0)
 NODE_ROUTER = -1
 
+# -- the port's own names (the JAX package has none of them) ----------------
+#
+# Spans of the data plane's hand-offs, recorded only while the recorder is
+# on; their always-on totals are ``DataPlaneStats`` counters:
+SPAN_WAKE = "wake"          # CAT_STREAM: a watermark advance that could
+#                             release a waiter, to the waiter's return
+#                             (``woken``, ``wake_lag_seconds``)
+SPAN_WINDOW = "window"      # CAT_STREAM: one copy or fold window, from every
+#                             input's watermark held to its own advance
+#                             (``windows``, ``window_issue_seconds``); args
+#                             ``card_done``: when the card ran its work
+#                             (None off the card)
+SPAN_DIR_LOCK = "dir-lock"  # CAT_DIRECTORY: a contended wait for the
+#                             directory lock (``dir_lock_wait_seconds``)
+
+# Runtime tasks: each task's wall time, from ``remote()`` to its ref being
+# ready, as consecutive stages summed into ``stats["task_seconds"]`` (never
+# into ``stage_seconds``) and recorded as CAT_TASK spans.
+TASK_QUEUED = "task-queued"  # submitted, waiting for an executor slot
+TASK_ARGS = "task-args"      # resolving ObjectRef arguments (Gets)
+TASK_RUN = "task-run"        # the task's function
+TASK_PUT = "task-put"        # the result's Put
+
+TASK_STAGES = (TASK_QUEUED, TASK_ARGS, TASK_RUN, TASK_PUT)
+
+CAT_TASK = "task"
+
+PORT_CATEGORIES = (CAT_TASK,)
+
+# pid lane for the directory lock's waits (its callers span every node)
+NODE_DIRECTORY = -2
+
 # Re-splice reason carried by member-change splice instants
 # (``splice-join`` / ``splice-drain`` under CAT_CHAIN): distinguishes an
 # elastic member-set change from the failure-driven ``resplice`` events,
@@ -115,6 +147,17 @@ class FlightRecorder:
     ``clock`` must be monotonic and return float seconds; the threaded
     plane uses ``time.perf_counter``, the simulator passes ``lambda:
     sim.now`` so simulated traces carry simulated time.
+
+    ``dropped`` counts the events full rings have dropped since the last
+    ``clear``.
+
+    On a CUDA ``device`` the recorder also places the card's clock on its
+    own: ``enable`` and ``disable`` each record an anchor, a CUDA event on
+    an idle stream of its own, synchronised at a known ``clock`` reading.
+    ``card_event`` records a timing event after work the caller enqueued;
+    an event in a span's args is resolved to the ``clock`` time at which
+    the card ran it only when ``events`` reads it (linearly between the
+    first and the last anchor), never on the append path.
     """
 
     def __init__(
@@ -122,26 +165,88 @@ class FlightRecorder:
         enabled: bool = False,
         capacity_per_thread: int = 1 << 16,
         clock: Callable[[], float] = time.perf_counter,
+        device=None,
     ):
-        self.enabled = enabled
+        self.enabled = False
         self.capacity = capacity_per_thread
         self.clock = clock
+        self.dropped = 0
         self._local = threading.local()
         self._rings: List[Tuple[str, List]] = []  # (tid label, ring)
         self._reg_lock = threading.Lock()
+        self._cuda = getattr(device, "type", None) == "cuda"
+        self._device = device
+        self._anchors: List[tuple] = []  # (CUDA event, clock time, half-width)
+        self._anchor_stream = None
+        if enabled:
+            self.enable()
 
     # -- lifecycle ----------------------------------------------------------
 
     def enable(self) -> None:
+        if self._cuda:
+            self._anchor()
         self.enabled = True
 
     def disable(self) -> None:
         self.enabled = False
+        if self._cuda and self._anchors:
+            self._anchor()
 
     def clear(self) -> None:
         with self._reg_lock:
             for _tid, ring in self._rings:
                 del ring[:]
+            self.dropped = 0
+
+    # -- the card's clock ---------------------------------------------------
+
+    def _anchor(self) -> None:
+        """A CUDA event on an idle stream, stamped by the card as soon as it
+        is enqueued, synchronised between two ``clock`` readings: their
+        midpoint is its time, good to half their distance."""
+        import torch
+
+        if self._anchor_stream is None:
+            self._anchor_stream = torch.cuda.Stream(device=self._device)
+        ev = torch.cuda.Event(enable_timing=True)
+        t0 = self.clock()
+        ev.record(self._anchor_stream)
+        ev.synchronize()
+        t1 = self.clock()
+        self._anchors.append((ev, (t0 + t1) / 2, (t1 - t0) / 2))
+
+    def card_event(self, device):
+        """A timing CUDA event recorded now on the current stream of
+        ``device`` (after the work the caller enqueued there), or None off
+        the card or before the first anchor."""
+        if not self._anchors or getattr(device, "type", None) != "cuda":
+            return None
+        import torch
+
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def _card_time(self, ev) -> float:
+        ev.synchronize()
+        a0, h0, _ = self._anchors[0]
+        a1, h1, _ = self._anchors[-1]
+        ms = a0.elapsed_time(ev)
+        if a1 is not a0:
+            span_ms = a0.elapsed_time(a1)
+            if span_ms > 0.0:
+                return h0 + ms * (h1 - h0) / span_ms
+        return h0 + ms / 1e3
+
+    def card_skew(self) -> Optional[float]:
+        """Seconds by which the first anchor alone, at the card's own rate,
+        misplaces the last anchor on ``clock`` (None with fewer than two):
+        the drift between the two clocks that the linear map takes out."""
+        if len(self._anchors) < 2:
+            return None
+        (a0, h0, _), (a1, h1, _) = self._anchors[0], self._anchors[-1]
+        return h0 + a0.elapsed_time(a1) / 1e3 - h1
 
     # -- append path --------------------------------------------------------
 
@@ -162,6 +267,8 @@ class FlightRecorder:
             # Drop the oldest half in one slice (amortized O(1)/event)
             # instead of popping per append.
             del ring[: self.capacity // 2]
+            with self._reg_lock:
+                self.dropped += self.capacity // 2
 
     def instant(
         self,
@@ -194,11 +301,16 @@ class FlightRecorder:
     # -- reads --------------------------------------------------------------
 
     def events(self) -> List[tuple]:
-        """Merged time-ordered snapshot of every thread's ring."""
+        """Merged time-ordered snapshot of every thread's ring.  A CUDA event
+        left in a span's ``card_done`` is resolved to its ``clock`` time
+        here, once (the card is waited for)."""
         with self._reg_lock:
             merged = []
             for tid, ring in self._rings:
                 for ev in list(ring):
+                    args = ev[7]
+                    if args and args.get("card_done") is not None and not isinstance(args["card_done"], float):
+                        args["card_done"] = self._card_time(args["card_done"])
                     merged.append(ev[:2] + (tid,) + ev[3:])
         merged.sort(key=lambda e: e[0])
         return merged
@@ -211,15 +323,18 @@ class FlightRecorder:
 
     # -- export -------------------------------------------------------------
 
-    def to_chrome_trace(self) -> Dict:
+    def to_chrome_trace(self, absolute: bool = False) -> Dict:
         """Chrome trace-event JSON object (``chrome://tracing`` / Perfetto).
 
         Timestamps are exported in microseconds relative to the first
         event, one pid per data-plane node (plus a ``router`` lane for
-        serving events), one tid per recording thread.
+        serving events), one tid per recording thread.  With ``absolute``
+        they are the ``clock``'s own readings in microseconds
+        (``time.perf_counter`` on the threaded plane), so that a dump can be
+        laid over a ``torch.profiler`` trace whose marks place that clock.
         """
         evs = self.events()
-        t_base = evs[0][0] if evs else 0.0
+        t_base = evs[0][0] if evs and not absolute else 0.0
         out = []
         pids = set()
         tids = set()
@@ -247,7 +362,8 @@ class FlightRecorder:
             out.append(rec)
         meta = []
         for pid in sorted(pids):
-            label = "router" if pid == NODE_ROUTER else f"node {pid}"
+            label = ("router" if pid == NODE_ROUTER else "directory lock" if pid == NODE_DIRECTORY
+                     else f"node {pid}")
             meta.append(
                 {
                     "name": "process_name",
@@ -258,9 +374,9 @@ class FlightRecorder:
             )
         return {"traceEvents": meta + out, "displayTimeUnit": "ms"}
 
-    def dump_chrome_trace(self, path: str) -> int:
+    def dump_chrome_trace(self, path: str, absolute: bool = False) -> int:
         """Write the Chrome-trace JSON to ``path``; returns #events."""
-        trace = self.to_chrome_trace()
+        trace = self.to_chrome_trace(absolute)
         with open(path, "w") as f:
             json.dump(trace, f)
         return sum(1 for e in trace["traceEvents"] if e.get("ph") != "M")
@@ -313,25 +429,29 @@ def critical_path(
 class StageClock:
     """Partition one operation's wall time into attribution stages.
 
-    Owned by a single thread (one per fetch / chain finalization / hop).
+    Owned by a single thread (one per fetch / chain finalization / hop;
+    a Runtime task's clock passes from ``remote`` to the task's thread).
     ``switch(stage)`` closes the current stage span and opens the next;
     consecutive switches to the same stage merge (no event spam from a
     window loop flapping between wait and copy with nothing to wait for).
-    Each closed span is added to ``stats.stage_seconds`` (always, cheap)
-    and recorded as a ``stage`` span in the trace (when enabled), so
-    ``critical_path`` over a dump and ``cluster.stats`` agree.
+    Each closed span is added to the stats dict named by ``field``
+    (``stats.stage_seconds`` by default; always, cheap) and recorded as a
+    ``cat`` span in the trace (when enabled), so ``critical_path`` over a
+    dump and ``cluster.stats`` agree.
     """
 
-    __slots__ = ("_stats", "_trace", "_node", "_oid", "_t", "_stage")
+    __slots__ = ("_stats", "_trace", "_node", "_oid", "_t", "_stage", "_cat", "_field")
 
     def __init__(self, stats, trace: FlightRecorder, node: int, object_id: Optional[str],
-                 stage: str = STAGE_PLAN):
+                 stage: str = STAGE_PLAN, *, cat: str = CAT_STAGE, field: str = "stage_seconds"):
         self._stats = stats
         self._trace = trace
         self._node = node
         self._oid = object_id
         self._t = trace.clock()
         self._stage = stage
+        self._cat = cat
+        self._field = field
 
     @property
     def stage(self) -> str:
@@ -347,10 +467,10 @@ class StageClock:
         dur = now - self._t
         if dur > 0.0:
             if self._stats is not None:
-                self._stats.note_stage(self._stage, dur)
+                self._stats.note_seconds(self._field, self._stage, dur)
             if self._trace.enabled:
                 self._trace.span(
-                    CAT_STAGE, self._stage, self._node, self._t, dur,
+                    self._cat, self._stage, self._node, self._t, dur,
                     object_id=self._oid,
                 )
         self._t = now

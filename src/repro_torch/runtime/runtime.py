@@ -34,6 +34,13 @@ size a killed node takes its tasks' results with it, so without the first
 a reduce over the first finishers fails whenever one of them ran there;
 without the third it fails whenever one of them finished between a node's
 kill and its restart.
+
+Each task's wall time, from ``remote()`` to its ref being ready, is split
+into consecutive stages (``core/trace.TASK_STAGES``): ``task-queued`` until
+its thread holds an executor slot, ``task-args`` resolving its ObjectRef
+arguments, ``task-run`` in ``fn``, ``task-put`` Putting the result.  They are
+summed into ``cluster.stats["task_seconds"]`` always and, with the cluster's
+recorder on, recorded as ``task`` spans under the task's ref id.
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ import numpy as np
 
 from repro_torch.core.api import SUM, ObjectLost, ReduceOp, as_tensor
 from repro_torch.core.local import DeadNode, LocalCluster
+from repro_torch.core.trace import CAT_TASK, TASK_ARGS, TASK_PUT, TASK_QUEUED, TASK_RUN, StageClock
 
 
 class TaskError(RuntimeError):
@@ -223,11 +231,12 @@ class Runtime:
         ref = ObjectRef(self)
         node = self._pick_node(node)
         ref.node = node
+        clock = self._task_clock(ref)
         with self._lock:
             self._lineage[ref.id] = (fn, args, kwargs, node)
             self._refs[ref.id] = ref
         t = threading.Thread(
-            target=self._execute, args=(ref, fn, args, kwargs, node), daemon=True
+            target=self._execute, args=(ref, fn, args, kwargs, node, clock), daemon=True
         )
         t.start()
         return ref
@@ -264,14 +273,24 @@ class Runtime:
             return self.get(arg, node=node)
         return arg
 
-    def _execute(self, ref: ObjectRef, fn, args, kwargs, node: int):
+    def _task_clock(self, ref: ObjectRef) -> StageClock:
+        """The clock of a task's stages, started now in ``task-queued``."""
+        c = self.cluster
+        return StageClock(c._stats, c.trace, ref.node, ref.id, TASK_QUEUED, cat=CAT_TASK, field="task_seconds")
+
+    def _execute(self, ref: ObjectRef, fn, args, kwargs, node: int, clock: Optional[StageClock] = None):
+        clock = clock or self._task_clock(ref)
         try:
             for attempt in range(3):
                 try:
+                    clock.switch(TASK_QUEUED)
                     with self._sema[node]:
+                        clock.switch(TASK_ARGS)
                         resolved = [self._resolve(a, node) for a in args]
                         rkw = {k: self._resolve(v, node) for k, v in kwargs.items()}
+                        clock.switch(TASK_RUN)
                         out = fn(*resolved, **rkw)
+                        clock.switch(TASK_PUT)
                         self.cluster.put(node, ref.id, out)
                     return
                 except DeadNode as e:
@@ -287,6 +306,7 @@ class Runtime:
             ref.error = e
         finally:
             self.tasks_executed += 1
+            clock.close()
             ref.ready.set()
             self._fire_callbacks(ref)
 

@@ -323,6 +323,10 @@ def test_latency_histogram_matches_jax(exact_limit):
 
 
 def test_dataplane_stats_match_jax_with_the_fold_count_beside():
+    """The port's counters are the reference's, key by key, but for these:
+    it leaves out ``notified_waiters`` and ``dir_wakeups`` (read by nothing
+    in the port), and adds ``fold_ops``, the hand-off timers and
+    ``task_seconds``."""
     t, j = TST.DataPlaneStats(), JST.DataPlaneStats()
     for s in (t, j):
         s.wakeups += 3
@@ -333,10 +337,23 @@ def test_dataplane_stats_match_jax_with_the_fold_count_beside():
         s.note_stage("streaming", 0.5)
     snap = t.snapshot()
     assert snap.pop("fold_ops") == 0
-    assert snap == j.snapshot()
+    assert snap.pop("woken") == 0
+    assert snap.pop("wake_lag_seconds") == 0.0
+    assert snap.pop("window_issue_seconds") == 0.0
+    assert snap.pop("dir_lock_wait_seconds") == 0.0
+    assert snap.pop("task_seconds") == {}
+    want = j.snapshot()
+    assert want.pop("notified_waiters") == 0
+    assert want.pop("dir_wakeups") == 0
+    assert snap == want
     t.fold_ops = 5
+    t.note_wake(0.25)
+    t.note_window(0.5)
+    t.note_seconds("task_seconds", "task-run", 1.0)
+    assert (t.woken, t.wake_lag_seconds, t.windows, t.window_issue_seconds) == (1, 0.25, 1, 0.5)
     t.reset()
     assert t.fold_ops == 0 and t.snapshot()["bytes_served"] == {}
+    assert (t.woken, t.wake_lag_seconds, t.window_issue_seconds, t.task_seconds) == (0, 0.0, 0.0, {})
 
 
 # ---------------------------------------------------------------------------

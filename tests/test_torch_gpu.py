@@ -1005,6 +1005,40 @@ def test_dataplane_on_the_card_is_exact_through_the_kernel(cuda, op):
     c.shutdown()
 
 
+def test_dataplane_window_spans_carry_the_cards_completion(cuda):
+    """A traced 32 MB f32 allreduce over 8 nodes on the card: every window
+    span carries ``card_done``, resolved from its CUDA event against the
+    recorder's anchors, at or after the window's advance (less the anchors'
+    own uncertainty) and before the read; with the recorder off no event is
+    made."""
+    from repro_torch.core.api import SUM
+    from repro_torch.core.local import LocalCluster
+
+    n, elems = 8, (32 << 20) // 4
+    c = LocalCluster(n)
+    xs = [torch.randint(-1000, 1000, (elems,), generator=cuda, device="cuda").float() for _ in range(n)]
+    for i, x in enumerate(xs):
+        c.put(i, f"g{i}", x)
+    ids = [f"g{i}" for i in range(n)]
+    c.allreduce(list(range(n)), "off", ids, SUM, timeout=120.0)
+    assert c.trace.events() == []
+    s0 = c.stats
+    c.trace.enable()
+    c.allreduce(list(range(n)), "on", ids, SUM, timeout=120.0)
+    c.trace.disable()
+    s1 = c.stats
+    t_read = time.perf_counter()
+    windows = [e for e in c.trace.events() if e[4] == "window"]
+    assert len(windows) == s1["windows"] - s0["windows"] > 0
+    slack = max(half for _ev, _t, half in c.trace._anchors) + 1e-4
+    for ts, _node, _tid, _cat, _name, dur, _oid, args in windows:
+        assert isinstance(args["card_done"], float)
+        assert ts + dur - slack <= args["card_done"] <= t_read + slack
+    assert abs(c.trace.card_skew()) < 1e-2
+    assert torch.equal(c.get(0, "on"), c.get(0, "off"))
+    c.shutdown()
+
+
 def test_serve_ensemble_on_the_card_folds_through_the_kernel(cuda):
     """Hoplite-Serve on the card: 8 replicas of a 1 MB f32 weight matrix,
     256 KB f32 payloads, a quorum of 5.  Each value is the mean of five
